@@ -5,17 +5,22 @@
 
 Builds the port's CUDA kernels from ``deeplearning4j_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), holds each kernel against its
-plain PyTorch version at the shapes of the paged int8 serving path, then
-drives that path through the entry points a user calls:
+plain PyTorch version at the shapes of the port's main paths (paged int8
+serving and the flagship train step), then drives those paths through the
+entry points a user calls:
 
 1. the card (``nvidia-smi`` name and power limit) and the build time;
 2. ``int8_matmul`` at M in {1, 8} over the FFN and LM-head weights, and
    ``paged_attention`` / ``paged_attention_int8`` at B=8, H=12,
    Kv in {12, 4}, Dh=64, page 16, 128 pages per row, ragged lengths up to
-   2048, bf16 (and float32 for the error alone) — max error against
-   the tolerance, and the times of the
-   kernel, its plain version and a one-call PyTorch yardstick beside the
-   least time the card could take;
+   2048; then the training kernels: ``flash_attention`` and
+   ``fused_attention`` (causal and not) at the two training legs' shapes
+   (B=64, T=512 and B=8, T=2048; H=12, Dh=64), ``fused_residual_layernorm``
+   at N in {32768, 16384} rows of 768 and ``blocked_cross_entropy`` at
+   those N against the tied 32768 x 768 head — each in bf16 (and float32
+   for the error alone) against its plain version run in float32 on the
+   same values, with the times of the kernel, its plain version and a
+   one-call PyTorch yardstick beside the least time the card could take;
 3. engine A: ``InferenceEngine`` at the full width of the default
    ``TransformerConfig`` (random weights from a seed) with
    ``ServingConfig(slots=8, paged=True, page_size=16, int8_decode=True,
@@ -26,14 +31,31 @@ drives that path through the entry points a user calls:
 4. engine B: as A with ``kv_quant="int8", paged_attention_impl=
    "pallas_int8"`` and 8 requests;
 5. ``ModelServer`` over engine A answering 2 requests via ``ServingClient``;
-6. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+6. training leg A, the BERT-base leg of the JAX package's benchmark
+   (vocab 32768, d_model 768, 12 heads, 12 layers, d_ff 3072, T=512,
+   bidirectional, bf16, no remat, ``attention="flash", fused_ln=True,
+   xent_impl="blocked"``): ``TransformerLM.build_train_step(adamw(
+   warmup_cosine(1e-4, 10, 1000), weight_decay=0.01))`` at batch 64 x 512,
+   one warm-up and five timed steps (p50 step time, tokens/s, MFU, the
+   loss of every step, the launch counts against what the config implies)
+   and one more step under ``torch.profiler`` (device time by kernel and
+   by class: the port's kernels, f32 GEMMs, tensor-core GEMMs, the rest);
+7. training leg B, the default causal ``TransformerConfig`` (T=2048,
+   remat) with ``attention="fused", fused_ln=True, xent_impl="blocked"`` at
+   batch 8 x 2048, one warm-up, three timed steps and one profiled;
+8. one train step's loss and gradients through the kernels against the
+   same through every plain version, on one state at batch 4 x 512, for
+   both legs' configs, in bf16 and float32;
+9. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed phase exits non-zero without the last line, as does a machine
 without CUDA or a directory without the rest of the repository.  Device
 times come from CUDA events around CUDA-graph replays of many launches,
 cycling over enough copies of the operands to exceed the 50 MB L2 cache
-(a decode step finds its weights and pages cold).
+(a decode step finds its weights and pages cold); the plain versions and
+yardsticks of the training kernels, tens of ms each, are timed with CUDA
+events around eager calls.
 """
 
 from __future__ import annotations
@@ -75,6 +97,37 @@ TOL_LOGITS_BF16 = 0.05
 # that noise and no more.
 TOL_TOP1 = 0.99          # float32 compute
 TOL_TOP1_BF16 = 0.95     # bf16 compute (the engines' dtype)
+# flash/fused attention against the plain version run in float32 on the
+# same values.  f32 kernel, out and lse: summation order only (measured
+# 9.5e-7, one ulp of the lse).  bf16: the kernel rounds each softmax weight
+# p to bf16 for the tensor-core P V, which moves the output by at most half
+# a unit in the last place of sum(p |v|) / l, and rounds the output once,
+# half a unit of |out|: held to |out - ref| <= ATOL + RTOL * (sum(p |v|) / l
+# + |ref|), the plain version run on |v| giving the first term
+TOL_FLASH_F32 = 1e-5
+TOL_FLASH_BF16 = (1e-5, 2 ** -8)
+# residual + LayerNorm: bf16 outputs within half a unit in the last place
+# of the f32 values (plus the f32 summation order); f32 outputs (measured
+# 1.4e-6 where |h| reaches ~5)
+TOL_LN_BF16 = (1e-5, 2 ** -8)
+TOL_LN_F32 = 1e-5
+# blocked xent, per-token loss and lse (~10.5): bf16 products are exact in
+# the f32 accumulators, so bf16 and f32 differ from the plain version by
+# summation order only (measured 3.8e-6, four ulps)
+TOL_XENT = 2e-5
+# one train step at 4 x 512, kernels vs plain versions: (loss relative
+# error, max over the leaves of max |grad difference| / max |plain grad|).
+# f32: summation order (measured 0 and 1.8e-6).  bf16: the rounding of P
+# and of every bf16 activation downstream of it (measured 8.3e-6 and
+# 0.017 on an H100)
+TOL_STEP_F32 = (1e-6, 2e-5)
+TOL_STEP_BF16 = (1e-4, 0.05)
+
+#: the training kernels' wrappers, by the kernels line's names
+TRAIN_KERNELS = ("flash_attention", "fused_attention",
+                 "fused_residual_layernorm", "blocked_cross_entropy")
+#: rows of the LN and xent calls in the two training legs (64 x 512, 8 x 2048)
+TRAIN_ROWS = (32768, 16384)
 
 # the card's rates for the least-time bound, by product name
 RATES = {  # name fragment: (bytes/s, bf16 dense ops/s)
@@ -311,17 +364,412 @@ def check_paged(torch, tpa, kv_quant, dev, rates, cases):
             del pools, dense
 
 
+def event_ms(torch, fn, reps: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` eager calls (after one
+    warm-up), from CUDA events: for calls of many ms, where launch gaps do
+    not matter and a CUDA graph of their allocations would not fit."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_of(nbytes: float, ops: float, rates) -> tuple[float, str]:
+    bw, peak = rates
+    return (max(nbytes / bw, ops / peak) * 1e3,
+            "bytes" if nbytes / bw >= ops / peak else "operations")
+
+
+def within(out, ref, tol) -> tuple[bool, float]:
+    """``|out - ref| <= atol + rtol |ref|`` everywhere, finite; and the max
+    absolute error."""
+    atol, rtol = tol
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all().item()
+              and torch_isfinite(out))
+    return ok, diff.max().item()
+
+
+def torch_isfinite(t) -> bool:
+    return bool(t.float().isfinite().all().item())
+
+
+#: (kernel, B, T, causal): the two training legs' shapes, each leg's own
+#: kernel first; the other two run a kernel at the other leg's shape
+ATTN_CASES = (("flash_attention", 64, 512, False),
+              ("fused_attention", 8, 2048, True),
+              ("flash_attention", 8, 2048, True),
+              ("fused_attention", 64, 512, False))
+
+
+def check_attention(torch, tat, dev, rates, cases, H=12, Dh=64):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for name, B, T, causal in ATTN_CASES:
+        frontier = name == "fused_attention"
+        # q/k/v as the strided views of packed (B,T,3,H,Dh) projections,
+        # as the train step hands them over; two copies exceed the L2
+        packs = [torch.randn((B, T, 3, H, Dh), generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(2)]
+        views = [tuple(p[:, :, i] for i in range(3)) for p in packs]
+        q, k, v = views[0]
+        ref, ref_lse = tat.reference_flash_fwd(q.float(), k.float(),
+                                               v.float(), causal)
+        out, lse = tat.attention_fwd(q, k, v, causal=causal,
+                                     frontier=frontier)
+        torch.cuda.synchronize()
+        ref_abs, _ = tat.reference_flash_fwd(q.float(), k.float(),
+                                             v.float().abs(), causal)
+        diff = (out.float() - ref).abs()
+        atol, rtol = TOL_FLASH_BF16
+        ok = bool((diff <= atol + rtol * (ref_abs + ref.abs())).all().item()
+                  and torch_isfinite(out))
+        err = diff.max().item()
+        del ref_abs, diff
+        lse_err = (lse - ref_lse).abs().max().item()
+        out32, lse32 = tat.attention_fwd(q.float(), k.float(), v.float(),
+                                         causal=causal, frontier=frontier)
+        e32 = max((out32 - ref).abs().max().item(),
+                  (lse32 - ref_lse).abs().max().item())
+        if not (ok and lse_err < TOL_FLASH_F32 and e32 < TOL_FLASH_F32):
+            fail(f"{name} B={B} T={T} causal={causal}: max err bf16 {err} "
+                 f"(tol {TOL_FLASH_BF16}), lse {lse_err}, f32 {e32} (tol "
+                 f"{TOL_FLASH_F32})")
+        del ref, ref_lse, out32, lse32
+        ms = device_ms(torch, [lambda w=w: tat.attention_fwd(
+            *w, causal=causal, frontier=frontier) for w in views], reps=5)
+        pms = event_ms(torch, lambda: tat.reference_flash_fwd(q, k, v,
+                                                                causal), 2)
+        dense = [tuple(t.transpose(1, 2).contiguous() for t in w)
+                 for w in views]
+        lms = device_ms(torch, [lambda d=d: F.scaled_dot_product_attention(
+            *d, is_causal=causal) for d in dense], reps=5)
+        nbytes = 4 * B * T * H * Dh * 2 + B * H * T * 4
+        pairs = T * (T + 1) // 2 if causal else T * T
+        ops = 4 * B * H * Dh * pairs            # the work these inputs need
+        bound, by = bound_of(nbytes, ops, rates)
+        cases.append({"kernel": name, "B": B, "T": T, "H": H, "Dh": Dh,
+                      "causal": causal, "max_abs_err": err,
+                      "tol": f"{TOL_FLASH_BF16[0]} + {TOL_FLASH_BF16[1]} "
+                             "(sum(p|v|)/l + |ref|)",
+                      "max_abs_err_f32": e32, "lse_err": lse_err,
+                      "tol_f32": TOL_FLASH_F32, "ms": ms, "plain_ms": pms,
+                      "library_ms": lms, "bound_ms": bound, "bound_by": by,
+                      "bytes": nbytes, "ops": ops})
+        print(f"kernel {name} B={B} T={T} H={H} Dh={Dh} causal={causal}: "
+              f"max_err bf16={err:.3g} lse={lse_err:.3g} f32={e32:.3g} "
+              f"kernel_ms={ms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
+              f"bound_ms={bound:.5f} ({by})", flush=True)
+        del packs, views, dense, q, k, v, out, lse
+
+
+def check_layernorm(torch, tln, dev, rates, cases, D=768):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for N in TRAIN_ROWS:
+        ncopy = copies_for(2 * N * D * 2)
+        xs = [torch.randn((N, D), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(ncopy)]
+        rs = [torch.randn((N, D), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(ncopy)]
+        m = torch.ones((N, 1), device=dev)     # the train step's keep-mask
+        s = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+        b = 0.1 * torch.randn((D,), generator=gen, device=dev)
+        ry, rh = tln.reference_residual_layernorm(xs[0].float(),
+                                                  rs[0].float(), s, b, mask=m)
+        y, h = tln.residual_layernorm_fwd(xs[0], rs[0], m, s, b)
+        torch.cuda.synchronize()
+        oky, ey = within(y, ry, TOL_LN_BF16)
+        okh, eh = within(h, rh, TOL_LN_BF16)
+        y32, h32 = tln.residual_layernorm_fwd(xs[0].float(), rs[0].float(),
+                                              m, s, b)
+        e32 = max((y32 - ry).abs().max().item(),
+                  (h32 - rh).abs().max().item())
+        if not (oky and okh and e32 < TOL_LN_F32):
+            fail(f"fused_residual_layernorm N={N}: max err bf16 {max(ey, eh)}"
+                 f" (tol {TOL_LN_BF16}), f32 {e32} (tol {TOL_LN_F32})")
+        ms = device_ms(torch, [lambda x=x, r=r: tln.residual_layernorm_fwd(
+            x, r, m, s, b) for x, r in zip(xs, rs)])
+        pms = device_ms(torch, [lambda x=x, r=r: tln.reference_residual_layernorm(
+            x, r, s, b, mask=m) for x, r in zip(xs[:2], rs[:2])], reps=5)
+        sums = [x + r for x, r in zip(xs, rs)]
+        sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
+        lms = device_ms(torch, [lambda z=z: F.layer_norm(z, (D,), sb, bb)
+                                for z in sums])
+        nbytes = 4 * N * D * 2 + N * 4 + 2 * D * 4
+        ops = 9 * N * D
+        bound, by = bound_of(nbytes, ops, rates)
+        cases.append({"kernel": "fused_residual_layernorm", "N": N, "D": D,
+                      "max_abs_err": max(ey, eh),
+                      "tol": f"{TOL_LN_BF16[0]} + {TOL_LN_BF16[1]} |ref|",
+                      "max_abs_err_f32": e32, "tol_f32": TOL_LN_F32,
+                      "ms": ms, "plain_ms": pms, "library_ms": lms,
+                      "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                      "ops": ops})
+        print(f"kernel fused_residual_layernorm N={N} D={D}: max_err "
+              f"bf16={max(ey, eh):.3g} f32={e32:.3g} kernel_ms={ms:.5f} "
+              f"plain_ms={pms:.5f} library_ms={lms:.5f} "
+              f"bound_ms={bound:.5f} ({by})", flush=True)
+        del xs, rs, sums
+
+
+def check_xent(torch, txe, dev, rates, cases, V=32768, D=768):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    # the tied head as the train step hands it over: tok_embed (V, D) at
+    # the init scale, cast to bf16, read as (D, V) through its strides
+    embs = [(0.02 * torch.randn((V, D), generator=gen, device=dev))
+            .to(torch.bfloat16) for _ in range(2)]
+    for N in TRAIN_ROWS:
+        hs = [torch.randn((N, D), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2)]
+        tg = torch.randint(0, V, (N,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        w = torch.ones((N,), device=dev)
+        head = embs[0].T
+        rw, rl = txe.reference_xent_rows(hs[0], head, tg, w)
+        wl, lse = txe.xent_fwd(hs[0], head, tg, w)
+        torch.cuda.synchronize()
+        err = max((wl - rw).abs().max().item(), (lse - rl).abs().max().item())
+        wl32, lse32 = txe.xent_fwd(hs[0].float(), head.float(), tg, w)
+        e32 = max((wl32 - rw).abs().max().item(),
+                  (lse32 - rl).abs().max().item())
+        if not (err < TOL_XENT and e32 < TOL_XENT and torch_isfinite(wl)):
+            fail(f"blocked_cross_entropy N={N}: max err bf16 {err}, f32 {e32}"
+                 f" (tol {TOL_XENT})")
+        del rw, rl, wl32, lse32
+        ms = device_ms(torch, [lambda h=h, e=e: txe.xent_fwd(h, e.T, tg, w)
+                               for h, e in zip(hs, embs)], reps=3)
+        pms = event_ms(torch, lambda: txe.reference_xent_rows(hs[0], head, tg,
+                                                              w), 2)
+        tl = tg.long()
+        lms = event_ms(torch, lambda: F.cross_entropy(hs[0] @ head, tl,
+                                                      reduction="sum"), 3)
+        nbytes = N * D * 2 + D * V * 2 + N * 4 * 4
+        ops = 2 * N * V * D
+        bound, by = bound_of(nbytes, ops, rates)
+        cases.append({"kernel": "blocked_cross_entropy", "N": N, "V": V,
+                      "D": D, "max_abs_err": err, "tol": TOL_XENT,
+                      "max_abs_err_f32": e32, "tol_f32": TOL_XENT, "ms": ms,
+                      "plain_ms": pms, "library_ms": lms, "bound_ms": bound,
+                      "bound_by": by, "bytes": nbytes, "ops": ops})
+        print(f"kernel blocked_cross_entropy N={N} V={V} D={D}: max_err "
+              f"bf16={err:.3g} f32={e32:.3g} kernel_ms={ms:.5f} "
+              f"plain_ms={pms:.5f} library_ms={lms:.5f} "
+              f"bound_ms={bound:.5f} ({by})", flush=True)
+        del hs
+    del embs
+
+
+# ------------------------------------------------------------------ training
+
+def train_leg(torch, ttr, TT, cfg, batch, seq, steps, label, wrappers,
+              rates, profile=False):
+    """Warm-up then ``steps`` timed train steps of ``cfg`` at ``batch`` x
+    ``seq`` through ``TransformerLM.build_train_step``, counts reset just
+    before the timed steps; then, with ``profile``, one more step under
+    ``torch.profiler``.  Fails on a non-finite loss, a first loss off
+    ln(V) or launch counts other than the config implies."""
+    import math
+
+    model = ttr.TransformerLM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    tx = TT.adamw(TT.warmup_cosine(1e-4, 10, 1000), weight_decay=0.01)
+    opt = model.init_opt(params, tx)
+    step = model.build_train_step(tx)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = []
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                             device="cuda")
+        batches.append((toks, torch.roll(toks, -1, dims=1)))
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, loss = step(params, opt, *batches[0])        # warm-up
+    losses = [loss.item()]
+    # random init: logits near 0, so the first loss is near ln(V)
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        fail(f"{label}: first loss {losses[0]} far from ln(V)")
+    reset_counts(wrappers)
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, *batches[(i + 1) % 2])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = {w.__name__: w.launches for w in wrappers}
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss in {losses}")
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)   # remat reruns fwd
+    attn = {"flash": "flash_attention", "fused": "fused_attention"}[
+        cfg.attention]
+    expected = {name: 0 for name in counts}
+    expected.update({attn: per_step * steps,
+                     "fused_residual_layernorm": per_step * steps,
+                     "blocked_cross_entropy": steps})
+    if counts != expected:
+        fail(f"{label}: launches {counts}, the config implies {expected}")
+    p50 = sorted(times)[len(times) // 2]
+    tokens = batch * seq
+    report = {"batch": batch, "seq": seq, "causal": cfg.causal,
+              "remat": cfg.remat, "attention": cfg.attention,
+              "steps": steps, "step_s": times, "p50_step_s": p50,
+              "tokens_per_s": tokens / p50,
+              "mfu": cfg.flops_per_token() * tokens / p50 / rates[1],
+              "losses": losses, "launches": counts,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "config": str(cfg)}
+    if profile:
+        report["profile"] = profile_step(torch, step, params, opt,
+                                         batches[0])
+    print(f"{label}: batch {batch}x{seq} p50_step_ms={p50 * 1e3:.2f} "
+          f"tokens_per_s={report['tokens_per_s']:.1f} "
+          f"mfu={report['mfu']:.4f} losses={[round(x, 5) for x in losses]} "
+          f"launches={counts} peak_mem_gb={report['peak_mem_gb']:.2f}",
+          flush=True)
+    del params, opt, step, model
+    torch.cuda.empty_cache()
+    return report
+
+
+#: symbols of the port's own training kernels, as the profiler names them
+PORT_KERNEL_SYMBOLS = ("flash_fwd_kernel", "xent_tiles_kernel",
+                       "xent_merge_kernel", "residual_layernorm_kernel")
+
+
+def kernel_class(name: str) -> str:
+    """The layer a device kernel of the train step belongs to."""
+    if any(sym in name for sym in PORT_KERNEL_SYMBOLS):
+        return "port kernels"
+    low = name.lower()
+    if "sgemm" in low or "f32f32_f32f32" in low:
+        return "f32 GEMM"
+    # cuBLAS names its Hopper tensor-core GEMMs nvjet_*
+    if "gemm" in low or low.startswith("nvjet"):
+        return "tensor-core GEMM"
+    return "elementwise, reductions, copies"
+
+
+def profile_step(torch, step, params, opt, batch):
+    """One train step under ``torch.profiler``: device time by kernel name
+    and by class (:func:`kernel_class`), and the device's busy share of
+    the step's wall time (one stream, so kernel times add up without
+    overlap)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, *batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: Counter = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    if busy_ms <= 0:
+        print("profile: no device time in the trace (not measured)",
+              flush=True)
+        return {"wall_ms": wall * 1e3, "busy_ms": None}
+    by_class: Counter = Counter()
+    for n, us in by_name.items():
+        by_class[kernel_class(n)] += us / 1e3
+    top = [{"name": n[:120], "ms": us / 1e3} for n, us in
+           by_name.most_common(15)]
+    out = {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / (wall * 1e3),
+           "by_class_ms": dict(by_class), "top": top,
+           "by_name_ms": {n: us / 1e3 for n, us in by_name.most_common()}}
+    print(f"profile: step wall_ms={wall * 1e3:.2f} device busy_ms="
+          f"{busy_ms:.2f} idle_share={out['idle_share']:.4f}", flush=True)
+    for c, ms in by_class.most_common():
+        print(f"  class {ms:9.3f} ms  {c}", flush=True)
+    for t in top:
+        print(f"  {t['ms']:9.3f} ms  {t['name']}", flush=True)
+    return out
+
+
+def step_kernels_vs_plain(torch, ttr, tat, tln, txe, base_cfg, label,
+                          B=4, T=512):
+    """Loss and gradients of one train step through the kernels against the
+    same through every plain version (``TrainKernels``), on one state, in
+    bf16 and float32; fails outside the tolerances."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.utils.tree_math import (tree_leaves,
+                                                          tree_unflatten)
+
+    plain = ttr.TrainKernels(
+        attention=lambda q, k, v, causal: tat.reference_flash_fwd(
+            q, k, v, causal)[0],
+        residual_layernorm=tln.reference_residual_layernorm,
+        xent=txe.reference_xent_sum)
+    out = {}
+    for dtype, (tol_loss, tol_grad) in ((torch.bfloat16, TOL_STEP_BF16),
+                                        (torch.float32, TOL_STEP_F32)):
+        cfg = dataclasses.replace(base_cfg, dtype=dtype, remat=False)
+        params = ttr.init_params(torch.Generator(device="cuda").manual_seed(7),
+                                 cfg, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                             device="cuda")
+        tg = torch.roll(toks, -1, dims=1)
+        runs = []
+        for kern in (None, plain):
+            leaves = [p.detach().requires_grad_(True)
+                      for p in tree_leaves(params)]
+            loss = ttr.lm_loss_local(tree_unflatten(params, leaves), toks, tg,
+                                     cfg, kernels=kern)
+            runs.append((loss.item(), torch.autograd.grad(loss, leaves)))
+        (lk, gk), (lp, gp) = runs
+        loss_err = abs(lk - lp) / abs(lp)
+        grad_err = max(((a - b).abs().max() / b.abs().max()).item()
+                       for a, b in zip(gk, gp))
+        dt = str(dtype).replace("torch.", "")
+        out[dt] = {"loss_kernels": lk, "loss_plain": lp,
+                   "loss_rel_err": loss_err, "grad_rel_err": grad_err}
+        if not (loss_err <= tol_loss and grad_err <= tol_grad):
+            fail(f"{label} ({dt}): kernels vs plain loss rel err {loss_err} "
+                 f"(tol {tol_loss}), max grad rel err {grad_err} (tol "
+                 f"{tol_grad})")
+        del params, runs, gk, gp
+    print(f"{label}: kernels vs plain, one step at {B}x{T}: {out}", flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ report
 
-def main_path_weights(case, reports, mcfg):
-    """Launches of the main-path run at a measured case's shape.
+def main_path_weights(case, reports, mcfg, legs):
+    """Launches of the main-path runs at a measured case's shape.
 
-    Every step runs 2 FFN matmuls per layer and the head, at M=1 in
-    prefill and M=slots in decode; every decode step runs one paged
+    Serving: every step runs 2 FFN matmuls per layer and the head, at M=1
+    in prefill and M=slots in decode; every decode step runs one paged
     attention per layer with the config's kv heads (prefill attends over
-    its dense batch-of-1 cache).  Cases off the main path weigh 0."""
+    its dense batch-of-1 cache).  Training: a leg's attention launches
+    count at its (B, T, causal), its LN and xent launches at its B*T rows.
+    Cases off the main paths weigh 0."""
+    name = case["kernel"]
+    if name in TRAIN_KERNELS:
+        if "T" in case:
+            return sum(leg["launches"][name] for leg in legs
+                       if (leg["batch"], leg["seq"], leg["causal"])
+                       == (case["B"], case["T"], case["causal"]))
+        return sum(leg["launches"][name] for leg in legs
+                   if leg["batch"] * leg["seq"] == case["N"])
     ffn = {(mcfg.d_model, mcfg.d_ff), (mcfg.d_ff, mcfg.d_model)}
-    if case["kernel"] == "int8_matmul":
+    if name == "int8_matmul":
         per_step = (mcfg.n_layers if (case["K"], case["N"]) in ffn
                     else 1 if case["N"] == mcfg.vocab_size else 0)
         steps = sum(r["prefill_steps"] if case["M"] == 1
@@ -330,30 +778,38 @@ def main_path_weights(case, reports, mcfg):
         return per_step * steps
     if case["Kv"] != mcfg.kv_heads:
         return 0
-    quant = case["kernel"] == "paged_attention_int8"
+    quant = name == "paged_attention_int8"
     return mcfg.n_layers * sum(r["decode_steps"] for r in reports
                                if (r["kv_quant"] == "int8") == quant)
 
 
-def kernel_rows(cases, la, lb, reports, mcfg, rates):
+def kernel_rows(cases, reports, legs, mcfg, rates):
     """The ``kernels`` line: per kernel, ms / plain_ms / library_ms /
-    bound_ms are means over the main-path run's launches (each measured
-    shape weighted by its launches in that run), and ``shapes`` lists
+    bound_ms are means over the main-path runs' launches (each measured
+    shape weighted by its launches in those runs), and ``shapes`` lists
     every shape measured, with its weight."""
     src = "deeplearning4j_tpu_torch/csrc/"
+    jax = "deeplearning4j_tpu/ops/"
     meta = {
         "int8_matmul": (src + "int8_matmul.cu",
-                        "deeplearning4j_tpu/ops/pallas/matmul_int8.py:86"),
+                        jax + "pallas/matmul_int8.py:86"),
         "paged_attention": (src + "paged_attention.cu",
-                            "deeplearning4j_tpu/ops/pallas/paged_attention.py:197"),
-        "paged_attention_int8": (
-            src + "paged_attention.cu",
-            "deeplearning4j_tpu/ops/pallas/paged_attention.py:258"),
+                            jax + "pallas/paged_attention.py:197"),
+        "paged_attention_int8": (src + "paged_attention.cu",
+                                 jax + "pallas/paged_attention.py:258"),
+        "flash_attention": (src + "flash_attention.cu",
+                            jax + "flash_attention.py:93"),
+        "fused_attention": (src + "flash_attention.cu",
+                            jax + "pallas/attention.py:102"),
+        "fused_residual_layernorm": (src + "residual_layernorm.cu",
+                                     jax + "pallas/layernorm.py:74"),
+        "blocked_cross_entropy": (src + "blocked_xent.cu",
+                                  jax + "pallas/xent.py:97"),
     }
     rows = []
     for kname, (source, replaces) in meta.items():
         kcases = [c for c in cases if c["kernel"] == kname]
-        w = [main_path_weights(c, reports, mcfg) for c in kcases]
+        w = [main_path_weights(c, reports, mcfg, legs) for c in kcases]
         if sum(w) <= 0:
             fail(f"{kname}: no measured shape lies on the main path")
 
@@ -364,9 +820,13 @@ def kernel_rows(cases, la, lb, reports, mcfg, rates):
                                                      "tol_f32")}
                   | {"main_path_launches": wi} for wi, c in zip(w, kcases)]
         bw, peak = rates
+        if kname in TRAIN_KERNELS:
+            launches = sum(leg["launches"][kname] for leg in legs)
+        else:
+            launches = sum(r["launches"][kname] for r in reports)
         rows.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": la[kname] + lb[kname],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in kcases),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
@@ -509,9 +969,13 @@ def main() -> int:
     import numpy as np
 
     from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.ops.cuda import attention as tat
     from deeplearning4j_tpu_torch.ops.cuda import build, kv_quant
+    from deeplearning4j_tpu_torch.ops.cuda import layernorm as tln
     from deeplearning4j_tpu_torch.ops.cuda import matmul_int8 as tmm
     from deeplearning4j_tpu_torch.ops.cuda import paged_attention as tpa
+    from deeplearning4j_tpu_torch.ops.cuda import xent as txe
+    from deeplearning4j_tpu_torch.optimize import transforms as TT
     from deeplearning4j_tpu_torch.serving import engine as eng
     from deeplearning4j_tpu_torch.serving import ModelServer, ServingClient
 
@@ -529,6 +993,9 @@ def main() -> int:
     cases: list[dict] = []
     check_int8(torch, tmm, "cuda", rates, cases)
     check_paged(torch, tpa, kv_quant, "cuda", rates, cases)
+    check_attention(torch, tat, "cuda", rates, cases)
+    check_layernorm(torch, tln, "cuda", rates, cases)
+    check_xent(torch, txe, "cuda", rates, cases)
     print(json.dumps({"kernel_cases": cases}), flush=True)
 
     # ---- 3./4. the serving main path at full width
@@ -536,7 +1003,10 @@ def main() -> int:
     tmodel = ttr.TransformerLM(mcfg, device="cuda")
     params = tmodel.init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(0)
-    wrappers = (tmm.int8_matmul, tpa.paged_attention, tpa.paged_attention_int8)
+    wrappers = (tmm.int8_matmul, tpa.paged_attention,
+                tpa.paged_attention_int8, tat.flash_attention,
+                tat.fused_attention, tln.fused_residual_layernorm,
+                txe.blocked_cross_entropy)
     cfg_a = eng.ServingConfig(slots=8, paged=True, page_size=16,
                               int8_decode=True, paged_attention_impl="pallas")
     engine_a, rep_a = run_engine(eng, tmodel, params, cfg_a, 16, rng,
@@ -582,17 +1052,40 @@ def main() -> int:
           f"{rep_b['tokens_per_s']:.1f} ttft_p50_s={rep_b['ttft_p50_s']:.4f} "
           f"decode_step_p50_s={rep_b['decode_step_p50_s']:.5f} launches={lb} "
           f"teacher_forced={tf_b}", flush=True)
-    del engine_b
+    del engine_b, tmodel, params
+    torch.cuda.empty_cache()
 
-    # ---- 6. one line per kernel: its numbers weighted by this run's
+    # ---- 6./7. the train step at full width: the BERT-base leg (flash,
+    # bidirectional) and the default causal config (fused, remat)
+    cfg_a = ttr.TransformerConfig(
+        vocab_size=32768, d_model=768, n_heads=12, n_layers=12, d_ff=3072,
+        max_len=512, causal=False, dtype=torch.bfloat16, remat=False,
+        attention="flash", fused_ln=True, xent_impl="blocked")
+    cfg_b = ttr.TransformerConfig(attention="fused", fused_ln=True,
+                                  xent_impl="blocked")
+    leg_a = train_leg(torch, ttr, TT, cfg_a, 64, 512, 5, "train A",
+                      wrappers, rates, profile=True)
+    leg_b = train_leg(torch, ttr, TT, cfg_b, 8, 2048, 3, "train B",
+                      wrappers, rates, profile=True)
+
+    # ---- 8. one step through the kernels against the plain versions
+    step_a = step_kernels_vs_plain(torch, ttr, tat, tln, txe, cfg_a,
+                                   "train A")
+    step_b = step_kernels_vs_plain(torch, ttr, tat, tln, txe, cfg_b,
+                                   "train B")
+
+    # ---- 9. one line per kernel: its numbers weighted by this run's
     # launches at each main-path shape, and every shape measured
-    kernels = kernel_rows(cases, la, lb, [rep_a, rep_b], mcfg, rates)
+    kernels = kernel_rows(cases, [rep_a, rep_b], [leg_a, leg_b], mcfg,
+                          rates)
     if args.report:
         path = Path(args.report)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps({
             "card": card, "device": name, "build_s": build_s,
             "kernel_cases": cases, "engine_a": rep_a, "engine_b": rep_b,
+            "train_a": leg_a, "train_b": leg_b,
+            "step_vs_plain": {"train_a": step_a, "train_b": step_b},
             "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -3,8 +3,10 @@
 The caller turns the JAX tree into numpy arrays itself
 (``jax.tree_util.tree_map(np.asarray, params)``) — this module imports
 nothing of JAX.  Names and layouts are the same in both packages, so the
-conversion is a key-by-key copy.  A ``QuantizedLinear`` in the numpy tree
-(a named pair ``q``/``scale``) becomes the port's ``QuantizedLinear``.
+conversion is a key-by-key copy of any nesting, the parameter tree and
+the ``{"backbone", "head"}`` finetune tree alike.  A ``QuantizedLinear``
+in the numpy tree (a named pair ``q``/``scale``) becomes the port's
+``QuantizedLinear``.
 bfloat16 arrays (numpy's ml_dtypes extension type) travel as float32 and
 are cast back to bfloat16 on the torch side; :func:`params_to_numpy`
 returns bfloat16 tensors as float32 arrays.

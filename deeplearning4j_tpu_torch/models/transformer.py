@@ -1,31 +1,44 @@
-"""Transformer LM — the flagship model, decode/serving half.
+"""Transformer LM — the flagship model: training and decoding on one device.
 
-Port of the decode side of ``deeplearning4j_tpu/models/transformer.py``:
-config and parameters, the KV-cached ``decode_step``, the paged
-``decode_step_paged`` and ``TransformerLM.sample(kv_cache=True)``.  The
-parameter tree keeps the JAX package's names and layouts (``wqkv``
-``(D, 3, H, Dh)`` or ``wq``/``wkv`` under GQA, ``wo`` ``(H, Dh, D)``,
-``w1/b1/w2/b2``, tied ``tok_embed``, ``pos_embed``, ``final_ln_*``), so
-moving parameters between the packages is a key-by-key numpy copy
-(``models.convert``).  The training-side ``_block``, ``ring_attention``
-and ``lm_head_loss`` are not ported yet.
+Port of ``deeplearning4j_tpu/models/transformer.py`` without its mesh:
+config and parameters; the training forward (``_block`` with the ring /
+flash / fused attention and the fused residual+LayerNorm seam,
+``encode_local``, ``forward_local``) and losses (``lm_head_loss`` with its
+full, chunked and blocked routes, ``lm_loss_local``, the classifier head);
+the KV-cached ``decode_step`` and the paged ``decode_step_paged``; and
+``TransformerLM`` with ``build_train_step``/``build_finetune_step``,
+``fit``, ``score`` and ``sample(kv_cache=True)``.  The parameter tree
+keeps the JAX package's names and layouts (``wqkv`` ``(D, 3, H, Dh)`` or
+``wq``/``wkv`` under GQA, ``wo`` ``(H, Dh, D)``, ``w1/b1/w2/b2``, tied
+``tok_embed``, ``pos_embed``, ``final_ln_*``), so moving parameters
+between the packages is a key-by-key numpy copy (``models.convert``).
+Sequence and tensor parallel axes (``n_sp > 1``, ``tp_axis``) and a mesh
+raise ``NotImplementedError``: they come with the multi-device port.
 
 Numerics mirror the JAX package: matmuls in ``cfg.dtype``, attention
 scores, softmax and LayerNorm in f32.  Caches and page pools are updated
 IN PLACE where the JAX package returned new (donated) buffers; every
-function that does so says so.
+function that does so says so.  The train step is functional, as in JAX:
+it returns new parameters and optimizer state.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.cuda import kv_quant
+from ..ops import losses
+from ..ops.cuda import kv_quant, registry
+from ..ops.cuda.layernorm import fused_residual_layernorm
 from ..ops.cuda.matmul_int8 import int8_matmul
+from ..optimize import transforms as tx_mod
+from ..utils.tree_math import tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +53,14 @@ class TransformerConfig:
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16    # matmul compute dtype
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True               # recompute each block in the backward
+    attention: str = "ring"          # "ring" (torch incumbent) or a
+    #                                  registered attention kernel
+    #                                  ("flash", "fused")
+    fused_ln: bool = False           # fuse the mid-block residual + LN seam
+    xent_impl: str = "scan"          # "scan" (chunked, checkpointed) or
+    #                                  "blocked" (the streaming kernel)
+    xent_chunk: int = 2048           # LM-loss token-chunk size; 0 disables
     n_kv_heads: int | None = None    # GQA/MQA: K/V heads shared by groups
     #                                  of n_heads // n_kv_heads query heads
 
@@ -58,6 +79,16 @@ class TransformerConfig:
             raise ValueError(
                 f"n_kv_heads={kv} must divide n_heads={self.n_heads}")
         return kv
+
+    def flops_per_token(self) -> float:
+        """Approximate training FLOPs per token (fwd+bwd ~ 6 * params plus
+        the attention term), the MFU accounting of the JAX package."""
+        n_params = (self.vocab_size * self.d_model
+                    + self.n_layers * (4 * self.d_model * self.d_model
+                                       + 2 * self.d_model * self.d_ff)
+                    + self.max_len * self.d_model)
+        attn = self.n_layers * 2 * self.max_len * self.d_model
+        return 6.0 * (n_params + attn)
 
 
 # --------------------------------------------------------------------------- params
@@ -170,6 +201,223 @@ def _ffn(lp, h, dt, int8_fn=None):
     u = torch.einsum("...d,df->...f", h.to(dt), lp["w1"].to(dt))
     u = F.gelu(u + lp["b1"].to(dt), approximate="tanh")
     return torch.einsum("...f,fd->...d", u, lp["w2"].to(dt))
+
+
+# --------------------------------------------------------------------------- training forward
+
+@dataclasses.dataclass(frozen=True)
+class TrainKernels:
+    """The kernel entry points the training forward calls.  ``None`` takes
+    the default: the registered attention candidate named by
+    ``cfg.attention``, ``fused_residual_layernorm`` and
+    ``losses.blocked_token_xent``.  Another value replaces that call with
+    a function of the same signature; ``chip_smoke.py`` passes the plain
+    versions to hold one step through the kernels against one through
+    them."""
+
+    attention: Callable | None = None            # (q, k, v, *, causal)
+    residual_layernorm: Callable | None = None   # (x, r, scale, bias)
+    xent: Callable | None = None                 # (h, head, targets)
+
+
+_DEFAULT_KERNELS = TrainKernels()
+
+
+def _no_axes(n_sp: int = 1, sp_axis=None, tp_axis=None) -> None:
+    if n_sp != 1 or sp_axis is not None:
+        raise NotImplementedError("sequence parallelism (n_sp > 1) comes "
+                                  "with the multi-device port")
+    if tp_axis is not None:
+        raise NotImplementedError("tensor parallelism (tp_axis) comes with "
+                                  "the multi-device port")
+
+
+def _attend_block(q, k, v, q_pos, k_pos, causal, acc, m, l):
+    """One flash-style block update: q (B, Tq, H, Dh), k/v (B, Tk, H, Dh),
+    acc (B, Tq, H, Dh) f32, m/l (B, Tq, H) running max / denominator."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bqhk", q.float(), k.float()) * scale
+    if causal:
+        mask = q_pos[None, :, None, None] >= k_pos[None, None, None, :]
+        s = s.masked_fill(~mask, float("-inf"))
+    m_new = torch.maximum(m, s.amax(-1))
+    # guard rows with no valid keys yet (all -inf)
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(torch.isfinite(s), p, 0.0)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+    l_new = l * corr + p.sum(-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bqhk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return acc_new, m_new, l_new
+
+
+def ring_attention(q, k, v, *, n_sp: int, sp_axis, causal: bool,
+                   t_local: int):
+    """Blockwise ring attention, single shard: with ``n_sp == 1`` it is one
+    flash-style block over the whole sequence (the torch incumbent of the
+    ``attention`` kind).  ``n_sp > 1`` raises until the multi-device
+    port."""
+    _no_axes(n_sp, sp_axis)
+    B, Tq, H, Dh = q.shape
+    q_pos = torch.arange(t_local, device=q.device)
+    acc = torch.zeros((B, Tq, H, Dh), dtype=torch.float32, device=q.device)
+    m = torch.full((B, Tq, H), float("-inf"), device=q.device)
+    l = torch.zeros((B, Tq, H), device=q.device)
+    acc, m, l = _attend_block(q, k, v, q_pos, q_pos, causal, acc, m, l)
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.to(q.dtype)
+
+
+def _block(params, x, cfg: TransformerConfig, n_sp=1, sp_axis=None,
+           tp_axis=None, t_local=None, kernels: TrainKernels | None = None):
+    """One transformer block on (B, T, D) activations (no tp/sp axes)."""
+    _no_axes(n_sp, sp_axis, tp_axis)
+    kernels = kernels or _DEFAULT_KERNELS
+    t_local = x.shape[1] if t_local is None else t_local
+    dt = cfg.dtype
+    h = _layernorm(x, params["ln1_scale"], params["ln1_bias"])
+    q, k, v = _qkv_proj(params, h, dt)
+    if k.shape[-2] != q.shape[-2]:
+        # GQA head-group broadcast before attention
+        k = repeat_kv_heads(k, q.shape[-2] // k.shape[-2])
+        v = repeat_kv_heads(v, q.shape[-2] // v.shape[-2])
+    if cfg.attention != "ring" and n_sp == 1 and t_local % 128 == 0:
+        # the JAX package's routing rule: a registered attention kernel
+        # takes single-shard sequences of whole 128-token blocks
+        attend = (kernels.attention
+                  or registry.get("attention", cfg.attention).fn)
+        attn = attend(q, k, v, causal=cfg.causal)
+    else:
+        attn = ring_attention(q, k, v, n_sp=n_sp, sp_axis=sp_axis,
+                              causal=cfg.causal, t_local=t_local)
+    proj = torch.einsum("bthe,hed->btd", attn.to(dt), params["wo"].to(dt))
+    if cfg.fused_ln:
+        fused = kernels.residual_layernorm or fused_residual_layernorm
+        x, h2 = fused(x, proj.to(x.dtype), params["ln2_scale"],
+                      params["ln2_bias"])
+    else:
+        x = x + proj.to(x.dtype)
+        h2 = _layernorm(x, params["ln2_scale"], params["ln2_bias"])
+    down = _ffn(params, h2, dt) + params["b2"].to(dt)
+    return x + down.to(x.dtype)
+
+
+def embed_local(params, tokens, cfg: TransformerConfig, sp_axis=None):
+    """Token + position embedding of (B, T) tokens, in ``cfg.dtype``."""
+    _no_axes(sp_axis=sp_axis)
+    T = tokens.shape[1]
+    x = params["tok_embed"][tokens.long()]
+    return (x + params["pos_embed"][:T][None]).to(cfg.dtype)
+
+
+def _lm_head(params, cfg: TransformerConfig):
+    return params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def lm_head_loss(params, h, targets, cfg: TransformerConfig,
+                 kernels: TrainKernels | None = None):
+    """Mean token cross entropy of final hidden states (B, T, D) against
+    targets (tied or separate head).
+
+    When ``cfg.xent_chunk`` divides the token count (or a divisor of at
+    least a quarter of it does), the loss is a loop over token chunks,
+    each under ``torch.utils.checkpoint``: only one chunk's logits exist
+    at a time and the backward recomputes them.  A near-prime token count,
+    or ``cfg.xent_impl="blocked"``, takes the blocked route
+    (``losses.blocked_token_xent``), where the logits never exist at all;
+    short inputs take the full logits."""
+    hd = _lm_head(params, cfg).to(cfg.dtype)
+    B, T, D = h.shape
+    n_tok = B * T
+    chunk = cfg.xent_chunk
+
+    def token_xent(h_flat, t_flat, w_flat):
+        logits = (h_flat.to(cfg.dtype) @ hd).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, t_flat.long()[:, None])[:, 0]
+        return ((lse - gold) * w_flat).sum()
+
+    h_flat = h.reshape(n_tok, D)
+    t_flat = targets.reshape(n_tok)
+    w_flat = torch.ones((n_tok,), dtype=torch.float32, device=h.device)
+    if chunk and n_tok > chunk:
+        # largest divisor of n_tok <= chunk, so odd token counts still
+        # stream instead of falling back to the full (B*T, V) logits
+        div = chunk
+        while n_tok % div:
+            div -= 1
+        if div >= cfg.xent_chunk // 4 and cfg.xent_impl != "blocked":
+            chunk = div
+        else:
+            xent = ((kernels or _DEFAULT_KERNELS).xent
+                    or losses.blocked_token_xent)
+            return xent(h_flat.to(cfg.dtype), hd, t_flat) / n_tok
+
+    if chunk and 1 < chunk < n_tok:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, n_tok, chunk):
+            sl = slice(i, i + chunk)
+            total = total + checkpoint(token_xent, h_flat[sl], t_flat[sl],
+                                       w_flat[sl], use_reentrant=False)
+        return total / n_tok
+    return token_xent(h_flat, t_flat, w_flat) / n_tok
+
+
+def encode_local(params, tokens, cfg: TransformerConfig, *, n_sp: int = 1,
+                 sp_axis=None, tp_axis=None,
+                 kernels: TrainKernels | None = None):
+    """Final hidden states (B, T, D).  With ``cfg.remat`` each block runs
+    under ``torch.utils.checkpoint`` (its activations are recomputed in
+    the backward instead of stored)."""
+    _no_axes(n_sp, sp_axis, tp_axis)
+    T = tokens.shape[1]
+    x = embed_local(params, tokens, cfg, sp_axis)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in params["layers"]:
+        if remat:
+            x = checkpoint(_block, lp, x, cfg, n_sp, sp_axis, tp_axis, T,
+                           kernels, use_reentrant=False)
+        else:
+            x = _block(lp, x, cfg, n_sp, sp_axis, tp_axis, T, kernels)
+    return _layernorm(x, params["final_ln_scale"], params["final_ln_bias"])
+
+
+def forward_local(params, tokens, cfg: TransformerConfig, **axes):
+    """Vocabulary logits (B, T, V) in f32."""
+    x = encode_local(params, tokens, cfg, **axes)
+    logits = torch.einsum("btd,dv->btv", x.to(cfg.dtype),
+                          _lm_head(params, cfg).to(cfg.dtype))
+    return logits.float()
+
+
+def lm_loss_local(params, tokens, targets, cfg: TransformerConfig, *,
+                  kernels: TrainKernels | None = None, **axes):
+    """Mean next-token (or MLM-style, given targets) cross entropy."""
+    h = encode_local(params, tokens, cfg, kernels=kernels, **axes)
+    return lm_head_loss(params, h, targets, cfg, kernels)
+
+
+def init_cls_head(gen: torch.Generator, cfg: TransformerConfig,
+                  n_classes: int, device=None) -> dict:
+    """Sequence-classification head: mean pooling, then dense.  Drawn from
+    ``gen`` on its device, placed on ``device``."""
+    dev = resolve_device(device)
+    w = torch.randn((cfg.d_model, n_classes), generator=gen, device=gen.device)
+    return {"w_cls": (cfg.d_model ** -0.5 * w).to(device=dev,
+                                                  dtype=cfg.param_dtype),
+            "b_cls": torch.zeros((n_classes,), dtype=cfg.param_dtype,
+                                 device=dev)}
+
+
+def cls_loss_local(params, head, tokens, labels, cfg: TransformerConfig,
+                   **axes):
+    """Softmax cross entropy of the mean-pooled classifier."""
+    x = encode_local(params, tokens, cfg, **axes)
+    pooled = x.float().mean(dim=1)
+    logits = pooled @ head["w_cls"].float() + head["b_cls"]
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels.long()[:, None]).mean()
 
 
 # --------------------------------------------------------------------------- KV-cached decode
@@ -414,9 +662,15 @@ def sample_token(logits: torch.Tensor, temperature: float,
 # --------------------------------------------------------------------------- model facade
 
 class TransformerLM:
-    """Decode-side facade of the flagship LM on one device."""
+    """The flagship LM on one device: training steps and decoding.
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    ``mesh`` must be None: the sharded train step, ZeRO-1 and the
+    checkpointed ``fit`` come with the multi-device and trainer ports."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("a mesh (sharded training) comes with "
+                                      "the multi-device port")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -426,6 +680,137 @@ class TransformerLM:
         if gen is None:
             gen = torch.Generator().manual_seed(0)
         return init_params(gen, self.cfg, self.device)
+
+    def forward(self, params, tokens) -> torch.Tensor:
+        """f32 vocabulary logits (B, T, V) of (B, T) tokens."""
+        return forward_local(params, self._to_device(tokens), self.cfg)
+
+    def score(self, params, tokens, targets) -> float:
+        """Mean token cross entropy; ``exp(score)`` is perplexity."""
+        with torch.no_grad():
+            return float(lm_loss_local(params, self._to_device(tokens),
+                                       self._to_device(targets), self.cfg))
+
+    def _to_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               device=self.device)
+
+    # -- train steps ----------------------------------------------------
+    @staticmethod
+    def _default_tx(lr: float):
+        """SGD with momentum, the reference's finetune default."""
+        return tx_mod.chain(tx_mod.momentum(0.9), tx_mod.sgd_lr(lr))
+
+    def _decay_mask(self, tree):
+        """Bool tree of the weight-class (decayed) leaves of ``tree``; None
+        keeps the transforms' ndim >= 2 default, which is right for this
+        class's layout (a subclass that re-lays parameters out names its
+        leaves here)."""
+        return None
+
+    def init_opt(self, params, tx=None, lr: float = 1e-3):
+        """Optimizer state ``(step_count, tx_state)`` for the steps below,
+        for the plain tree and the ``{"backbone", "head"}`` finetune tree
+        alike; ``step_count`` is a Python int."""
+        tx = tx if tx is not None else self._default_tx(lr)
+        return 0, tx.init(params)
+
+    def _build_step(self, tx, loss_of):
+        """``step(tree, opt, *data) -> (tree, opt, loss)``: value and
+        gradient of ``loss_of(tree, *data)``, the transform chain (weight
+        decay on the leaves ``_decay_mask`` names), then
+        ``apply_updates``.  Functional: the returned tree and state are new
+        tensors and the caller's are not modified (nor marked as requiring
+        grad).  ``loss`` is a 0-d tensor on the device (no host sync)."""
+
+        def step(tree, opt, *data):
+            count, tx_state = opt
+            leaves = [p.detach().requires_grad_(True)
+                      for p in tree_leaves(tree)]
+            live = tree_unflatten(tree, leaves)
+            loss = loss_of(live, *data)
+            grads = tree_unflatten(tree, torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True))
+            with torch.no_grad():
+                frozen = tree_unflatten(tree, [p.detach() for p in leaves])
+                with tx_mod.decay_mask_override(self._decay_mask(frozen)):
+                    updates, tx_state = tx.update(grads, tx_state, frozen,
+                                                  count)
+                new_tree = tx_mod.apply_updates(frozen, updates)
+            return new_tree, (count + 1, tx_state), loss.detach()
+
+        return step
+
+    def build_train_step(self, tx=None, lr: float = 1e-3):
+        """LM train step over any ``GradientTransform`` (default: SGD with
+        momentum): ``step(params, opt, tokens, targets) -> (params, opt,
+        loss)`` with ``opt = (step_count, tx_state)``."""
+        cfg = self.cfg
+        tx = tx if tx is not None else self._default_tx(lr)
+
+        def loss_of(params, tokens, targets):
+            return lm_loss_local(params, tokens, targets, cfg)
+
+        return self._build_step(tx, loss_of)
+
+    # -- BERT-style sequence-classification fine-tune -------------------
+    def init_finetune(self, gen: torch.Generator, n_classes: int,
+                      params=None) -> dict:
+        """``{"backbone", "head"}`` tree for ``build_finetune_step``; the
+        head is drawn from ``gen`` after the backbone (if drawn)."""
+        backbone = params if params is not None else self.init(gen)
+        head = init_cls_head(gen, self.cfg, n_classes, self.device)
+        return {"backbone": backbone, "head": head}
+
+    def build_finetune_step(self, tx=None, lr: float = 2e-5):
+        """Classifier fine-tune step: ``step(tree, opt, tokens, labels) ->
+        (tree, opt, loss)`` over ``{"backbone": ..., "head": ...}``."""
+        cfg = self.cfg
+        tx = tx if tx is not None else self._default_tx(lr)
+
+        def loss_of(tree, tokens, labels):
+            return cls_loss_local(tree["backbone"], tree["head"], tokens,
+                                  labels, cfg)
+
+        return self._build_step(tx, loss_of)
+
+    def fit(self, params, opt, batches, *, tx=None, lr: float = 1e-3,
+            epochs: int = 1, finetune: bool = False, checkpoint_manager=None):
+        """Training loop over ``batches`` (a list of ``(tokens, targets |
+        labels)`` pairs of numpy arrays or tensors) to ``epochs *
+        len(batches)`` total steps counted by the optimizer's step count,
+        so a carried-over ``opt`` continues where it left off.  The next
+        batch is copied to the device (from pinned memory, with
+        ``non_blocking=True``) before the current step runs.  Returns
+        ``(params, opt, losses)`` with the losses as floats, read once at
+        the end.  ``checkpoint_manager`` raises until the checkpoint
+        port."""
+        if checkpoint_manager is not None:
+            raise NotImplementedError("checkpointed fit comes with the "
+                                      "checkpoint port")
+        tx = tx if tx is not None else self._default_tx(lr)
+        step_fn = (self.build_finetune_step(tx) if finetune
+                   else self.build_train_step(tx))
+        start, total = int(opt[0]), epochs * len(batches)
+        pin = self.device.type == "cuda"
+
+        def stage(k):
+            out = []
+            for a in batches[k % len(batches)]:
+                t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+                if pin and t.device.type == "cpu":
+                    t = t.pin_memory()
+                out.append(t.to(self.device, non_blocking=True))
+            return out
+
+        losses = []
+        nxt = stage(start) if start < total else None
+        for k in range(start, total):
+            a, b = nxt
+            nxt = stage(k + 1) if k + 1 < total else None
+            params, opt, loss = step_fn(params, opt, a, b)
+            losses.append(loss)
+        return params, opt, [float(x) for x in losses]
 
     def sample(self, params, prime, length: int, temperature: float = 1.0,
                seed: int = 0, kv_cache: bool = True) -> list:
@@ -437,11 +822,10 @@ class TransformerLM:
         stream exactly for a request with the same seed.  Torch cannot
         reproduce the JAX package's threefry stream, so only greedy
         decoding matches it.  The full-forward path (``kv_cache=False``)
-        comes with the training slice."""
+        is not ported yet."""
         if not kv_cache:
             raise NotImplementedError(
-                "sample(kv_cache=False) needs forward_local, which is not "
-                "ported yet")
+                "sample(kv_cache=False) is not ported yet")
         cfg = self.cfg
         if not cfg.causal:
             raise ValueError("sampling needs a causal LM (cfg.causal=True)")

@@ -5,7 +5,8 @@ semantics.  A candidate bundles a kernel entry point, its plain PyTorch
 reference, the block configs a tuning battery would sweep and the
 correctness tolerances the adoption gate enforces.  The hand-written CUDA
 kernels register with ``source="cuda"``; the incumbents ("gather",
-"f32") are the plain PyTorch versions, registered with ``source="torch"``.
+"f32", "ring", "unfused", "scan") are plain PyTorch code, registered with
+``source="torch"``.
 
 ``autopick`` lets a candidate replace the incumbent only when
 
@@ -28,6 +29,9 @@ from typing import Any, Callable, Iterable, Mapping
 _KERNEL_MODULES = (
     "deeplearning4j_tpu_torch.ops.cuda.matmul_int8",
     "deeplearning4j_tpu_torch.ops.cuda.paged_attention",
+    "deeplearning4j_tpu_torch.ops.cuda.attention",
+    "deeplearning4j_tpu_torch.ops.cuda.layernorm",
+    "deeplearning4j_tpu_torch.ops.cuda.xent",
 )
 
 

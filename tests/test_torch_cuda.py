@@ -80,3 +80,89 @@ def test_paged_attention_kernel_matches_plain(dev, B, H, Kv, quant, dtype):
         assert err.max().item() < 1e-4
     else:
         assert (err <= 1e-5 + 2 ** -8 * ref.abs()).all().item()
+
+
+# ------------------------------------------------------------ training kernels
+
+@pytest.mark.parametrize("B,T,H,Dh,causal,frontier", [
+    (2, 128, 3, 64, False, False), (2, 256, 2, 64, True, False),
+    (2, 256, 2, 64, True, True), (1, 100, 2, 32, True, True),   # ragged T
+    (1, 192, 2, 128, False, True), (3, 64, 4, 64, True, False)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernel_matches_plain(dev, B, T, H, Dh, causal, frontier,
+                                        dtype):
+    from deeplearning4j_tpu_torch.ops.cuda import attention as tat
+    g = torch.Generator(device=dev).manual_seed(T + H)
+    # q/k/v as the strided views of one packed (B,T,3,H,Dh) projection
+    qkv = torch.randn((B, T, 3, H, Dh), generator=g, device=dev).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    wrapper = tat.fused_attention if frontier else tat.flash_attention
+    before = wrapper.launches
+    out, lse = tat.attention_fwd(q, k, v, causal=causal, frontier=frontier)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref, ref_lse = tat.reference_flash_fwd(q.float(), k.float(), v.float(),
+                                           causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    # against the plain version run in f32 on the same values.  f32:
+    # summation order only.  bf16: rounding each p to bf16 for the
+    # tensor-core P V moves the output by at most half an ulp of
+    # sum(p |v|) / l (the plain version on |v|), and the output rounds once
+    err = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        assert err.max().item() < 1e-5
+    else:
+        ref_abs, _ = tat.reference_flash_fwd(q.float(), k.float(),
+                                             v.float().abs(), causal)
+        assert (err <= 1e-5 + 2 ** -8 * (ref_abs + ref.abs())).all().item()
+    assert (lse - ref_lse).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("N,D", [(37, 768), (4096, 768), (8, 64), (5, 2048)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_residual_layernorm_kernel_matches_plain(dev, N, D, dtype):
+    from deeplearning4j_tpu_torch.ops.cuda import layernorm as tln
+    g = torch.Generator(device=dev).manual_seed(N + D)
+    x = torch.randn((N, D), generator=g, device=dev).to(dtype)
+    r = torch.randn((N, D), generator=g, device=dev).to(dtype)
+    m = (torch.rand((N, 1), generator=g, device=dev) > 0.2).float() / 0.8
+    s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+    b = 0.1 * torch.randn((D,), generator=g, device=dev)
+    before = tln.fused_residual_layernorm.launches
+    y, h = tln.residual_layernorm_fwd(x, r, m, s, b)
+    torch.cuda.synchronize()
+    assert tln.fused_residual_layernorm.launches == before + 1
+    ry, rh = tln.reference_residual_layernorm(x, r, s, b, mask=m)
+    # the same f32 arithmetic, rounded once to the output dtype: at most
+    # one unit in the last place apart where the f32 sums round apart
+    ulp = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for a, ref in ((y, ry), (h, rh)):
+        assert ((a.float() - ref.float()).abs()
+                <= 1e-5 + ulp * ref.float().abs()).all().item()
+
+
+@pytest.mark.parametrize("N,V,D", [(37, 101, 64), (300, 1000, 128),
+                                   (2048, 32768, 768), (129, 257, 40)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tied", [True, False])
+def test_blocked_xent_kernel_matches_plain(dev, N, V, D, dtype, tied):
+    from deeplearning4j_tpu_torch.ops.cuda import xent as txe
+    g = torch.Generator(device=dev).manual_seed(N + V)
+    h = torch.randn((N, D), generator=g, device=dev).to(dtype)
+    emb = 0.5 * torch.randn((V, D), generator=g, device=dev)
+    # tied: tok_embed^T read through its strides; else a row-major (D, V)
+    head = emb.to(dtype).T if tied else emb.T.contiguous().to(dtype)
+    tg = torch.randint(0, V, (N,), generator=g, device=dev,
+                       dtype=torch.int32)
+    w = torch.rand((N,), generator=g, device=dev)
+    w[0] = 0.0
+    before = txe.blocked_cross_entropy.launches
+    wloss, lse = txe.xent_fwd(h, head, tg, w)
+    torch.cuda.synchronize()
+    assert txe.blocked_cross_entropy.launches == before + 1
+    rw, rl = txe.reference_xent_rows(h, head, tg, w)
+    # bf16 products are exact in the f32 accumulators: both sides differ by
+    # summation order only (f32 inputs: the f32 FMA path)
+    assert (lse - rl).abs().max().item() < 2e-5 * (1 + rl.abs().max().item())
+    assert (wloss - rw).abs().max().item() < 2e-5 * (1 + rw.abs().max().item())
+    assert wloss[0].item() == 0.0

@@ -1,9 +1,10 @@
 """Import guard and device rule of the PyTorch port.
 
 The port (``deeplearning4j_tpu_torch/`` and ``chip_smoke.py``) must import
-neither ``jax`` nor anything of ``deeplearning4j_tpu``, and its entry
-points must raise — not quietly run on the CPU — when CUDA is asked for
-(explicitly or by default) and absent.
+neither ``jax`` nor anything of ``deeplearning4j_tpu``, the package must
+call no library kernel in place of its own (``chip_smoke.py`` times those
+as yardsticks only), and its entry points must raise — not quietly run on
+the CPU — when CUDA is asked for (explicitly or by default) and absent.
 """
 
 import ast
@@ -48,6 +49,27 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, bad
 
 
+#: PyTorch's fused calls for the functions the port's kernels compute
+_LIBRARY_KERNELS = {"scaled_dot_product_attention", "layer_norm",
+                    "cross_entropy", "compile"}
+
+
+def test_package_calls_no_library_kernel():
+    files = sorted(PORT.rglob("*.py"))
+    mods = {p.relative_to(PORT).as_posix() for p in files}
+    assert {"ops/cuda/attention.py", "ops/cuda/layernorm.py",
+            "ops/cuda/xent.py", "ops/losses.py", "optimize/transforms.py",
+            "utils/tree_math.py"} <= mods
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            name = (node.attr if isinstance(node, ast.Attribute)
+                    else node.id if isinstance(node, ast.Name) else None)
+            if name in _LIBRARY_KERNELS:
+                bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {name}")
+    assert not bad, bad
+
+
 def test_guard_flags_what_it_should():
     assert _forbidden("jax.numpy") and _forbidden("deeplearning4j_tpu.ops")
     assert not _forbidden("deeplearning4j_tpu_torch.ops")
@@ -70,12 +92,14 @@ def _entry_points():
         "init_decode_cache": lambda: ttr.init_decode_cache(cfg, 1),
         "init_paged_cache": lambda: ttr.init_paged_cache(cfg, 2, 4),
         "InferenceEngine": lambda: InferenceEngine(cpu_model, params),
+        "init_cls_head": lambda: ttr.init_cls_head(torch.Generator(), cfg, 2),
     }
 
 
 @pytest.mark.parametrize("name", sorted([
     "resolve_device", "resolve_device_cuda", "TransformerLM", "init_params",
-    "init_decode_cache", "init_paged_cache", "InferenceEngine"]))
+    "init_decode_cache", "init_paged_cache", "InferenceEngine",
+    "init_cls_head"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """Without ``device="cpu"`` an entry point asks for CUDA; with no GPU
     (forced here, so the test means the same on any machine) it raises."""
@@ -103,3 +127,24 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
     ln = torch.ones((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tpa.paged_attention(q, pool, pool, bt, ln)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "fused", "layernorm", "xent"])
+def test_training_kernel_wrappers_refuse_non_cuda_devices(kernel):
+    from deeplearning4j_tpu_torch.ops.cuda import attention as tat
+    from deeplearning4j_tpu_torch.ops.cuda import layernorm as tln
+    from deeplearning4j_tpu_torch.ops.cuda import xent as txe
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    calls = {
+        "flash": lambda: tat.flash_attention(*(meta(1, 8, 2, 32),) * 3),
+        "fused": lambda: tat.fused_attention(*(meta(1, 8, 2, 32),) * 3),
+        "layernorm": lambda: tln.fused_residual_layernorm(
+            meta(4, 8), meta(4, 8), meta(8), meta(8)),
+        "xent": lambda: txe.blocked_cross_entropy(
+            meta(4, 8), meta(8, 5), meta(4, dtype=torch.int32)),
+    }
+    with pytest.raises(ValueError, match="unsupported device"):
+        calls[kernel]()

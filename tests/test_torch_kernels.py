@@ -272,8 +272,10 @@ def test_registry_verdicts_match_jax(kind, scenario):
 
 
 def test_registry_surface():
-    assert treg.kinds() == ["int8_matmul", "paged_attention",
-                            "paged_attention_int8"]
+    # every kernel kind of the JAX package, now that all seven are ported
+    assert treg.kinds() == jreg.kinds() == [
+        "attention", "int8_matmul", "layernorm_residual", "paged_attention",
+        "paged_attention_int8", "xent"]
     for kind, ((_, tname), inc) in NAMES.items():
         cand, incumbent = treg.get(kind, tname), treg.get(kind, inc)
         assert cand.source == "cuda" and incumbent.source == "torch"
