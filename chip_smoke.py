@@ -9,15 +9,18 @@ plain PyTorch version at the shapes of the port's main paths (paged int8
 serving and the flagship train step), then drives those paths through the
 entry points a user calls:
 
-1. the card (``nvidia-smi`` name and power limit) and the build time;
-2. ``int8_matmul`` at M in {1, 8} over the FFN and LM-head weights, and
+1. the card (``nvidia-smi`` name and power limit), the build time and
+   every kernel's registers, spills and static shared memory (``ptxas -v``);
+2. ``int8_matmul`` at M in {1, 8} over the FFN and LM-head weights (and
+   its input gradient at the FFN shapes against the plain version's), and
    ``paged_attention`` / ``paged_attention_int8`` at B=8, H=12,
    Kv in {12, 4}, Dh=64, page 16, 128 pages per row, ragged lengths up to
    2048; then the training kernels: ``flash_attention`` and
    ``fused_attention`` (causal and not) at the two training legs' shapes
    (B=64, T=512 and B=8, T=2048; H=12, Dh=64), ``fused_residual_layernorm``
    at N in {32768, 16384} rows of 768 and ``blocked_cross_entropy`` at
-   those N against the tied 32768 x 768 head — each in bf16 (and float32
+   those N against the tied 32768 x 768 head (also timed with two
+   vocabulary splits against the default) — each in bf16 (and float32
    for the error alone) against its plain version run in float32 on the
    same values, with the times of the kernel, its plain version and a
    one-call PyTorch yardstick beside the least time the card could take;
@@ -240,6 +243,33 @@ def check_int8(torch, tmm, dev, rates, cases):
               f"(tol {TOL_INT8}) kernel_ms={ms:.5f} plain_ms={plain:.5f} "
               f"library_ms={lib:.5f} bound_ms={bound:.5f}", flush=True)
         del qws, wdeq
+
+
+def check_int8_grad(torch, tmm, dev, M=8):
+    """dx through ``int8_matmul`` (the kernel forward, the torch-op
+    backward) against dx through its plain version, at the FFN shapes,
+    float32 x: the two differ by summation order only."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    errs = {}
+    for k, n in ((768, 3072), (3072, 768)):
+        qw = tmm.quantize(torch.randn((k, n), generator=gen, device=dev)
+                          * k ** -0.5)
+        x = torch.randn((M, k), generator=gen, device=dev)
+        c = torch.randn((M, n), generator=gen, device=dev)
+        grads = []
+        for fn in (tmm.int8_matmul, tmm.reference_int8_matmul):
+            xx = x.clone().requires_grad_(True)
+            (fn(xx, qw) * c).sum().backward()
+            grads.append(xx.grad)
+        torch.cuda.synchronize()
+        e = (grads[0] - grads[1]).abs().max().item()
+        if not (e < TOL_INT8 and torch_isfinite(grads[0])):
+            fail(f"int8_matmul dx M={M} K={k} N={n}: max err {e} "
+                 f"(tol {TOL_INT8})")
+        errs[f"{k}x{n}"] = e
+    print(f"kernel int8_matmul dx (FFN shapes, M={M}, f32): max_err {errs} "
+          f"(tol {TOL_INT8})", flush=True)
+    return errs
 
 
 def paged_inputs(torch, dev, gen, Kv, quant, B=8, H=12, Dh=64, ps=16,
@@ -554,6 +584,12 @@ def check_xent(torch, txe, dev, rates, cases, V=32768, D=768):
         tl = tg.long()
         lms = event_ms(torch, lambda: F.cross_entropy(hs[0] @ head, tl,
                                                       reduction="sum"), 3)
+        # the default vocabulary split (one block a SM at most) against two
+        # splits, uncounted launches of the same kernel
+        splits = txe._splits(hs[0].device, N, -(-V // txe._BV))
+        ms2 = device_ms(torch, [lambda h=h, e=e: txe._launch(h, e.T, tg, w,
+                                                             n_splits=2)
+                                for h, e in zip(hs, embs)], reps=3)
         nbytes = N * D * 2 + D * V * 2 + N * 4 * 4
         ops = 2 * N * V * D
         bound, by = bound_of(nbytes, ops, rates)
@@ -561,9 +597,11 @@ def check_xent(torch, txe, dev, rates, cases, V=32768, D=768):
                       "D": D, "max_abs_err": err, "tol": TOL_XENT,
                       "max_abs_err_f32": e32, "tol_f32": TOL_XENT, "ms": ms,
                       "plain_ms": pms, "library_ms": lms, "bound_ms": bound,
-                      "bound_by": by, "bytes": nbytes, "ops": ops})
+                      "bound_by": by, "bytes": nbytes, "ops": ops,
+                      "splits": splits, "ms_2_splits": ms2})
         print(f"kernel blocked_cross_entropy N={N} V={V} D={D}: max_err "
               f"bf16={err:.3g} f32={e32:.3g} kernel_ms={ms:.5f} "
+              f"({splits} split(s); 2 splits {ms2:.5f}) "
               f"plain_ms={pms:.5f} library_ms={lms:.5f} "
               f"bound_ms={bound:.5f} ({by})", flush=True)
         del hs
@@ -642,7 +680,8 @@ def train_leg(torch, ttr, TT, cfg, batch, seq, steps, label, wrappers,
 
 
 #: symbols of the port's own training kernels, as the profiler names them
-PORT_KERNEL_SYMBOLS = ("flash_fwd_kernel", "xent_tiles_kernel",
+PORT_KERNEL_SYMBOLS = ("flash_fwd_kernel", "flash_fwd_f32_kernel",
+                       "xent_tiles_kernel", "xent_tiles_f32_kernel",
                        "xent_merge_kernel", "residual_layernorm_kernel")
 
 
@@ -988,10 +1027,23 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda} | rates "
           f"{rates[0] / 1e12:.2f} TB/s, {rates[1] / 1e12:.0f} TFLOP/s bf16",
           flush=True)
+    # registers, spills and static shared memory of every kernel, from the
+    # builds' ptxas reports (all in the report; printed: the TMA + wgmma
+    # sources' bf16 kernels)
+    usage = {n: build.resource_usage(n) for n in build.sources()}
+    for n in ("flash_attention", "blocked_xent"):
+        for r in usage[n]:
+            if "f32" in r["kernel"]:
+                continue
+            print(f"ptxas {n}: {r['kernel'][:110]} registers="
+                  f"{r.get('registers')} spill_stores={r.get('spill_stores')} "
+                  f"spill_loads={r.get('spill_loads')} static_smem="
+                  f"{r.get('static_smem')}", flush=True)
 
     # ---- 2. each kernel against its plain version
     cases: list[dict] = []
     check_int8(torch, tmm, "cuda", rates, cases)
+    int8_dx = check_int8_grad(torch, tmm, "cuda")
     check_paged(torch, tpa, kv_quant, "cuda", rates, cases)
     check_attention(torch, tat, "cuda", rates, cases)
     check_layernorm(torch, tln, "cuda", rates, cases)
@@ -1083,7 +1135,9 @@ def main() -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps({
             "card": card, "device": name, "build_s": build_s,
-            "kernel_cases": cases, "engine_a": rep_a, "engine_b": rep_b,
+            "ptxas": usage,
+            "kernel_cases": cases, "int8_matmul_dx_err": int8_dx,
+            "engine_a": rep_a, "engine_b": rep_b,
             "train_a": leg_a, "train_b": leg_b,
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},
             "kernels": kernels}, indent=1))

@@ -21,9 +21,11 @@ log-sum-exp; ``fused`` stops the key loop at the causal frontier where
   CUDA tensor the kernel runs or the call raises: there is no fallback.
 
 The kernel reads q, k and v through their strides (last dim contiguous),
-so the q/k/v views of the packed projection go in without a copy.  Its
-tiles are fixed (64 query rows by 64 keys); ``block_k`` sets the
-backward's key-block size, as in the JAX package.
+so the q/k/v views of the packed projection go in without a copy; in bf16
+it loads them by TMA as (Dh, H, T, B) maps, whose strides and base must be
+multiples of 16 bytes (checked here).  Its tiles are fixed (bf16: 128
+query rows by 128 keys; f32: 64 by 64); ``block_k`` sets the backward's
+key-block size, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -200,7 +202,7 @@ def _ring_single_shard(q, k, v, *, causal: bool = True, **_):
 registry.register(registry.KernelCandidate(
     kind="attention", name="flash", fn=flash_attention,
     reference=reference_attention,
-    blocks=({},),              # fixed 64 x 64 tiles: nothing to sweep
+    blocks=({},),              # fixed tiles: nothing to sweep
     # fwd/bwd max abs error vs naive attention, the JAX package's gate
     tolerances={"max_err": 0.05},
 ))

@@ -5,7 +5,7 @@ a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o <build>/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <build>/lib<name>-<hash>.so csrc/<name>.cu
 
 The build runs at first use into ``deeplearning4j_tpu_torch/_build/``
 (listed in ``.gitignore``; ``DL4J_TORCH_BUILD_DIR`` moves it).  The file
@@ -13,7 +13,9 @@ name carries a hash of the source and the shared ``*.cuh`` headers, so an
 edited source is rebuilt rather
 than served stale.  :func:`build_all` starts one ``nvcc`` per source at
 once and waits for all of them.  A failed build raises with the
-compiler's output; there is no fallback.
+compiler's output; there is no fallback.  A successful build keeps
+``ptxas``'s report beside the library (``.log``); :func:`resource_usage`
+reads each kernel's registers, spills and static shared memory from it.
 
 Wrappers reach a C entry point through :func:`function`, which declares
 its ``argtypes`` (every pointer and the stream as ``c_void_p``, every
@@ -27,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,7 +38,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -98,6 +102,7 @@ def _compile(names: list[str]) -> None:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            out.with_suffix(".log").write_text(log)
     if errors:
         raise RuntimeError("\n".join(errors))
 
@@ -142,6 +147,33 @@ def build_all() -> float:
         for n in sources():
             _load_locked(n)
     return time.perf_counter() - t0
+
+
+def resource_usage(name: str) -> list[dict]:
+    """Per kernel of ``csrc/<name>.cu`` (mangled name): registers a
+    thread, spill stores and loads and static shared memory (bytes), from
+    the ``ptxas -v`` report of its build (empty if the build was not kept)."""
+    log = _target(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    rows, cur = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def check(name: str, rc: int, what: str) -> None:

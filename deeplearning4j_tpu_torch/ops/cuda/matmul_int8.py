@@ -14,7 +14,10 @@ compute dtype (weight-only quantization).
 ``csrc/int8_matmul.cu`` (and counts the launch in
 ``int8_matmul.launches``); on a CPU tensor it computes the plain version,
 :func:`reference_int8_matmul`.  The wrapper never falls back from the
-kernel to the plain version.
+kernel to the plain version.  It is a ``torch.autograd.Function``
+differentiable in ``x`` (the JAX package's ``_int8_mm_bwd``: ``dx = (g ·
+scale) @ q^T`` in x's dtype, no gradient for the frozen int8 weights), on
+the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -74,13 +77,9 @@ def _k_splits(device, K: int, N: int) -> int:
                       K // _MIN_SPLIT_K))
 
 
-def int8_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
-    """``x @ (q * scale)`` on (..., K) activations, f32 out (callers
-    cast).  CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
-    if x.device.type == "cpu":
-        return reference_int8_matmul(x, qw)
-    q, scale = qw.q, qw.scale
+def _launch(x: torch.Tensor, q: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    """The kernel on a CUDA tensor (counted in ``int8_matmul.launches``)."""
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -111,6 +110,34 @@ def int8_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
     build.check("int8_matmul", rc, "int8_matmul")
     int8_matmul.launches += 1
     return out.reshape(*lead, N)
+
+
+class _Int8Matmul(torch.autograd.Function):
+    """Differentiable in ``x`` only, as the JAX kernel's ``custom_vjp``:
+    the int8 weights are frozen serving artifacts and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale):
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x.dtype
+        if x.device.type == "cpu":
+            return reference_int8_matmul(x, QuantizedLinear(q, scale))
+        return _launch(x, q, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the JAX package's _int8_mm_bwd: fold the scale into g, then
+        # g @ q^T, cast to x's dtype (a plain matmul outside the kernel)
+        q, scale = ctx.saved_tensors
+        dx = (g.float() * scale) @ q.float().T
+        return dx.to(ctx.x_dtype), None, None
+
+
+def int8_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
+    """``x @ (q * scale)`` on (..., K) activations, f32 out (callers
+    cast); differentiable with respect to ``x``.  CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    return _Int8Matmul.apply(x, qw.q, qw.scale)
 
 
 int8_matmul.launches = 0

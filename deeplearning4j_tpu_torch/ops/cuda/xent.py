@@ -15,8 +15,13 @@ writes only the per-token ``w * (lse - gold)`` and ``lse``.
   package's ``_blocked_bwd`` in torch ops: a loop over token tiles that
   recomputes each tile's logits from the saved lse, with the gold-column
   term added to dhead through ``index_add_``; targets get no gradient.
-  Any N and V work: the kernel masks the ragged edges itself, so nothing
-  is padded.  On a CUDA tensor the kernel runs or the call raises.
+  Any N and V work: the kernel masks the ragged edges itself.  The bf16
+  kernel reads h and head through TMA maps, whose row strides are
+  multiples of 16 bytes: the tied head ``tok_embed.T`` (a K-major view)
+  and a row-major (D, V) head with V % 8 == 0 go in as they are; any other
+  head is copied, its columns padded with zeros to a multiple of 8 (the
+  kernel masks them by the real V).  On a CUDA tensor the kernel runs or
+  the call raises.
 - :func:`_scan_xent_sum` is the torch incumbent: checkpointed token tiles
   whose logits do materialize.
 """
@@ -34,9 +39,9 @@ from . import build, registry
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: dl4j_blocked_xent(h, head, targets, weights, wloss, lse, part, N, V, D,
-#: sd, sv, e_vec, n_splits, dtype, stream)
+#: sd, sv, e_kmajor, n_splits, dtype, stream)
 _ARGTYPES = [_P] * 7 + [_I] * 3 + [_L, _L] + [_I] * 3 + [_P]
-_BT, _BV = 128, 128          # the kernel's token and vocabulary tiles
+_BT, _BV = 128, 128          # the kernels' token and vocabulary tiles
 
 
 def _logits_f32(h, head):
@@ -63,14 +68,32 @@ def reference_xent_rows(h, head, targets, weights=None):
 
 
 def _splits(device, n_tok: int, n_vt: int) -> int:
-    """Vocabulary splits: enough blocks for two a SM, no empty split."""
+    """Vocabulary splits: as many as keep every token tile's blocks within
+    one block a SM (a bf16 block fills its SM), no empty split."""
     tiles = -(-n_tok // _BT)
-    want = max(1, -(-2 * sm_count(device) // tiles))
+    want = max(1, sm_count(device) // tiles)
     per = -(-n_vt // min(n_vt, want))
     return -(-n_vt // per)
 
 
-def _launch(h, head, targets, weights):
+def _tma_head(head):
+    """``(head, kmajor)`` for the bf16 kernel's TMA map of ``head`` (D, V):
+    the view itself where it is K-major (``sd == 1``) or row-major with
+    16-byte rows, else a row-major copy padded to V % 8 == 0."""
+    sd, sv = head.stride()
+    aligned = head.data_ptr() % 16 == 0
+    if sd == 1 and sv % 8 == 0 and aligned:
+        return head, True
+    if sv == 1 and sd % 8 == 0 and aligned:
+        return head, False
+    d, v = head.shape
+    padded = torch.zeros((d, -(-v // 8) * 8), dtype=head.dtype,
+                         device=head.device)
+    padded[:, :v] = head
+    return padded, False
+
+
+def _launch(h, head, targets, weights, n_splits=None):
     what = "blocked_cross_entropy"
     if h.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {h.device}")
@@ -95,17 +118,20 @@ def _launch(h, head, targets, weights):
     if h.dtype == torch.bfloat16 and (d % 8 or h.data_ptr() % 16):
         raise ValueError(f"{what}: bf16 rows must be 16-byte aligned "
                          f"(D={d} a multiple of 8)")
+    kmajor = False
+    if h.dtype == torch.bfloat16:
+        head, kmajor = _tma_head(head)
     sd, sv = head.stride()
-    e_vec = int(h.dtype == torch.bfloat16 and sd == 1 and sv % 8 == 0
-                and head.data_ptr() % 16 == 0)
-    n_splits = _splits(h.device, n, -(-v // _BV))
+    # n_splits: the vocabulary splits (by default _splits'); chip_smoke.py
+    # times another count against the default
+    n_splits = n_splits or _splits(h.device, n, -(-v // _BV))
     wloss = torch.empty((n,), dtype=torch.float32, device=h.device)
     lse = torch.empty_like(wloss)
     part = torch.empty((n_splits, n, 3), dtype=torch.float32, device=h.device)
     fn = build.function("blocked_xent", "dl4j_blocked_xent", _ARGTYPES)
     rc = fn(h.data_ptr(), head.data_ptr(), targets.data_ptr(),
             weights.data_ptr(), wloss.data_ptr(), lse.data_ptr(),
-            part.data_ptr(), n, v, d, sd, sv, e_vec, n_splits,
+            part.data_ptr(), n, v, d, sd, sv, int(kmajor), n_splits,
             _DTYPE_CODES[h.dtype],
             torch.cuda.current_stream(h.device).cuda_stream)
     build.check("blocked_xent", rc, what)
@@ -168,7 +194,7 @@ def blocked_cross_entropy(h, head, targets, weights=None, *,
     """Weighted token cross-entropy SUM of (N, D) hiddens against a (D, V)
     head, streamed so the (N, V) logits never exist (the caller divides
     by the token count).  ``block_t`` is the backward's token tile; the
-    CUDA kernel's tiles are fixed (128 tokens x 128 columns)."""
+    CUDA kernels' tiles are fixed (128 tokens x 128 columns)."""
     n = h.shape[0]
     t2 = targets.to(torch.int32).contiguous()
     w2 = (torch.ones((n,), dtype=torch.float32, device=h.device)

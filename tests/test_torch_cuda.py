@@ -41,6 +41,29 @@ def test_int8_matmul_kernel_matches_plain(dev, m, k, n, dtype):
     assert (out - ref).abs().max().item() < 1e-4
 
 
+@pytest.mark.parametrize("m,k,n", [(1, 768, 3072), (8, 3072, 768)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_matmul_kernel_input_grad_matches_plain(dev, m, k, n, dtype):
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    c = torch.randn((m, n), generator=g, device=dev)
+    qw = tmm.quantize(w)
+    xk = x.clone().requires_grad_(True)
+    before = tmm.int8_matmul.launches
+    (tmm.int8_matmul(xk, qw) * c).sum().backward()
+    torch.cuda.synchronize()
+    assert tmm.int8_matmul.launches == before + 1
+    xp = x.clone().requires_grad_(True)
+    (tmm.reference_int8_matmul(xp, qw) * c).sum().backward()
+    assert xk.grad.dtype == dtype and xk.grad.shape == x.shape
+    # f32 gradients in both, summation order apart; bf16 ones round once
+    # to x's dtype, so f32 values a hair apart may round one ulp apart
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    ref = xp.grad.float()
+    assert ((xk.grad.float() - ref).abs() <= 1e-4 + tol * ref.abs()).all()
+
+
 @pytest.mark.parametrize("B,H,Kv,quant", [
     (4, 12, 12, False), (4, 12, 4, False), (4, 12, 12, True), (4, 12, 1, True),
     (4, 12, 2, False), (4, 16, 1, False),       # groups of 6 and 16 heads
@@ -86,7 +109,10 @@ def test_paged_attention_kernel_matches_plain(dev, B, H, Kv, quant, dtype):
 
 @pytest.mark.parametrize("B,T,H,Dh,causal,frontier", [
     (2, 128, 3, 64, False, False), (2, 256, 2, 64, True, False),
-    (2, 256, 2, 64, True, True), (1, 100, 2, 32, True, True),   # ragged T
+    (2, 256, 2, 64, True, True),
+    # T not a multiple of the 128-row tiles: rows past T load as zeros
+    (1, 100, 2, 32, True, True), (2, 300, 2, 32, True, False),
+    (1, 100, 1, 64, True, False), (1, 300, 1, 128, True, True),  # B*H = 1
     (1, 192, 2, 128, False, True), (3, 64, 4, 64, True, False)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernel_matches_plain(dev, B, T, H, Dh, causal, frontier,
@@ -141,8 +167,11 @@ def test_residual_layernorm_kernel_matches_plain(dev, N, D, dtype):
                 <= 1e-5 + ulp * ref.float().abs()).all().item()
 
 
-@pytest.mark.parametrize("N,V,D", [(37, 101, 64), (300, 1000, 128),
-                                   (2048, 32768, 768), (129, 257, 40)])
+@pytest.mark.parametrize("N,V,D", [
+    (37, 101, 64), (300, 1000, 128), (2048, 32768, 768), (129, 257, 40),
+    (1, 50257, 768),          # one token: the vocabulary split over the SMs
+    (37, 1000, 2048),         # h too wide to stay resident: streamed
+    (32768, 1000, 64)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("tied", [True, False])
 def test_blocked_xent_kernel_matches_plain(dev, N, V, D, dtype, tied):
@@ -151,9 +180,12 @@ def test_blocked_xent_kernel_matches_plain(dev, N, V, D, dtype, tied):
     h = torch.randn((N, D), generator=g, device=dev).to(dtype)
     emb = 0.5 * torch.randn((V, D), generator=g, device=dev)
     # tied: tok_embed^T read through its strides; else a row-major (D, V)
+    # (V % 8 != 0: the wrapper pads a copy for the bf16 kernel's TMA map)
     head = emb.to(dtype).T if tied else emb.T.contiguous().to(dtype)
     tg = torch.randint(0, V, (N,), generator=g, device=dev,
                        dtype=torch.int32)
+    tg[1:2] = 0                                  # the first column
+    tg[2:3] = V - 1                              # the last column
     w = torch.rand((N,), generator=g, device=dev)
     w[0] = 0.0
     before = txe.blocked_cross_entropy.launches

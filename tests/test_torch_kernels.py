@@ -66,6 +66,29 @@ def test_int8_matmul_plain_matches_jax_kernel_and_reference(m, n):
     assert tmm.int8_matmul.launches == 0   # CPU tensors launch nothing
 
 
+@pytest.mark.parametrize("lead", [(5,), (2, 3)])
+def test_int8_matmul_input_grad_matches_jax_grad(lead):
+    """dx through the port's autograd.Function against jax.grad of the JAX
+    kernel (its custom_vjp, interpret mode); the int8 leaves get none."""
+    import jax
+
+    rng = np.random.default_rng(11)
+    k, n = 48, 97
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    x = rng.standard_normal(lead + (k,)).astype(np.float32)
+    c = rng.standard_normal(lead + (n,)).astype(np.float32)
+    jq = jmm.quantize(jnp.asarray(w))
+    jdx = jax.grad(lambda xx: jnp.sum(jmm.int8_matmul(xx, jq) * c))(
+        jnp.asarray(x))
+    tq = tmm.quantize(_t(w))
+    xt = _t(x).requires_grad_(True)
+    (tmm.int8_matmul(xt, tq) * _t(c)).sum().backward()
+    assert xt.grad.dtype == torch.float32 and xt.grad.shape == x.shape
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jdx), atol=TOL,
+                               rtol=0)
+    assert tq.q.grad is None and tq.scale.grad is None
+
+
 def test_int8_matmul_keeps_leading_dims_and_top1():
     rng = np.random.default_rng(3)
     w = rng.standard_normal((32, 40)).astype(np.float32)
