@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py --paged-only [--root DIR] [--report PATH]
 
 Builds the port's CUDA kernels from ``deeplearning4j_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), holds each kernel against its
@@ -13,9 +14,10 @@ entry points a user calls:
    every kernel's registers, spills and static shared memory (``ptxas -v``);
 2. ``int8_matmul`` at M in {1, 8} over the FFN and LM-head weights (and
    its input gradient at the FFN shapes against the plain version's), and
-   ``paged_attention`` / ``paged_attention_int8`` at B=8, H=12,
-   Kv in {12, 4}, Dh=64, page 16, 128 pages per row, ragged lengths up to
-   2048; then the training kernels: ``flash_attention`` and
+   ``paged_attention`` / ``paged_attention_int8`` at B=8, H=12, Dh=64,
+   page 16, 128 pages per row: at the engines' own lengths (16-288
+   positions, Kv=12, the main-path case) and at long-context lengths of
+   1-2048 (Kv in {12, 4}); then the training kernels: ``flash_attention`` and
    ``fused_attention`` (causal and not) at the two training legs' shapes
    (B=64, T=512 and B=8, T=2048; H=12, Dh=64), ``fused_residual_layernorm``
    at N in {32768, 16384} rows of 768 and ``blocked_cross_entropy`` at
@@ -51,6 +53,11 @@ entry points a user calls:
    both legs' configs, in bf16 and float32;
 9. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
+
+``--paged-only`` builds ``csrc/paged_attention.cu`` of the checkout at
+``--root`` (this script's by default) and runs phase 2's paged cases
+alone, printing them as one JSON line: two such runs on one card time
+two versions of the kernel against each other.
 
 Any failed phase exits non-zero without the last line, as does a machine
 without CUDA or a directory without the rest of the repository.  Device
@@ -272,13 +279,23 @@ def check_int8_grad(torch, tmm, dev, M=8):
     return errs
 
 
+#: the engines' requests (``run_engine``): prompts of 16-256 tokens, 32 new
+#: tokens each; so a row attends over 16-288 positions in a decode step
+PROMPT_TOKENS = (16, 256)
+NEW_TOKENS = 32
+ENGINE_LENGTHS = (PROMPT_TOKENS[0], PROMPT_TOKENS[1] + NEW_TOKENS)
+#: the long-context paged cases: lengths over the whole 128-page table
+LONG_LENGTHS = (1, 2048)
+
+
 def paged_inputs(torch, dev, gen, Kv, quant, B=8, H=12, Dh=64, ps=16,
-                 n_pages=128):
+                 n_pages=128, lengths_range=LONG_LENGTHS):
     P = B * n_pages + 1
     trash = P - 1
-    lengths = torch.randint(1, n_pages * ps + 1, (B,), generator=gen,
-                            device=dev)
-    lengths[0], lengths[1] = 1, n_pages * ps       # both extremes
+    lo, hi = lengths_range
+    lengths = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev)
+    if lengths_range == LONG_LENGTHS:
+        lengths[0], lengths[1] = 1, n_pages * ps   # both extremes
     perm = torch.randperm(P - 1, generator=gen, device=dev)
     bt = perm[:B * n_pages].reshape(B, n_pages).to(torch.int32)
     need = (lengths + ps - 1) // ps
@@ -294,15 +311,25 @@ def check_paged(torch, tpa, kv_quant, dev, rates, cases):
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(2)
+    # the engines' lengths draw from their own generator, so the long
+    # cases keep the lengths and values of earlier runs
+    gen_engine = torch.Generator(device=dev).manual_seed(4)
     bw, peak = rates
     for quant in (False, True):
-        for Kv in (12, 4):
-            q, k, v, bt, lengths = paged_inputs(torch, dev, gen, Kv, quant)
+        for Kv, lrange in ((12, LONG_LENGTHS), (4, LONG_LENGTHS),
+                           (12, ENGINE_LENGTHS)):
+            q, k, v, bt, lengths = paged_inputs(
+                torch, dev, gen_engine if lrange == ENGINE_LENGTHS else gen,
+                Kv, quant, lengths_range=lrange)
             B, H, Dh = q.shape
             P, ps = k.shape[:2]
             s0 = torch.full((P, Kv), 1 / 127, device=dev)
             item = 1 if quant else 2
-            ncopy = copies_for(2 * k.numel() * item)
+            valid = int(lengths.long().sum().item())
+            # enough copies that both the pools and the pages the rows
+            # touch exceed the L2 (short rows touch a few MB of a pool)
+            ncopy = max(copies_for(2 * k.numel() * item),
+                        copies_for(2 * valid * Kv * Dh * item))
             pools = []
             for i in range(ncopy):
                 if quant:
@@ -342,10 +369,17 @@ def check_paged(torch, tpa, kv_quant, dev, rates, cases):
             if not e32 < TOL_ATTN_F32:
                 fail(f"{name} Kv={Kv} float32: max err {e32} "
                      f"(tol {TOL_ATTN_F32})")
-            # yardstick: SDPA over K/V gathered (and dequantized) beforehand
-            T = bt.shape[1] * ps
+            # yardstick: SDPA over K/V gathered (and dequantized)
+            # beforehand: over the whole table for the long cases (as in
+            # earlier runs), over the pages the longest row needs for the
+            # engines' lengths (what a caller of SDPA would gather)
+            if lrange == ENGINE_LENGTHS:
+                T = -(-int(lengths.max().item()) // ps) * ps
+            else:
+                T = bt.shape[1] * ps
             t = torch.arange(T, device=dev).expand(B, T)
-            flat = torch.gather(bt.long(), 1, t // ps) * ps + t % ps
+            flat = torch.gather(bt[:, :T // ps].long(), 1, t // ps) * ps \
+                + t % ps
             mask = (t < lengths.long()[:, None])[:, None, None, :]
             dense = []
             for pool in pools[:max(2, copies_for(
@@ -369,7 +403,6 @@ def check_paged(torch, tpa, kv_quant, dev, rates, cases):
             lms = device_ms(torch, [
                 lambda kg=kg, vg=vg: F.scaled_dot_product_attention(
                     q4, kg, vg, attn_mask=mask) for kg, vg in dense], reps=5)
-            valid = int(lengths.long().sum().item())
             nbytes = (2 * valid * Kv * Dh * item + 2 * q.numel() * 2
                       + bt.numel() * 4 + B * 4)
             if quant:
@@ -379,15 +412,17 @@ def check_paged(torch, tpa, kv_quant, dev, rates, cases):
             bound = max(nbytes / bw, ops / peak) * 1e3
             cases.append({"kernel": name, "B": B, "H": H, "Kv": Kv, "Dh": Dh,
                           "page_size": ps, "n_pages": bt.shape[1],
-                          "mean_len": valid / B, "max_abs_err": err,
+                          "lengths": f"{lrange[0]}-{lrange[1]}",
+                          "mean_len": valid / B, "sdpa_positions": T,
+                          "max_abs_err": err,
                           "tol": f"{atol} + {rtol} |ref|",
                           "max_abs_err_f32": e32, "tol_f32": TOL_ATTN_F32,
                           "ms": ms, "plain_ms": pms,
                           "library_ms": lms, "bound_ms": bound,
                           "bound_by": "bytes" if nbytes / bw >= ops / peak
                           else "operations", "bytes": nbytes, "ops": ops})
-            print(f"kernel {name} B={B} H={H} Kv={Kv} mean_len={valid / B:.1f}"
-                  f": max_err bf16={err:.3g} (tol {atol} + {rtol:.4g} |ref|) "
+            print(f"kernel {name} B={B} H={H} Kv={Kv} lengths {lrange[0]}-"
+                  f"{lrange[1]} mean_len={valid / B:.1f}: max_err bf16={err:.3g} (tol {atol} + {rtol:.4g} |ref|) "
                   f"f32={e32:.3g} (tol {TOL_ATTN_F32}) kernel_ms={ms:.5f} "
                   f"plain_ms={pms:.5f} library_ms={lms:.5f} "
                   f"bound_ms={bound:.5f}", flush=True)
@@ -798,7 +833,8 @@ def main_path_weights(case, reports, mcfg, legs):
     attention per layer with the config's kv heads (prefill attends over
     its dense batch-of-1 cache).  Training: a leg's attention launches
     count at its (B, T, causal), its LN and xent launches at its B*T rows.
-    Cases off the main paths weigh 0."""
+    Cases off the main paths weigh 0: the paged cases at long-context
+    lengths and at other kv-head counts than the config's."""
     name = case["kernel"]
     if name in TRAIN_KERNELS:
         if "T" in case:
@@ -815,7 +851,8 @@ def main_path_weights(case, reports, mcfg, legs):
                     else r["decode_steps"] if case["M"] == r["slots"] else 0
                     for r in reports)
         return per_step * steps
-    if case["Kv"] != mcfg.kv_heads:
+    if case["Kv"] != mcfg.kv_heads or case["lengths"] != "{}-{}".format(
+            *ENGINE_LENGTHS):
         return 0
     quant = name == "paged_attention_int8"
     return mcfg.n_layers * sum(r["decode_steps"] for r in reports
@@ -951,7 +988,7 @@ def kernels_vs_plain(torch, ttr, tmm, tpa, kv_quant, mcfg, params, quant,
 
 
 def run_engine(eng, tmodel, params, scfg, n_req, rng, wrappers, label,
-               dev="cuda", max_new=32):
+               dev="cuda", max_new=NEW_TOKENS):
     """Serve ``n_req`` concurrent greedy requests; returns the engine
     (still running) and the report with the launch counts."""
     mcfg = tmodel.cfg
@@ -959,7 +996,8 @@ def run_engine(eng, tmodel, params, scfg, n_req, rng, wrappers, label,
     engine.start()                     # builds/loads the kernels, warms up
     reset_counts(wrappers)             # counts of THIS path only
     prompts = [rng.integers(0, mcfg.vocab_size,
-                            int(rng.integers(16, 257))).tolist()
+                            int(rng.integers(PROMPT_TOKENS[0],
+                                             PROMPT_TOKENS[1] + 1))).tolist()
                for _ in range(n_req)]
     t0 = time.perf_counter()
     handles = [engine.submit(p, max_new) for p in prompts]
@@ -991,10 +1029,54 @@ def run_engine(eng, tmodel, params, scfg, n_req, rng, wrappers, label,
     return engine, report
 
 
+def print_ptxas(usage) -> None:
+    """Registers, spills and static shared memory of the bf16 kernels of
+    the TMA sources, from the builds' ``ptxas -v`` reports (every kernel's
+    are in the report)."""
+    for n in ("flash_attention", "blocked_xent", "paged_attention"):
+        for r in usage.get(n, []):
+            if ("f32" in r["kernel"] if n != "paged_attention"
+                    else "__nv_bfloat16" not in r["kernel"]):
+                continue
+            print(f"ptxas {n}: {r['kernel'][:110]} registers="
+                  f"{r.get('registers')} spill_stores={r.get('spill_stores')} "
+                  f"spill_loads={r.get('spill_loads')} static_smem="
+                  f"{r.get('static_smem')}", flush=True)
+
+
+def paged_only(torch, root: Path, rates, report) -> int:
+    """``--paged-only``: build ``csrc/paged_attention.cu`` of the tree at
+    ``root`` and run phase 2's paged cases alone (to time two versions
+    of the kernel on one card, one process each); prints the cases as one
+    JSON line."""
+    from deeplearning4j_tpu_torch.ops.cuda import build, kv_quant
+    from deeplearning4j_tpu_torch.ops.cuda import paged_attention as tpa
+
+    t0 = time.perf_counter()
+    build.load("paged_attention")
+    print(f"paged-only: {root} build_s={time.perf_counter() - t0:.2f}",
+          flush=True)
+    print_ptxas({"paged_attention": build.resource_usage("paged_attention")})
+    cases: list[dict] = []
+    check_paged(torch, tpa, kv_quant, "cuda", rates, cases)
+    if report:
+        Path(report).parent.mkdir(parents=True, exist_ok=True)
+        Path(report).write_text(json.dumps({"root": str(root),
+                                            "paged_cases": cases}, indent=1))
+    print(json.dumps({"root": str(root), "paged_cases": cases}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--report", help="also write the full report (JSON) here")
+    ap.add_argument("--paged-only", action="store_true",
+                    help="build and time the paged-attention kernels alone")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="the checkout whose deeplearning4j_tpu_torch runs "
+                         "(default: this script's)")
     args = ap.parse_args()
+    root = Path(args.root).resolve()
 
     try:
         import torch
@@ -1002,9 +1084,12 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
-    if not (ROOT / "deeplearning4j_tpu_torch" / "csrc").is_dir():
-        fail(f"{ROOT} holds no deeplearning4j_tpu_torch checkout")
-    sys.path.insert(0, str(ROOT))
+    if not (root / "deeplearning4j_tpu_torch" / "csrc").is_dir():
+        fail(f"{root} holds no deeplearning4j_tpu_torch checkout")
+    sys.path.insert(0, str(root))
+    if args.paged_only:
+        return paged_only(torch, root, rates_for(
+            torch.cuda.get_device_name(0)), args.report)
     import numpy as np
 
     from deeplearning4j_tpu_torch.models import transformer as ttr
@@ -1027,18 +1112,8 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda} | rates "
           f"{rates[0] / 1e12:.2f} TB/s, {rates[1] / 1e12:.0f} TFLOP/s bf16",
           flush=True)
-    # registers, spills and static shared memory of every kernel, from the
-    # builds' ptxas reports (all in the report; printed: the TMA + wgmma
-    # sources' bf16 kernels)
     usage = {n: build.resource_usage(n) for n in build.sources()}
-    for n in ("flash_attention", "blocked_xent"):
-        for r in usage[n]:
-            if "f32" in r["kernel"]:
-                continue
-            print(f"ptxas {n}: {r['kernel'][:110]} registers="
-                  f"{r.get('registers')} spill_stores={r.get('spill_stores')} "
-                  f"spill_loads={r.get('spill_loads')} static_smem="
-                  f"{r.get('static_smem')}", flush=True)
+    print_ptxas(usage)
 
     # ---- 2. each kernel against its plain version
     cases: list[dict] = []

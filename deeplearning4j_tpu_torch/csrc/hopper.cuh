@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by the port's TMA + wgmma kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
+// mbarriers, TMA tile loads and 1-D bulk copies (with cp.async for small
+// pieces and named barriers), wgmma shared-memory descriptors and the
 // m64nNk16 bf16 instructions the kernels issue, register reallocation
 // between warpgroups, and the host-side encoding of TMA tensor maps.
 //
@@ -76,6 +77,37 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// 1-D bulk copy (no tensor map): `bytes` contiguous bytes from global
+// memory to shared memory, counted on `bar`'s transaction count.  `bytes`
+// is a multiple of 16 and both addresses are 16-byte aligned.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// a 4-byte asynchronous copy (cp.async), for values too small or too
+// unaligned for a bulk copy
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// arrive on `bar` once every earlier cp.async of this thread has landed;
+// the arrival is not added to the pending count, so `bar`'s initial count
+// includes it
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// a named barrier over `threads` threads (a multiple of 32), leaving the
+// block's other warps (a producer) out
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,

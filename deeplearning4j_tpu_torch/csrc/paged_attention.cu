@@ -10,41 +10,68 @@
 // row b's logical position t sits at page bt[b, t / ps], slot t % ps.
 // Kv < H is GQA: query head h reads kv head h / (H / Kv).  int8 pages
 // carry a per-(page, kv-head) f32 scale and are dequantized in the kernel
-// by one multiply.
+// (in f32, from shared memory) by one multiply.
 //
-// What bounds it: each K/V element of a valid position is read once and
-// used for 2 flops per query head, so the K+V bytes of the rows' valid
-// positions bound it (24,576 * mean length bytes per layer at 8 slots,
-// 12 kv-heads, Dh 64, bf16).
+// What bounds it: each K/V byte of a valid position is read once and used
+// for 2 flops per query head of its group, far below the card's ~295
+// flops a byte, so the K+V bytes of the rows' valid positions bound it
+// (3,072 bytes a position at 12 kv heads, Dh 64, bf16; half in int8).
+// To reach that bound a decode batch, whose rows may hold 1 or 2048
+// positions, has to keep every SM streaming about the same number of
+// bytes, with tens of KB in flight on each; at the engines' short rows
+// the floor is latency: the launch, the lengths and block-table reads,
+// one tile's copy and a merge.
 //
-// Design: the TPU kernel runs a sequential (B, n_pages) grid and carries
-// m, l and acc in VMEM from one page to the next.  GPU blocks run in no
-// order and a row's pages alone would give too few blocks, so the grid is
-// (Kv, B, splits): each block owns one kv head of one row and a contiguous
-// range of that row's pages (split-K over the sequence, as in
-// flash-decoding), reading its own block-table row (no scalar prefetch),
-// and runs the running softmax of all H/Kv query heads of that kv head, so
-// under GQA each K/V element is read once, not once per query head.  Only
-// positions below lengths[b] are visited — the Pallas kernel visits all
-// n_pages and masks them — so a partly filled last page and the trash page
-// of inactive slots contribute exactly 0.  Inside a block each warp takes
-// every 4th group of kUnroll tokens; a lane holds Dh/32 neighbouring dims,
-// so one token's K (or V) row is one coalesced warp load, each head's
-// score is a warp-shuffle sum, and the warp keeps each head's running max,
-// sum and accumulator in registers (G, the group size rounded up to a
-// power of two, is a template parameter so those arrays stay in
-// registers).  The warps' partials merge in shared memory, one warp per
-// head; with one split the block writes the output, otherwise a second
-// kernel merges the splits' (m, l, acc) in a fixed order (deterministic, no
-// atomics).  f32 throughout; the output is written in q's dtype.
-#include "common.cuh"
+// Design:
+// - Work from the lengths, on the device.  The grid is one block per SM
+//   (fixed by the host from B, the table width and the SM count, so a
+//   CUDA-graph capture stays valid).  Every block reads `lengths` and
+//   takes a prefix sum of each row's tiles (runs of T tokens of one page,
+//   T dividing ps, T Kv Dh K+V elements at most 48 KB): W tiles in all.
+//   Block i owns tiles [i W / n, (i+1) W / n) of that sequence, so a row
+//   of 2048 positions is spread over many SMs and a row of 1 costs one
+//   tile; no block touches the table's padding past a row's length.
+// - Stream tiles with the asynchronous copy engine.  A page is one
+//   contiguous (ps, Kv, Dh) run of bytes, and T of its tokens are T Kv Dh
+//   contiguous elements: one 1-D bulk copy (cp.async.bulk, no tensor map)
+//   each for K and V, completing on the stage's mbarrier.  One producer
+//   warp reads the block-table entries of 32 tiles at once, then its lane
+//   0 keeps a ring of up to 8 stages in flight (4 of 48 KB at the
+//   flagship's shape, 8 of 24 KB for its int8 pages); for int8 pages it
+//   also copies the page's 2 Kv scales with 4-byte cp.async, which arrive
+//   on the same barrier.  A row's q rides with the first tile of the row
+//   that a block sees.
+// - Scores without a shuffle chain.  Sixteen consumer warps take a tile at
+//   a time from shared memory.  One thread computes a whole (query head,
+//   token) dot, neighbouring lanes on neighbouring tokens of one head,
+//   each walking the row's 16-byte chunks in an order rotated by its lane
+//   so that rows a multiple of 128 bytes apart meet different banks (a
+//   dot split over lanes spends more instructions on index math and
+//   shuffles than on FMAs).  Then eight lanes per query head move the
+//   running max and sum once per tile, and P V runs one thread per (head,
+//   2 columns) over the tile's tokens, the accumulator in shared memory.
+//   f32 throughout; int8 K scales the score and int8 V the tile's sum.
+// - One launch, deterministic.  A row wholly inside one block's tiles is
+//   written by that block.  A row split over blocks f..l leaves one (m, l,
+//   acc) partial per block in scratch (see part_slot; blocks with no tile
+//   are skipped).  Each block bumps the row's ticket after writing, and
+//   the block that bumps it last merges the partials in block order (8 in
+//   flight per thread, the running max rescaled as it grows), writes the
+//   row and resets the ticket to 0 for the next call.  The merge order is
+//   fixed, so two calls on the same inputs agree bitwise.
+// Positions >= lengths[b] are never read, so they contribute exactly 0.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kUnroll = 4;
+constexpr int kConsumerWarps = 16;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
+constexpr int kMaxStages = 8;
+constexpr int kStageTarget = 48 * 1024;  // K + V bytes of a full stage
+constexpr int kSmemLimit = 232448;       // 227 KB, one block a SM
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Pack {
@@ -53,248 +80,448 @@ struct alignas(sizeof(T) * N) Pack {
 
 // N neighbouring elements at p (aligned to N elements) as f32
 template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&out)[N]) {
+__device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
   const Pack<T, N> pk = *reinterpret_cast<const Pack<T, N>*>(p);
 #pragma unroll
   for (int i = 0; i < N; ++i) out[i] = to_f32(pk.v[i]);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The row owning tile u: cum[r] <= u < cum[r + 1] (cum[0] = 0 <= u < cum[B]).
+__device__ __forceinline__ int row_of(const int* cum, int B, int u) {
+  int lo = 0, hi = B;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (cum[mid] <= u) lo = mid;
+    else hi = mid;
+  }
+  return lo;
 }
 
-template <typename QT, typename KT, bool QUANT, int DPL, int G>
-__global__ void __launch_bounds__(kThreads)
+// the block whose tile range [i W / n, (i + 1) W / n) holds tile u
+__device__ __forceinline__ int block_of(int u, int W, int n) {
+  return static_cast<int>((static_cast<long long>(u + 1) * n - 1) / W);
+}
+
+// floats of one partial (acc (H, DH), then m and l (H) each), padded so
+// every partial starts on 16 bytes
+__host__ __device__ __forceinline__ size_t part_stride(int H, int DH) {
+  return static_cast<size_t>(H) * DH + (2 * H + 3) / 4 * 4;
+}
+
+// the slot of block x's partial of a row whose first block is f: a block
+// has at most one row that starts before it (slot 2x) and one that runs
+// past it (slot 2x + 1; the row's first block)
+__device__ __forceinline__ size_t part_slot(int x, int f) {
+  return 2 * static_cast<size_t>(x) + (x == f ? 1 : 0);
+}
+
+// Shared-memory layout, fixed on the host (all offsets in bytes).
+struct Plan {
+  int B, H, Kv, ps, n_pages;
+  int tile;         // most tokens a stage holds; divides ps
+  int stages;
+  int stage_bytes;  // stride of the ring
+  int v_off, sc_off, q_off;  // inside a stage: K at 0, V, int8 scales, q
+  int qs_off, acc_off, p_off, stat_off, rows_off, flag_off, bar_off;
+  float q_scale;    // log2(e) / sqrt(Dh): scores in base 2
+};
+
+template <typename QT, typename KT, bool QUANT, int DH>
+__global__ void __launch_bounds__(kThreads, 1)
 paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
                        const KT* __restrict__ vp, const float* __restrict__ ks,
                        const float* __restrict__ vs, const int* __restrict__ bt,
                        const int* __restrict__ lengths, QT* __restrict__ out,
-                       float* __restrict__ part_ml, float* __restrict__ part_acc,
-                       int H, int Kv, int ps, int n_pages, int pages_per_split,
-                       float sm_scale) {
-  constexpr int Dh = 32 * DPL;
-  const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int n_splits = gridDim.z;
-  const int group = H / Kv;             // query heads of this kv head, <= G
-  const int h0 = kvh * group;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int len = lengths[b];
-  const int t0 = split * pages_per_split * ps;
-  const int t1 = min(len, min(n_pages, (split + 1) * pages_per_split) * ps);
-  const size_t tok_stride = static_cast<size_t>(Kv) * Dh;
-  const int* btrow = bt + static_cast<size_t>(b) * n_pages;
+                       float* __restrict__ part, int* __restrict__ tickets, const Plan p) {
+  constexpr int kEpc = 16 / sizeof(KT);           // elements of a 16-byte chunk
+  constexpr int kChunks = DH * sizeof(KT) / 16;  // chunks of one head's row
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int B = p.B, H = p.H, Kv = p.Kv, ps = p.ps;
+  const int G = H / Kv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nblk = gridDim.x, blk = blockIdx.x;
+  float* qs = reinterpret_cast<float*>(smem + p.qs_off);     // (H, DH), scaled q
+  float* acc = reinterpret_cast<float*>(smem + p.acc_off);   // (H, DH)
+  float* pr = reinterpret_cast<float*>(smem + p.p_off);      // (H, tile): s, then p
+  float* m_s = reinterpret_cast<float*>(smem + p.stat_off);  // (H) running max
+  float* l_s = m_s + H;                                      // (H) running sum
+  float* c_s = l_s + H;                                      // (H) this tile's rescale
+  int* cum = reinterpret_cast<int*>(smem + p.rows_off);      // (B + 1) tile prefix
+  int* lens = cum + B + 1;                                   // (B) clamped lengths
+  int* bstart = lens + B;                                    // (nblk + 1) tile ranges
+  int* merge = reinterpret_cast<int*>(smem + p.flag_off);    // this block merges
+  const uint32_t bars = hopper::smem_u32(smem + p.bar_off);  // full[s], empty[s]
 
-  float qf[G][DPL], m[G], l[G], acc[G][DPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g < group) {
-      load_f32(q + (static_cast<size_t>(b) * H + h0 + g) * Dh + lane * DPL, qf[g]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) qf[g][i] = 0.f;
+  // ---- the schedule: every block derives the same one from `lengths`
+  const int max_len = p.n_pages * ps;
+  for (int b = tid; b < B; b += kThreads) lens[b] = min(max(lengths[b], 0), max_len);
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      hopper::mbar_init(bars + 8 * s, QUANT ? 2 : 1);       // full
+      hopper::mbar_init(bars + 8 * (kMaxStages + s), 1);    // empty
     }
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      qf[g][i] *= sm_scale;
-      acc[g][i] = 0.f;
-    }
-  }
-
-  for (int t = t0 + warp * kUnroll; t < t1; t += kWarps * kUnroll) {
-    float kf[kUnroll][DPL], vf[kUnroll][DPL];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int tt = t + u;
-      if (tt < t1) {
-        const int page = btrow[tt / ps];
-        const size_t off = (static_cast<size_t>(page) * ps + tt % ps) * tok_stride +
-                           static_cast<size_t>(kvh) * Dh + lane * DPL;
-        load_f32(kp + off, kf[u]);
-        load_f32(vp + off, vf[u]);
-        if (QUANT) {
-          const float ksc = ks[static_cast<size_t>(page) * Kv + kvh];
-          const float vsc = vs[static_cast<size_t>(page) * Kv + kvh];
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) {
-            kf[u][i] *= ksc;
-            vf[u][i] *= vsc;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) kf[u][i] = vf[u][i] = 0.f;
-      }
-    }
-    // the K/V rows just loaded serve every query head of the group
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g >= group) continue;         // warp-uniform
-      float s[kUnroll], mx = m[g];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        float d = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) d += qf[g][i] * kf[u][i];
-        d = warp_sum(d);
-        s[u] = (t + u < t1) ? d : kNegInf;
-        mx = fmaxf(mx, s[u]);
-      }
-      const float corr = expf(m[g] - mx);
-      l[g] *= corr;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] *= corr;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        // positions past the length get weight exactly 0, never exp(0) == 1
-        const float p = (t + u < t1) ? expf(s[u] - mx) : 0.f;
-        l[g] += p;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] += p * vf[u][i];
-      }
-      m[g] = mx;
-    }
-  }
-
-  // merge the warps' partials, one warp per query head (a warp that saw no
-  // position holds m=-1e30, l=0, acc=0 and contributes nothing)
-  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G], sm_acc[kWarps][G][Dh];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g >= group) continue;
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) sm_acc[warp][g][lane * DPL + i] = acc[g][i];
+    hopper::fence_barrier_init();
   }
   __syncthreads();
-  for (int g = warp; g < group; g += kWarps) {
-    float M = kNegInf;
+  const int T = p.tile;
+  if (warp == 0) {
+    int carry = 0;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      const int b = b0 + lane;
+      int x = b < B ? (lens[b] + T - 1) / T : 0;  // inclusive scan over the warp
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    float L = 0.f, a[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) a[i] = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][g] - M);
-      L += sm_l[w][g] * f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) a[i] += sm_acc[w][g][lane * DPL + i] * f;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      if (b < B) cum[b + 1] = carry + x;
+      carry += __shfl_sync(0xffffffffu, x, 31);
     }
-    const size_t row = static_cast<size_t>(b) * H + h0 + g;
-    if (n_splits == 1) {
-      const float inv = 1.f / fmaxf(L, 1e-30f);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) out[row * Dh + lane * DPL + i] = from_f32<QT>(a[i] * inv);
-      continue;
+    const bool narrow = carry <= 0x7fffffff / nblk;  // x W fits 32 bits
+    for (int x = lane; x <= nblk; x += 32)
+      bstart[x] = narrow ? x * carry / nblk
+                         : static_cast<int>(static_cast<long long>(x) * carry / nblk);
+    if (lane == 0) cum[0] = 0;
+  }
+  __syncthreads();
+  const int W = cum[B];
+  // rows with no position (length 0) get zeros, one block each
+  for (int b = blk; b < B; b += nblk) {
+    if (lens[b] > 0) continue;
+    for (int i = tid; i < H * DH; i += kThreads)
+      out[static_cast<size_t>(b) * H * DH + i] = from_f32<QT>(0.f);
+  }
+  const int start = bstart[blk], end = bstart[blk + 1];
+  if (start >= end) return;
+  const size_t tok_elems = static_cast<size_t>(Kv) * DH;  // one token, all kv heads
+
+  if (warp == kConsumerWarps) {
+    // ---- producer: block-table entries 32 tiles at a time, then lane 0
+    // issues each tile's copies into the ring
+    int it = 0;
+    for (int c0 = start; c0 < end; c0 += 32) {
+      const int u = c0 + lane;
+      int rb = 0, pid = 0;
+      if (u < end) {
+        rb = row_of(cum, B, u);
+        pid = bt[static_cast<size_t>(rb) * p.n_pages + (u - cum[rb]) * T / ps];
+      }
+      const int cnt = min(32, end - c0);
+      for (int j = 0; j < cnt; ++j, ++it) {
+        const int ub = __shfl_sync(0xffffffffu, rb, j);
+        const int page = __shfl_sync(0xffffffffu, pid, j);
+        if (lane == 0) {
+          const int s = it % p.stages;
+          if (it >= p.stages) hopper::mbar_wait(bars + 8 * (kMaxStages + s), ((it / p.stages) + 1) & 1);
+          const int uu = c0 + j;
+          const int tok0 = (uu - cum[ub]) * T;
+          const int n = min(T, lens[ub] - tok0);
+          const bool first = uu == cum[ub] || uu == start;
+          const uint32_t kv_bytes = static_cast<uint32_t>(n * tok_elems * sizeof(KT));
+          const uint32_t q_bytes = first ? static_cast<uint32_t>(H * DH * sizeof(QT)) : 0u;
+          const uint32_t full = bars + 8 * s;
+          unsigned char* st = smem + static_cast<size_t>(s) * p.stage_bytes;
+          hopper::mbar_expect_tx(full, 2 * kv_bytes + q_bytes);
+          const size_t off = (static_cast<size_t>(page) * ps + tok0 % ps) * tok_elems;
+          hopper::bulk_load(hopper::smem_u32(st), kp + off, kv_bytes, full);
+          hopper::bulk_load(hopper::smem_u32(st + p.v_off), vp + off, kv_bytes, full);
+          if (first)
+            hopper::bulk_load(hopper::smem_u32(st + p.q_off), q + static_cast<size_t>(ub) * H * DH,
+                              q_bytes, full);
+          if (QUANT) {
+            const uint32_t sc = hopper::smem_u32(st + p.sc_off);
+            for (int h = 0; h < Kv; ++h) {
+              hopper::cp_async_4(sc + 4 * h, ks + static_cast<size_t>(page) * Kv + h);
+              hopper::cp_async_4(sc + 4 * (Kv + h), vs + static_cast<size_t>(page) * Kv + h);
+            }
+            hopper::cp_async_mbar_arrive(full);
+          }
+        }
+        __syncwarp();
+      }
     }
-    const size_t slot = row * n_splits + split;
-    if (lane == 0) {
-      part_ml[slot * 2] = M;
-      part_ml[slot * 2 + 1] = L;
-    }
+    return;
+  }
+
+  // ---- consumers: one segment (a row's run of this block's tiles) at a time
+  int it = 0;
+  for (int u = start; u < end;) {
+    const int b = row_of(cum, B, u);
+    const int seg0 = u;
+    const int seg1 = min(cum[b + 1], end);
+    for (; u < seg1; ++u, ++it) {
+      const int s = it % p.stages;
+      const unsigned char* st = smem + static_cast<size_t>(s) * p.stage_bytes;
+      const KT* kt = reinterpret_cast<const KT*>(st);
+      const KT* vt = reinterpret_cast<const KT*>(st + p.v_off);
+      const float* scl = reinterpret_cast<const float*>(st + p.sc_off);
+      const int n = min(T, lens[b] - (u - cum[b]) * T);
+      hopper::mbar_wait(bars + 8 * s, (it / p.stages) & 1);
+      if (u == seg0) {  // a new row: its q, scaled, and a fresh softmax state
+        const QT* qt = reinterpret_cast<const QT*>(st + p.q_off);
+        for (int i = tid; i < H * DH; i += kConsumers) {
+          qs[i] = to_f32(qt[i]) * p.q_scale;
+          acc[i] = 0.f;
+        }
+        for (int h = tid; h < H; h += kConsumers) {
+          m_s[h] = kNegInf;
+          l_s[h] = 0.f;
+        }
+        hopper::named_sync(1, kConsumers);
+      }
+      // scores: one thread a (query head, token), the whole dot from shared
+      // memory; neighbouring lanes take neighbouring tokens of one head and
+      // walk the row's 16-byte chunks in rotated order, so the rows (a
+      // multiple of 128 bytes apart) meet different banks
+      for (int i = tid; i < n * H; i += kConsumers) {
+        const int h = i / n, tok = i - h * n, kvh = h / G;
+        const KT* krow = kt + static_cast<size_t>(tok * Kv + kvh) * DH;
+        const float* qh = qs + h * DH;
+        float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) part_acc[slot * Dh + lane * DPL + i] = a[i];
+        for (int c = 0; c < kChunks; ++c) {
+          const int cc = (c + lane) % kChunks;
+          float kf[kEpc], qf[kEpc];
+          load_f32<KT, kEpc>(krow + cc * kEpc, kf);
+          load_f32<float, kEpc>(qh + cc * kEpc, qf);
+#pragma unroll
+          for (int e = 0; e < kEpc; e += 2) {
+            d0 = fmaf(qf[e], kf[e], d0);
+            d1 = fmaf(qf[e + 1], kf[e + 1], d1);
+          }
+        }
+        pr[h * p.tile + tok] = (d0 + d1) * (QUANT ? scl[kvh] : 1.f);
+      }
+      hopper::named_sync(1, kConsumers);
+      // running max and sum, once per tile: eight lanes a head, a 3-step
+      // shuffle tree among them
+      const unsigned gmask = 0xffu << (lane & 24);
+      for (int h = tid / 8; h < H; h += kConsumers / 8) {
+        float* row = pr + h * p.tile;
+        const int sub = lane % 8;
+        float mx = kNegInf;
+        for (int j = sub; j < n; j += 8) mx = fmaxf(mx, row[j]);
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(gmask, mx, o));
+        const float m_old = m_s[h];
+        const float m_new = fmaxf(m_old, mx);
+        float sum = 0.f;
+        for (int j = sub; j < n; j += 8) {
+          const float e = exp2f(row[j] - m_new);
+          row[j] = e;
+          sum += e;
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(gmask, sum, o);
+        if (sub == 0) {
+          const float corr = exp2f(m_old - m_new);  // 0 on a row's first tile
+          c_s[h] = corr;
+          l_s[h] = l_s[h] * corr + sum;
+          m_s[h] = m_new;
+        }
+      }
+      hopper::named_sync(1, kConsumers);
+      // P V: one thread a (query head, 2 columns) over the tile's tokens
+      for (int i = tid; i < H * (DH / 2); i += kConsumers) {
+        const int h = i / (DH / 2);
+        const int d = (i % (DH / 2)) * 2;
+        const int kvh = h / G;
+        const float* row = pr + h * p.tile;
+        const KT* vcol = vt + kvh * DH + d;
+        float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+        for (int t = 0; t < n; ++t) {
+          float v2[2];
+          load_f32<KT, 2>(vcol + static_cast<size_t>(t) * tok_elems, v2);
+          const float w = row[t];
+          a0 = fmaf(w, v2[0], a0);
+          a1 = fmaf(w, v2[1], a1);
+        }
+        const float vsc = QUANT ? scl[Kv + kvh] : 1.f;
+        const float corr = c_s[h];
+        float* a = acc + h * DH + d;
+        a[0] = fmaf(a[0], corr, a0 * vsc);
+        a[1] = fmaf(a[1], corr, a1 * vsc);
+      }
+      hopper::named_sync(1, kConsumers);
+      if (tid == 0) hopper::mbar_arrive(bars + 8 * (kMaxStages + s));  // stage free
+    }
+
+    // ---- the segment's end: write the row, or a partial and maybe merge
+    const bool before = cum[b] < start, after = cum[b + 1] > end;
+    QT* orow = out + static_cast<size_t>(b) * H * DH;
+    if (!before && !after) {
+      for (int i = tid; i < H * DH; i += kConsumers)
+        orow[i] = from_f32<QT>(acc[i] / l_s[i / DH]);
+    } else {
+      const size_t stride = part_stride(H, DH);
+      float* mine = part + (2 * static_cast<size_t>(blk) + (before ? 0 : 1)) * stride;
+      for (int i = tid; i < H * DH; i += kConsumers) mine[i] = acc[i];
+      for (int h = tid; h < H; h += kConsumers) {
+        mine[H * DH + h] = m_s[h];
+        mine[H * DH + H + h] = l_s[h];
+      }
+      __threadfence();
+      hopper::named_sync(1, kConsumers);
+      const int f = block_of(cum[b], W, nblk), l = block_of(cum[b + 1] - 1, W, nblk);
+      if (tid == 0) {
+        int parts = 0;  // the blocks in f..l that hold some of the row
+        for (int x = f; x <= l; ++x) parts += bstart[x] < bstart[x + 1];
+        const int t = atomicAdd(tickets + b, 1);
+        const bool last = t == parts - 1;
+        if (last) tickets[b] = 0;  // ready for the next call
+        __threadfence();
+        *merge = last;
+      }
+      hopper::named_sync(1, kConsumers);
+      if (*merge) {
+        // every partial is in: merge in block order, one thread 4 columns;
+        // each round loads 8 partials' (m, l, acc) at once and folds them
+        // into a running (M, L, A), rescaled when M grows
+        for (int i = tid * 4; i < H * DH; i += kConsumers * 4) {
+          const int h = i / DH;
+          float M = kNegInf, L = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int x0 = f; x0 <= l; x0 += 8) {
+            float mx[8], lx[8];
+            float4 v[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const int x = x0 + k;
+              mx[k] = kNegInf;  // past l or an idle block: weight 0
+              lx[k] = 0.f;
+              v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+              if (x <= l && bstart[x] < bstart[x + 1]) {
+                const float* px = part + part_slot(x, f) * stride;
+                mx[k] = __ldcg(px + H * DH + h);
+                lx[k] = __ldcg(px + H * DH + H + h);
+                v[k] = __ldcg(reinterpret_cast<const float4*>(px + i));
+              }
+            }
+            float M2 = M;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) M2 = fmaxf(M2, mx[k]);
+            const float r = exp2f(M - M2);
+            L *= r;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] *= r;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const float w = exp2f(mx[k] - M2);
+              L = fmaf(lx[k], w, L);
+              a[0] = fmaf(v[k].x, w, a[0]);
+              a[1] = fmaf(v[k].y, w, a[1]);
+              a[2] = fmaf(v[k].z, w, a[2]);
+              a[3] = fmaf(v[k].w, w, a[3]);
+            }
+            M = M2;
+          }
+          const float inv = 1.f / L;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) orow[i + e] = from_f32<QT>(a[e] * inv);
+        }
+      }
+    }
+    hopper::named_sync(1, kConsumers);  // acc and the stats are reused next
   }
 }
 
-// merge the splits of one (row, head): one warp, splits in a fixed order
-template <typename QT, int DPL>
-__global__ void __launch_bounds__(32)
-merge_splits_kernel(const float* __restrict__ part_ml,
-                    const float* __restrict__ part_acc, QT* __restrict__ out,
-                    int H, int n_splits) {
-  constexpr int Dh = 32 * DPL;
-  const size_t row = static_cast<size_t>(blockIdx.y) * H + blockIdx.x;
-  const int lane = threadIdx.x;
-  const float* ml = part_ml + row * n_splits * 2;
-  float M = kNegInf;
-  for (int s = 0; s < n_splits; ++s) M = fmaxf(M, ml[s * 2]);
-  float L = 0.f, a[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) a[i] = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float f = expf(ml[s * 2] - M);
-    L += ml[s * 2 + 1] * f;
-    const float* acc = part_acc + (row * n_splits + s) * Dh + lane * DPL;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) a[i] += acc[i] * f;
-  }
-  const float inv = 1.f / fmaxf(L, 1e-30f);
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) out[row * Dh + lane * DPL + i] = from_f32<QT>(a[i] * inv);
+// the shared-memory plan for these shapes; false if it does not fit
+template <typename QT, typename KT>
+bool make_plan(Plan& p, int B, int H, int Kv, int Dh, int ps, int n_pages, int n_blocks) {
+  p.B = B;
+  p.H = H;
+  p.Kv = Kv;
+  p.ps = ps;
+  p.n_pages = n_pages;
+  const int tok_kv = Kv * Dh * static_cast<int>(sizeof(KT));  // K (or V) bytes of a token
+  p.tile = 1;  // the largest divisor of ps whose K + V fit the stage target
+  for (int t = ps; t >= 1; --t)
+    if (ps % t == 0 && 2 * t * tok_kv <= kStageTarget) {
+      p.tile = t;
+      break;
+    }
+  p.v_off = round_up(p.tile * tok_kv, 128);
+  p.sc_off = p.v_off + round_up(p.tile * tok_kv, 16);
+  p.q_off = p.sc_off + round_up(2 * Kv * 4, 16);
+  p.stage_bytes = round_up(p.q_off + H * Dh * static_cast<int>(sizeof(QT)), 128);
+  int fixed = 0;
+  p.qs_off = fixed;  // relative for now; shifted past the ring below
+  fixed += H * Dh * 4;
+  p.acc_off = fixed;
+  fixed += H * Dh * 4;
+  p.p_off = fixed;
+  fixed += round_up(H * p.tile * 4, 16);
+  p.stat_off = fixed;
+  fixed += round_up(3 * H * 4, 16);
+  p.rows_off = fixed;
+  fixed += round_up((2 * B + n_blocks + 2) * 4, 16);
+  p.flag_off = fixed;
+  fixed += 16;
+  p.bar_off = fixed;
+  fixed += 2 * kMaxStages * 8;
+  p.stages = (kSmemLimit - fixed) / p.stage_bytes;
+  if (p.stages > kMaxStages) p.stages = kMaxStages;
+  if (p.stages < 2) return false;
+  const int ring = p.stages * p.stage_bytes;
+  p.qs_off += ring;
+  p.acc_off += ring;
+  p.p_off += ring;
+  p.stat_off += ring;
+  p.rows_off += ring;
+  p.flag_off += ring;
+  p.bar_off += ring;
+  p.q_scale = kLog2e / sqrtf(static_cast<float>(Dh));
+  return true;
 }
 
-template <typename QT, typename KT, bool QUANT, int DPL, int G>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* k_scale, const void* v_scale, const void* bt,
-                   const void* lengths, void* out, void* part_ml,
-                   void* part_acc, int B, int H, int Kv, int ps, int n_pages,
-                   int n_splits, cudaStream_t stream) {
-  const int pps = (n_pages + n_splits - 1) / n_splits;
-  dim3 grid(Kv, B, n_splits);
-  paged_attention_kernel<QT, KT, QUANT, DPL, G><<<grid, kThreads, 0, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(bt),
-      static_cast<const int*>(lengths), static_cast<QT*>(out),
-      static_cast<float*>(part_ml), static_cast<float*>(part_acc), H, Kv, ps,
-      n_pages, pps, rsqrtf(static_cast<float>(32 * DPL)));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_splits == 1) return e;
-  merge_splits_kernel<QT, DPL><<<dim3(H, B), 32, 0, stream>>>(
-      static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
-      static_cast<QT*>(out), H, n_splits);
+inline int smem_bytes(const Plan& p) { return p.bar_off + 2 * kMaxStages * 8; }
+
+template <typename QT, typename KT, bool QUANT, int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
+                   const void* vs, const void* bt, const void* lengths, void* out,
+                   void* part, void* tickets, int B, int H, int Kv, int ps, int n_pages,
+                   int n_blocks, cudaStream_t stream) {
+  auto kernel = paged_attention_kernel<QT, KT, QUANT, DH>;
+  static bool attr_set = false;  // set once, before any graph capture
+  if (!attr_set) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  Plan p;
+  if (!make_plan<QT, KT>(p, B, H, Kv, DH, ps, n_pages, n_blocks)) return cudaErrorInvalidValue;
+  kernel<<<n_blocks, kThreads, smem_bytes(p), stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(bt),
+      static_cast<const int*>(lengths), static_cast<QT*>(out), static_cast<float*>(part),
+      static_cast<int*>(tickets), p);
   return cudaGetLastError();
 }
 
-// the group size H/Kv rounded up to the next instantiated power of two
-template <typename QT, typename KT, bool QUANT, int DPL>
-cudaError_t dispatch_group(const void* q, const void* k, const void* v,
-                           const void* ks, const void* vs, const void* bt,
-                           const void* lengths, void* out, void* pml,
-                           void* pacc, int B, int H, int Kv, int ps,
-                           int n_pages, int n_splits, cudaStream_t s) {
-  const int group = H / Kv;
-  if (group <= 1) return launch<QT, KT, QUANT, DPL, 1>(q, k, v, ks, vs, bt, lengths, out, pml, pacc, B, H, Kv, ps, n_pages, n_splits, s);
-  if (group <= 2) return launch<QT, KT, QUANT, DPL, 2>(q, k, v, ks, vs, bt, lengths, out, pml, pacc, B, H, Kv, ps, n_pages, n_splits, s);
-  if (group <= 4) return launch<QT, KT, QUANT, DPL, 4>(q, k, v, ks, vs, bt, lengths, out, pml, pacc, B, H, Kv, ps, n_pages, n_splits, s);
-  if (group <= 8) return launch<QT, KT, QUANT, DPL, 8>(q, k, v, ks, vs, bt, lengths, out, pml, pacc, B, H, Kv, ps, n_pages, n_splits, s);
-  if (group <= 16) return launch<QT, KT, QUANT, DPL, 16>(q, k, v, ks, vs, bt, lengths, out, pml, pacc, B, H, Kv, ps, n_pages, n_splits, s);
-  return cudaErrorInvalidValue;
-}
-
-template <typename QT, int DPL>
-cudaError_t dispatch_quant(int quant, const void* q, const void* k,
-                           const void* v, const void* ks, const void* vs,
-                           const void* bt, const void* lengths, void* out,
-                           void* pml, void* pacc, int B, int H, int Kv,
-                           int ps, int n_pages, int n_splits, cudaStream_t s) {
+template <typename QT, int DH>
+cudaError_t dispatch_quant(int quant, const void* q, const void* k, const void* v,
+                           const void* ks, const void* vs, const void* bt, const void* lengths,
+                           void* out, void* part, void* tickets, int B, int H, int Kv, int ps,
+                           int n_pages, int n_blocks, cudaStream_t s) {
   if (quant)
-    return dispatch_group<QT, int8_t, true, DPL>(q, k, v, ks, vs, bt, lengths,
-                                                 out, pml, pacc, B, H, Kv, ps,
-                                                 n_pages, n_splits, s);
-  return dispatch_group<QT, QT, false, DPL>(q, k, v, ks, vs, bt, lengths, out,
-                                            pml, pacc, B, H, Kv, ps, n_pages,
-                                            n_splits, s);
+    return launch<QT, int8_t, true, DH>(q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H,
+                                        Kv, ps, n_pages, n_blocks, s);
+  return launch<QT, QT, false, DH>(q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv,
+                                   ps, n_pages, n_blocks, s);
 }
 
 template <typename QT>
-cudaError_t dispatch_dh(int Dh, int quant, const void* q, const void* k,
-                        const void* v, const void* ks, const void* vs,
-                        const void* bt, const void* lengths, void* out,
-                        void* pml, void* pacc, int B, int H, int Kv, int ps,
-                        int n_pages, int n_splits, cudaStream_t s) {
+cudaError_t dispatch_dh(int Dh, int quant, const void* q, const void* k, const void* v,
+                        const void* ks, const void* vs, const void* bt, const void* lengths,
+                        void* out, void* part, void* tickets, int B, int H, int Kv, int ps,
+                        int n_pages, int n_blocks, cudaStream_t s) {
   switch (Dh) {
-    case 32: return dispatch_quant<QT, 1>(quant, q, k, v, ks, vs, bt, lengths, out, pml, pacc, B, H, Kv, ps, n_pages, n_splits, s);
-    case 64: return dispatch_quant<QT, 2>(quant, q, k, v, ks, vs, bt, lengths, out, pml, pacc, B, H, Kv, ps, n_pages, n_splits, s);
-    case 128: return dispatch_quant<QT, 4>(quant, q, k, v, ks, vs, bt, lengths, out, pml, pacc, B, H, Kv, ps, n_pages, n_splits, s);
+    case 32: return dispatch_quant<QT, 32>(quant, q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
+    case 64: return dispatch_quant<QT, 64>(quant, q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
+    case 128: return dispatch_quant<QT, 128>(quant, q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -306,32 +533,30 @@ DL4J_EXPORT_ERROR_STRING
 // q (B,H,Dh) and out in `dtype`; k/v pools (P,ps,Kv,Dh) in `dtype`
 // (quant == 0) or int8 with (P,Kv) f32 k_scale/v_scale (quant == 1);
 // bt (B,n_pages) and lengths (B,) int32; Dh in {32, 64, 128}; H a
-// multiple of Kv with H / Kv <= 16.  With
-// n_splits > 1, part_ml (B,H,n_splits,2) and part_acc (B,H,n_splits,Dh)
-// are f32 scratch.  All contiguous on one device.  Returns
-// cudaGetLastError() after the launches.
-extern "C" int dl4j_paged_attention(const void* q, const void* k,
-                                    const void* v, const void* k_scale,
-                                    const void* v_scale, const void* bt,
-                                    const void* lengths, void* out,
-                                    void* part_ml, void* part_acc, int B,
-                                    int H, int Kv, int Dh, int ps,
-                                    int n_pages, int n_splits, int dtype,
-                                    int quant, void* stream) {
+// multiple of Kv with H / Kv <= 16.  q, k and v 16-byte aligned.  part is
+// f32 scratch of n_blocks * 2 * (H * Dh + round_up(2 H, 4)); tickets is B int32 that are
+// 0 on entry and are left 0 (the wrapper keeps one zeroed buffer per
+// stream).  All contiguous on one device.  Returns cudaGetLastError()
+// after the one launch.
+extern "C" int dl4j_paged_attention(const void* q, const void* k, const void* v,
+                                    const void* k_scale, const void* v_scale, const void* bt,
+                                    const void* lengths, void* out, void* part, void* tickets,
+                                    int B, int H, int Kv, int Dh, int ps, int n_pages,
+                                    int n_blocks, int dtype, int quant, void* stream) {
   if (B <= 0) return 0;
-  if (Kv <= 0 || H % Kv != 0 || H / Kv > 16 || n_splits < 1 || n_pages < 1)
+  if (Kv <= 0 || H % Kv != 0 || H / Kv > 16 || n_blocks < 1 || n_pages < 1 || ps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {
     case kF32:
-      e = dispatch_dh<float>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part_ml, part_acc, B, H, Kv, ps, n_pages, n_splits, s);
+      e = dispatch_dh<float>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
       break;
     case kBF16:
-      e = dispatch_dh<__nv_bfloat16>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part_ml, part_acc, B, H, Kv, ps, n_pages, n_splits, s);
+      e = dispatch_dh<__nv_bfloat16>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
       break;
     case kF16:
-      e = dispatch_dh<__half>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part_ml, part_acc, B, H, Kv, ps, n_pages, n_splits, s);
+      e = dispatch_dh<__half>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
       break;
     default:
       e = cudaErrorInvalidValue;

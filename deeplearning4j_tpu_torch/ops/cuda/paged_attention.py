@@ -17,6 +17,14 @@ page_size, Kv, Dh)`` pools and addresses each sequence through a
   CPU tensors they compute the plain version.  No fallback from the
   kernel to the plain version.
 
+The kernel is one launch of one block per SM that splits the batch's
+valid pages evenly over the blocks on the device (from ``lengths``, with
+no host sync) and merges a row split over blocks in the last block to
+finish it.  That merge counts arrivals in an int32 ticket per row, which
+the kernel leaves at 0: :func:`_tickets` keeps one zeroed buffer per
+(device, stream), made on the first call outside a CUDA-graph capture
+and never freed, so a captured call replays against the same buffer.
+
 Kv < H is GQA/MQA: query head ``h`` reads kv head ``h // (H // Kv)``.
 """
 
@@ -32,7 +40,7 @@ from . import build, kv_quant, registry
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: dl4j_paged_attention(q, k, v, k_scale, v_scale, bt, lengths, out,
-#: part_ml, part_acc, B, H, Kv, Dh, ps, n_pages, n_splits, dtype, quant,
+#: part, tickets, B, H, Kv, Dh, ps, n_pages, n_blocks, dtype, quant,
 #: stream)
 _ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
 
@@ -72,12 +80,32 @@ def reference_paged_attention_int8(q, k_pages, v_pages, k_scale, v_scale,
     return reference_paged_attention(q, kf, vf, block_tables, lengths)
 
 
-def _splits(device, rows: int, n_pages: int) -> int:
-    """Page splits per (row, kv head): enough blocks to give every SM
-    about four, never more splits than pages."""
-    want = max(1, -(-4 * sm_count(device) // rows))
-    pps = -(-n_pages // min(n_pages, want))
-    return -(-n_pages // pps)
+def _blocks(device, B: int, n_pages: int, ps: int) -> int:
+    """Blocks of a launch: one per SM (each takes a share of the batch's
+    valid positions on the device), never more than the table's
+    positions."""
+    return max(1, min(sm_count(device), B * n_pages * ps))
+
+
+_ticket_bufs: dict = {}
+
+
+def _tickets(device, B: int) -> torch.Tensor:
+    """The zeroed int32 row tickets of the current stream, at least ``B``
+    long.  A buffer outgrown is kept alive, since a captured CUDA graph
+    may still replay against it."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device, stream.cuda_stream)
+    bufs = _ticket_bufs.setdefault(key, [])
+    if not bufs or bufs[-1].numel() < B:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged attention: the first call on a stream (or with a "
+                "larger batch) must run outside a CUDA-graph capture: it "
+                "allocates and zeroes the kernel's row tickets")
+        bufs.append(torch.zeros(max(B, 64), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
@@ -120,20 +148,24 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
             raise ValueError(f"{what}: inputs must be contiguous")
     if Dh not in (32, 64, 128):
         raise ValueError(f"{what}: head width {Dh} not in (32, 64, 128)")
+    for t in (q, k_pages, v_pages):     # bulk copies move 16-byte units
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: q and the pools must be 16-byte "
+                             "aligned")
     n_pages = block_tables.shape[1]
-    n_splits = _splits(q.device, B * Kv, n_pages)
+    n_blocks = _blocks(q.device, B, n_pages, ps)
     out = torch.empty_like(q)
-    part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((B, H, n_splits, Dh), dtype=torch.float32,
-                           device=q.device)
+    # per block two (m, l, acc) partials, each padded to 16 bytes
+    part = torch.empty((n_blocks * 2, H * Dh + -(-2 * H // 4) * 4),
+                       dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, B)
     fn = build.function("paged_attention", "dl4j_paged_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None,
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_ml.data_ptr(), part_acc.data_ptr(), B, H, Kv, Dh, ps,
-            n_pages, n_splits, _DTYPE_CODES[q.dtype], int(quant),
+            part.data_ptr(), tickets.data_ptr(), B, H, Kv, Dh, ps,
+            n_pages, n_blocks, _DTYPE_CODES[q.dtype], int(quant),
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check("paged_attention", rc, what)
     return out

@@ -105,6 +105,131 @@ def test_paged_attention_kernel_matches_plain(dev, B, H, Kv, quant, dtype):
         assert (err <= 1e-5 + 2 ** -8 * ref.abs()).all().item()
 
 
+def _paged_pools(dev, g, B, H, Kv, Dh, ps, n_pages, lengths, quant, dtype):
+    """Random pools and a block table for ``lengths`` (a row of length 0
+    is an inactive slot: length 1 over the trash page); returns the kernel
+    arguments and the plain version's, in float32 on the same values."""
+    P = B * n_pages + 1
+    k = torch.randn((P, ps, Kv, Dh), generator=g, device=dev)
+    v = torch.randn((P, ps, Kv, Dh), generator=g, device=dev)
+    q = torch.randn((B, H, Dh), generator=g, device=dev).to(dtype)
+    bt = torch.randperm(P - 1, generator=g, device=dev)[:B * n_pages] \
+        .reshape(B, n_pages).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    need = (lens + ps - 1) // ps
+    bt = torch.where(torch.arange(n_pages, device=dev)[None, :]
+                     < need[:, None], bt, torch.full_like(bt, P - 1))
+    lens = lens.clamp(min=1)
+    if quant:
+        s0 = torch.full((P, Kv), 1 / 127, device=dev)
+        kq, ks = kv_quant.requantize_pool(k, s0, torch.int8)
+        vq, vs = kv_quant.requantize_pool(v, s0, torch.int8)
+        return ((q, kq, vq, ks, vs, bt, lens),
+                (q.float(), kq, vq, ks, vs, bt, lens))
+    kb, vb = k.to(dtype), v.to(dtype)
+    return (q, kb, vb, bt, lens), (q.float(), kb.float(), vb.float(), bt, lens)
+
+
+def _paged_fns(quant):
+    if quant:
+        return tpa.paged_attention_int8, tpa.reference_paged_attention_int8
+    return tpa.paged_attention, tpa.reference_paged_attention
+
+
+def _assert_paged_close(out, ref, dtype):
+    # against the plain version in float32 on the same values: summation
+    # order and, in bf16, one rounding of the output (half an ulp)
+    err = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        assert err.max().item() < 1e-4
+    else:
+        assert (err <= 1e-5 + 2 ** -8 * ref.abs()).all().item()
+
+
+def _lengths(kind, B, full, seed):
+    rng = torch.Generator().manual_seed(seed)
+    if kind == "ragged":        # a row of 1 beside full-table rows, a trash row
+        base = [1, full, 0, full - 5]
+        return [base[i % 4] for i in range(B)]
+    if kind == "ones":
+        return [1] * B
+    if kind == "full":
+        return [full] * B
+    return torch.randint(1, full + 1, (B,), generator=rng).tolist()
+
+
+@pytest.mark.parametrize("B,H,Kv,Dh,ps,n_pages,kind", [
+    (4, 12, 12, 64, 16, 128, "ragged"),     # lengths 1 and 2048 in one batch
+    (8, 12, 12, 64, 16, 128, "ones"),       # every row of length 1
+    (1, 12, 12, 64, 16, 128, "full"),       # one row over the whole table
+    (64, 12, 12, 64, 16, 32, "random"),     # more rows than fit one a block
+    (3, 32, 32, 128, 64, 4, "ragged"),      # a page (512 KB) > a stage
+    (5, 8, 8, 32, 64, 6, "random"),         # ps 64, Dh 32
+    (4, 8, 4, 128, 16, 16, "ragged"),       # Dh 128, groups of 2
+    (4, 12, 12, 32, 16, 16, "random"),      # groups of 1, Dh 32
+    (4, 12, 2, 64, 16, 24, "ragged"),       # groups of 6
+    (4, 16, 1, 64, 16, 24, "ragged")])      # groups of 16 (MQA)
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_kernel_ragged_shapes(dev, B, H, Kv, Dh, ps, n_pages,
+                                              kind, quant, dtype):
+    g = torch.Generator(device=dev).manual_seed(B * 100 + H + Dh + ps)
+    lengths = _lengths(kind, B, n_pages * ps, B + Dh)
+    args, ref_args = _paged_pools(dev, g, B, H, Kv, Dh, ps, n_pages, lengths,
+                                  quant, dtype)
+    kern, plain = _paged_fns(quant)
+    before = kern.launches
+    out = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, H, Dh)
+    _assert_paged_close(out, plain(*ref_args), dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_kernel_is_deterministic(dev, quant):
+    """Rows split over many blocks merge in a fixed order: two calls on
+    the same inputs agree bitwise (and the tickets are left at 0)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    lengths = _lengths("random", 8, 2048, 3) + [2048, 1]
+    args, _ = _paged_pools(dev, g, 10, 12, 12, 64, 16, 128, lengths, quant,
+                           torch.bfloat16)
+    kern, _ = _paged_fns(quant)
+    a = kern(*args)
+    b = kern(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert int(tpa._tickets(args[0].device, 10).abs().sum().item()) == 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_kernel_cuda_graph_replay(dev, quant):
+    """One call captured in a CUDA graph and replayed after ``lengths``
+    changes in place: the kernel splits the new lengths on the device."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    B, n_pages, ps = 8, 128, 16
+    full = n_pages * ps
+    args, ref_args = _paged_pools(dev, g, B, 12, 12, 64, ps, n_pages,
+                                  [full] * B, quant, torch.bfloat16)
+    kern, plain = _paged_fns(quant)
+    lengths = args[-1]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        kern(*args)                      # warm up on the capture stream
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = kern(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    for new in ([1, full, 37, 300, 1, 2000, 16, 17],
+                [5] * B, _lengths("random", B, full, 4)):
+        lengths.copy_(torch.tensor(new, dtype=torch.int32, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_paged_close(out, plain(*ref_args), torch.bfloat16)
+
+
 # ------------------------------------------------------------ training kernels
 
 @pytest.mark.parametrize("B,T,H,Dh,causal,frontier", [

@@ -198,6 +198,8 @@ CASES = [
     (4, 4, [1, 6, 16, 0]),
     (4, 2, [3, 9, 0, 13]),
     (4, 1, [16, 1, 5, 0]),
+    # ragged extremes: rows of 1 beside full-table rows and a trash row
+    (4, 2, [1, 16, 0, 16, 1]),
 ]
 
 
