@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--report PATH]
     python3 chip_smoke.py --paged-only [--root DIR] [--report PATH]
+    python3 chip_smoke.py --int8-only [--root DIR] [--report PATH]
 
 Builds the port's CUDA kernels from ``deeplearning4j_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), holds each kernel against its
@@ -13,7 +14,9 @@ entry points a user calls:
 1. the card (``nvidia-smi`` name and power limit), the build time and
    every kernel's registers, spills and static shared memory (``ptxas -v``);
 2. ``int8_matmul`` at M in {1, 8} over the FFN and LM-head weights (and
-   its input gradient at the FFN shapes against the plain version's), and
+   its input gradient at the FFN shapes against the plain version's; and,
+   under ``torch.profiler``, that a call at each of those shapes is one
+   device kernel), and
    ``paged_attention`` / ``paged_attention_int8`` at B=8, H=12, Dh=64,
    page 16, 128 pages per row: at the engines' own lengths (16-288
    positions, Kv=12, the main-path case) and at long-context lengths of
@@ -57,7 +60,10 @@ entry points a user calls:
 ``--paged-only`` builds ``csrc/paged_attention.cu`` of the checkout at
 ``--root`` (this script's by default) and runs phase 2's paged cases
 alone, printing them as one JSON line: two such runs on one card time
-two versions of the kernel against each other.
+two versions of the kernel against each other.  ``--int8-only`` does the
+same for ``csrc/int8_matmul.cu``: its six shapes, its input gradient and
+its device kernels a call (reported there, not held to one, so that an
+older tree can be timed beside a newer one).
 
 Any failed phase exits non-zero without the last line, as does a machine
 without CUDA or a directory without the rest of the repository.  Device
@@ -277,6 +283,40 @@ def check_int8_grad(torch, tmm, dev, M=8):
     print(f"kernel int8_matmul dx (FFN shapes, M={M}, f32): max_err {errs} "
           f"(tol {TOL_INT8})", flush=True)
     return errs
+
+
+def check_int8_one_launch(torch, tmm, dev, tries: int = 3):
+    """Device kernels that one ``int8_matmul`` call launches, under
+    ``torch.profiler``, at each of phase 2's six shapes (w2 at M=1 splits
+    K over a cluster): ``{shape: [kernel names]}``.  A session that saw
+    no kernel is taken again, up to ``tries`` times (CUPTI has dropped
+    a short session's only record on an H100); more than one is kept.
+    The run calls it before any other profiler session: after the train
+    legs' sessions in the same process, sessions recorded no kernel at
+    all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for m, (k, n) in [(m, s) for m in (1, 8)
+                      for s in ((768, 3072), (3072, 768), (768, 32768))]:
+        qw = tmm.quantize(torch.randn((k, n), generator=gen, device=dev)
+                          * k ** -0.5)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        tmm.int8_matmul(x, qw)
+        torch.cuda.synchronize()
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                tmm.int8_matmul(x, qw)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        out[f"M={m} K={k} N={n}"] = names
+    print("kernel int8_matmul device kernels a call (torch.profiler): "
+          + ", ".join(f"{s}: {len(v)}" for s, v in out.items()), flush=True)
+    return out
 
 
 #: the engines' requests (``run_engine``): prompts of 16-256 tokens, 32 new
@@ -992,7 +1032,7 @@ def run_engine(eng, tmodel, params, scfg, n_req, rng, wrappers, label,
     """Serve ``n_req`` concurrent greedy requests; returns the engine
     (still running) and the report with the launch counts."""
     mcfg = tmodel.cfg
-    engine = eng.InferenceEngine(tmodel, params, scfg, device=dev)
+    engine = eng.InferenceEngine(tmodel, params, cfg=scfg, device=dev)
     engine.start()                     # builds/loads the kernels, warms up
     reset_counts(wrappers)             # counts of THIS path only
     prompts = [rng.integers(0, mcfg.vocab_size,
@@ -1030,12 +1070,14 @@ def run_engine(eng, tmodel, params, scfg, n_req, rng, wrappers, label,
 
 
 def print_ptxas(usage) -> None:
-    """Registers, spills and static shared memory of the bf16 kernels of
-    the TMA sources, from the builds' ``ptxas -v`` reports (every kernel's
-    are in the report)."""
-    for n in ("flash_attention", "blocked_xent", "paged_attention"):
+    """Registers, spills and static shared memory of the bf16 kernels,
+    from the builds' ``ptxas -v`` reports (every kernel's are in the
+    report)."""
+    for n in ("flash_attention", "blocked_xent", "paged_attention",
+              "int8_matmul"):
         for r in usage.get(n, []):
-            if ("f32" in r["kernel"] if n != "paged_attention"
+            if ("f32" in r["kernel"] if n in ("flash_attention",
+                                              "blocked_xent")
                     else "__nv_bfloat16" not in r["kernel"]):
                 continue
             print(f"ptxas {n}: {r['kernel'][:110]} registers="
@@ -1044,34 +1086,47 @@ def print_ptxas(usage) -> None:
                   f"{r.get('static_smem')}", flush=True)
 
 
-def paged_only(torch, root: Path, rates, report) -> int:
-    """``--paged-only``: build ``csrc/paged_attention.cu`` of the tree at
-    ``root`` and run phase 2's paged cases alone (to time two versions
-    of the kernel on one card, one process each); prints the cases as one
+def one_source(torch, root: Path, rates, report, name: str) -> int:
+    """``--paged-only`` / ``--int8-only``: build ``csrc/<name>.cu`` of the
+    tree at ``root`` and run its phase-2 cases alone (to time two versions
+    of a kernel on one card, one process each); prints the cases as one
     JSON line."""
-    from deeplearning4j_tpu_torch.ops.cuda import build, kv_quant
-    from deeplearning4j_tpu_torch.ops.cuda import paged_attention as tpa
+    from deeplearning4j_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    build.load("paged_attention")
-    print(f"paged-only: {root} build_s={time.perf_counter() - t0:.2f}",
+    build.load(name)
+    print(f"{name}-only: {root} build_s={time.perf_counter() - t0:.2f}",
           flush=True)
-    print_ptxas({"paged_attention": build.resource_usage("paged_attention")})
+    usage = {name: build.resource_usage(name)}
+    print_ptxas(usage)
     cases: list[dict] = []
-    check_paged(torch, tpa, kv_quant, "cuda", rates, cases)
+    result = {"root": str(root), "card": card_line(), "ptxas": usage}
+    if name == "paged_attention":
+        from deeplearning4j_tpu_torch.ops.cuda import kv_quant
+        from deeplearning4j_tpu_torch.ops.cuda import paged_attention as tpa
+        check_paged(torch, tpa, kv_quant, "cuda", rates, cases)
+    else:
+        from deeplearning4j_tpu_torch.ops.cuda import matmul_int8 as tmm
+        check_int8(torch, tmm, "cuda", rates, cases)
+        result["int8_matmul_dx_err"] = check_int8_grad(torch, tmm, "cuda")
+        result["int8_matmul_device_kernels"] = check_int8_one_launch(
+            torch, tmm, "cuda")
+    result["cases"] = cases
     if report:
         Path(report).parent.mkdir(parents=True, exist_ok=True)
-        Path(report).write_text(json.dumps({"root": str(root),
-                                            "paged_cases": cases}, indent=1))
-    print(json.dumps({"root": str(root), "paged_cases": cases}), flush=True)
+        Path(report).write_text(json.dumps(result, indent=1))
+    print(json.dumps({"root": str(root), "cases": cases}), flush=True)
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--report", help="also write the full report (JSON) here")
-    ap.add_argument("--paged-only", action="store_true",
-                    help="build and time the paged-attention kernels alone")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--paged-only", action="store_true",
+                      help="build and time the paged-attention kernels alone")
+    only.add_argument("--int8-only", action="store_true",
+                      help="build, check and time int8_matmul alone")
     ap.add_argument("--root", default=str(ROOT),
                     help="the checkout whose deeplearning4j_tpu_torch runs "
                          "(default: this script's)")
@@ -1087,9 +1142,10 @@ def main() -> int:
     if not (root / "deeplearning4j_tpu_torch" / "csrc").is_dir():
         fail(f"{root} holds no deeplearning4j_tpu_torch checkout")
     sys.path.insert(0, str(root))
-    if args.paged_only:
-        return paged_only(torch, root, rates_for(
-            torch.cuda.get_device_name(0)), args.report)
+    if args.paged_only or args.int8_only:
+        return one_source(torch, root, rates_for(
+            torch.cuda.get_device_name(0)), args.report,
+            "paged_attention" if args.paged_only else "int8_matmul")
     import numpy as np
 
     from deeplearning4j_tpu_torch.models import transformer as ttr
@@ -1119,6 +1175,9 @@ def main() -> int:
     cases: list[dict] = []
     check_int8(torch, tmm, "cuda", rates, cases)
     int8_dx = check_int8_grad(torch, tmm, "cuda")
+    int8_kernels = check_int8_one_launch(torch, tmm, "cuda")
+    if any(len(v) != 1 for v in int8_kernels.values()):
+        fail(f"an int8_matmul call is not one device kernel: {int8_kernels}")
     check_paged(torch, tpa, kv_quant, "cuda", rates, cases)
     check_attention(torch, tat, "cuda", rates, cases)
     check_layernorm(torch, tln, "cuda", rates, cases)
@@ -1212,6 +1271,7 @@ def main() -> int:
             "card": card, "device": name, "build_s": build_s,
             "ptxas": usage,
             "kernel_cases": cases, "int8_matmul_dx_err": int8_dx,
+            "int8_matmul_device_kernels": int8_kernels,
             "engine_a": rep_a, "engine_b": rep_b,
             "train_a": leg_a, "train_b": leg_b,
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},

@@ -383,9 +383,11 @@ def encode_local(params, tokens, cfg: TransformerConfig, *, n_sp: int = 1,
     return _layernorm(x, params["final_ln_scale"], params["final_ln_bias"])
 
 
-def forward_local(params, tokens, cfg: TransformerConfig, **axes):
+def forward_local(params, tokens, cfg: TransformerConfig, *, n_sp: int = 1,
+                  sp_axis=None, tp_axis=None):
     """Vocabulary logits (B, T, V) in f32."""
-    x = encode_local(params, tokens, cfg, **axes)
+    x = encode_local(params, tokens, cfg, n_sp=n_sp, sp_axis=sp_axis,
+                     tp_axis=tp_axis)
     logits = torch.einsum("btd,dv->btv", x.to(cfg.dtype),
                           _lm_head(params, cfg).to(cfg.dtype))
     return logits.float()
@@ -410,10 +412,11 @@ def init_cls_head(gen: torch.Generator, cfg: TransformerConfig,
                                  device=dev)}
 
 
-def cls_loss_local(params, head, tokens, labels, cfg: TransformerConfig,
-                   **axes):
+def cls_loss_local(params, head, tokens, labels, cfg: TransformerConfig, *,
+                   n_sp: int = 1, sp_axis=None, tp_axis=None):
     """Softmax cross entropy of the mean-pooled classifier."""
-    x = encode_local(params, tokens, cfg, **axes)
+    x = encode_local(params, tokens, cfg, n_sp=n_sp, sp_axis=sp_axis,
+                     tp_axis=tp_axis)
     pooled = x.float().mean(dim=1)
     logits = pooled @ head["w_cls"].float() + head["b_cls"]
     logp = torch.log_softmax(logits, dim=-1)
@@ -667,7 +670,7 @@ class TransformerLM:
     ``mesh`` must be None: the sharded train step, ZeRO-1 and the
     checkpointed ``fit`` come with the multi-device and trainer ports."""
 
-    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
+    def __init__(self, cfg: TransformerConfig, mesh=None, *, device=None):
         if mesh is not None:
             raise NotImplementedError("a mesh (sharded training) comes with "
                                       "the multi-device port")

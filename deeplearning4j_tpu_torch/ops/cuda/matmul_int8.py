@@ -23,6 +23,7 @@ the card as on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -32,8 +33,9 @@ from . import build, registry
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: dl4j_int8_matmul(x, dtype, q, scale, out, part, M, K, N, k_splits, stream)
-_ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+#: dl4j_int8_matmul(x, dtype, q, scale, out, M, K, N, block_n, row_tile,
+#:                  cluster, k_chunk, stream)
+_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 class QuantizedLinear(NamedTuple):
@@ -64,17 +66,71 @@ def reference_int8_matmul(x: torch.Tensor, qw: QuantizedLinear,
     return (x2 @ dequantize(qw)).reshape(*lead, qw.q.shape[1])
 
 
-#: column tile of the kernel (csrc/int8_matmul.cu: kBlockN) and the least
-#: K rows a split is worth (one shared-memory tile of x)
-_BLOCK_N, _MIN_SPLIT_K = 32, 256
+#: the kernel's shape limits (csrc/int8_matmul.cu): the largest cluster,
+#: the most threads across a row, the x floats a block stages a tile
+_MAX_CLUSTER, _MAX_TPR, _TILE_FLOATS = 8, 8, 4096
+#: the least K-rows a cluster rank is given
+_MIN_RANK_ROWS = 32
 
 
-def _k_splits(device, K: int, N: int) -> int:
-    """Splits of K so that column blocks x splits give every SM about
-    two blocks."""
-    col_blocks = -(-N // _BLOCK_N)
-    return max(1, min(-(-2 * sm_count(device) // col_blocks),
-                      K // _MIN_SPLIT_K))
+class Plan(NamedTuple):
+    """One launch of ``csrc/int8_matmul.cu``: the grid is (cluster,
+    ceil(N / block_n), ceil(M / row_tile)), the cluster (cluster, 1, 1)."""
+
+    block_n: int     # output columns a block owns
+    row_tile: int    # rows of x a block owns: 1, 4 or 8
+    cluster: int     # blocks of a cluster, each one chunk of K
+    k_chunk: int     # K-rows a cluster rank reduces
+
+    @property
+    def vec(self) -> int:
+        return _vec(self.row_tile)
+
+
+def _vec(row_tile: int) -> int:
+    """Columns a thread owns (one 16- or 8-byte load a K-row): 16 at one
+    row, 8 above, which keeps row_tile x 8 f32 accumulators in registers."""
+    return 16 if row_tile == 1 else 8
+
+
+@functools.lru_cache(maxsize=1024)   # the decode path asks for six shapes
+def _plan(M: int, K: int, N: int, sm_count: int) -> Plan:
+    """The launch plan of ``int8_matmul`` at (M, K) x (K, N).
+
+    A call is a chain of latencies (launch, one round trip for the
+    weights, the reductions), so fewer, fuller blocks win over many thin
+    ones: the plan aims at about two thirds of a block a SM (measured on
+    an H100 over the flagship's shapes, ``PERF.md``).  At one row of x a
+    lane reduces 16 accumulators, less than a cluster merge costs (~1
+    us), so the column tile narrows (down to 2 threads across) until the
+    tiles alone reach that.  Otherwise the column tile is the widest
+    whose tiles, split K-wise over a cluster of up to 8, reach it; then
+    the smallest cluster that does, with at least ``_MIN_RANK_ROWS``
+    K-rows a rank.  A block whose chunk is larger than one x tile loops
+    over tiles."""
+    row_tile = 1 if M <= 1 else 4 if M <= 4 else 8
+    vec = _vec(row_tile)
+    m_tiles = max(1, -(-M // row_tile))
+    target = max(1, 2 * sm_count // 3)
+
+    def tiles(block_n: int) -> int:
+        return m_tiles * -(-N // block_n)
+
+    if row_tile == 1:
+        block_n = vec * _MAX_TPR
+        while block_n > 2 * vec and tiles(block_n) < target:
+            block_n //= 2
+        if tiles(block_n) >= target:
+            return Plan(block_n, row_tile, 1, K)
+    block_n = vec * _MAX_TPR
+    while block_n > 2 * vec and tiles(block_n) * _MAX_CLUSTER < target:
+        block_n //= 2
+    cluster = max(1, min(_MAX_CLUSTER, -(-target // max(1, tiles(block_n))),
+                         K // _MIN_RANK_ROWS))
+    k_chunk = -(-K // cluster)
+    # no empty rank: as many ranks as chunks of k_chunk rows
+    cluster = max(1, -(-K // k_chunk)) if k_chunk else 1
+    return Plan(block_n, row_tile, cluster, k_chunk)
 
 
 def _launch(x: torch.Tensor, q: torch.Tensor,
@@ -100,13 +156,11 @@ def _launch(x: torch.Tensor, q: torch.Tensor,
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    k_splits = _k_splits(x.device, K, N)
-    part = (torch.empty((k_splits, M, N), dtype=torch.float32,
-                        device=x.device) if k_splits > 1 else out)
+    plan = _plan(M, K, N, sm_count(x.device))
     fn = build.function("int8_matmul", "dl4j_int8_matmul", _ARGTYPES)
     rc = fn(x2.data_ptr(), _DTYPE_CODES[x.dtype], q.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), part.data_ptr(), M, K, N,
-            k_splits, torch.cuda.current_stream(x.device).cuda_stream)
+            scale.data_ptr(), out.data_ptr(), M, K, N, *plan,
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check("int8_matmul", rc, "int8_matmul")
     int8_matmul.launches += 1
     return out.reshape(*lead, N)

@@ -134,7 +134,8 @@ class RequestQueue:
     ``serving.queue.depth`` counts live work only."""
 
     def __init__(self, max_depth: int = 64, max_batch_delay_ms: float = 2.0,
-                 aging_s: float = 2.0, metrics: MetricsRegistry | None = None):
+                 aging_s: float = 2.0, *,
+                 metrics: MetricsRegistry | None = None):
         self.max_depth = max_depth
         self.max_batch_delay_ms = max_batch_delay_ms
         self.aging_s = aging_s

@@ -91,13 +91,15 @@ class ServingConfig:
     role: str = "unified"           # only "unified" is ported
 
 
-def kv_page_bytes(mcfg, page_size: int, kv_quant_mode: str | None = None) -> int:
+def kv_page_bytes(mcfg, page_size: int, kv_quant: str | None = None) -> int:
     """Device bytes one KV page costs across all layers: K+V data at the
-    storage itemsize plus, when quantized, the f32 per-page scales."""
+    storage itemsize plus, when quantized, the f32 per-page scales.
+    ``kv_quant`` is the storage mode, as ``ServingConfig.kv_quant``."""
+    from ..ops.cuda import kv_quant as kvq
     kvh = mcfg.kv_heads
-    item = kv_quant.kv_itemsize(kv_quant_mode, mcfg.dtype)
+    item = kvq.kv_itemsize(kv_quant, mcfg.dtype)
     per_layer = page_size * kvh * mcfg.head_dim * 2 * item
-    if kv_quant_mode is not None:
+    if kv_quant is not None:
         per_layer += 2 * kvh * 4   # k_scale + v_scale rows, f32
     return per_layer * mcfg.n_layers
 
@@ -117,13 +119,22 @@ class _Slot:
 class InferenceEngine:
     """Continuous-batching decode over a ``TransformerLM``'s parameters.
 
-    ``params`` must already live on ``device`` (default ``cuda``, which
-    raises when there is no GPU).  ``registry`` is the metrics registry
-    the engine publishes to (a fresh one by default; ``ModelServer``
-    serves it)."""
+    The JAX package's parameter order: ``params`` must already live on
+    ``device`` (default ``cuda``, which raises when there is no GPU);
+    restoring them from a ``checkpoint`` is not ported yet (ROADMAP.md
+    A6) and raises.  ``registry`` is the metrics registry the engine
+    publishes to (a fresh one by default; ``ModelServer`` serves it)."""
 
-    def __init__(self, model, params, cfg: ServingConfig = ServingConfig(),
-                 device=None, registry: MetricsRegistry | None = None):
+    def __init__(self, model, params=None, checkpoint=None,
+                 cfg: ServingConfig = ServingConfig(), *, device=None,
+                 registry: MetricsRegistry | None = None):
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "InferenceEngine(checkpoint=...): restoring params from a "
+                "checkpoint is not ported to deeplearning4j_tpu_torch yet "
+                "(ROADMAP.md A6); pass params")
+        if params is None:
+            raise ValueError("InferenceEngine needs params")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg

@@ -41,7 +41,105 @@ def test_int8_matmul_kernel_matches_plain(dev, m, k, n, dtype):
     assert (out - ref).abs().max().item() < 1e-4
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 768, 3072), (8, 3072, 768)])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 16, 17, 40])
+@pytest.mark.parametrize("k", [1, 100, 4097])
+@pytest.mark.parametrize("n", [1, 15, 17, 3000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_int8_matmul_kernel_ragged_shapes(dev, m, k, n, dtype):
+    """Ragged N edges, N not a multiple of the 16- or 8-byte load (byte
+    loads), K of one row, of a split that is not a multiple of the row
+    groups, and larger than one cluster of x tiles; M over several row
+    tiles."""
+    g = torch.Generator(device=dev).manual_seed(m * 7919 + k * 31 + n)
+    w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    qw = tmm.quantize(w)
+    out = tmm.int8_matmul(x, qw)
+    torch.cuda.synchronize()
+    ref = tmm.reference_int8_matmul(x, qw)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    assert (out - ref).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("m,n", [(1, 3072), (8, 768), (3, 17)])
+def test_int8_matmul_kernel_misaligned_weights(dev, m, n):
+    """A contiguous q starting one byte past a 16-byte boundary takes the
+    byte loads."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    k = 768
+    qw = tmm.quantize(torch.randn((k, n), generator=g, device=dev) * 0.03)
+    buf = torch.empty(k * n + 1, dtype=torch.int8, device=dev)
+    q = buf[1:].view(k, n)
+    q.copy_(qw.q)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 1
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    out = tmm.int8_matmul(x, tmm.QuantizedLinear(q, qw.scale))
+    torch.cuda.synchronize()
+    assert (out - tmm.reference_int8_matmul(x, qw)).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 3072, 768), (8, 3072, 768),
+                                   (1, 768, 32768), (40, 4097, 3000)])
+def test_int8_matmul_kernel_is_deterministic(dev, m, k, n):
+    """K split over a cluster is merged in rank order: two calls agree
+    bitwise."""
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    qw = tmm.quantize(torch.randn((k, n), generator=g, device=dev))
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    a = tmm.int8_matmul(x, qw)
+    b = tmm.int8_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_int8_matmul_kernel_cuda_graph_replay(dev):
+    """One call captured in a CUDA graph and replayed after x changes in
+    place."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    k, n = 3072, 768
+    qw = tmm.quantize(torch.randn((k, n), generator=g, device=dev) * 0.02)
+    x = torch.randn((1, k), generator=g, device=dev).to(torch.bfloat16)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tmm.int8_matmul(x, qw)           # warm up on the capture stream
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = tmm.int8_matmul(x, qw)
+    torch.cuda.current_stream().wait_stream(stream)
+    for seed in range(3):
+        x.copy_(torch.randn((1, k), generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = tmm.reference_int8_matmul(x, qw)
+        assert (out - ref).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 3072, 768), (8, 768, 32768)])
+def test_int8_matmul_kernel_is_one_launch(dev, m, k, n):
+    """A call is one device kernel, with K split or not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    qw = tmm.quantize(torch.randn((k, n), generator=g, device=dev))
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    tmm.int8_matmul(x, qw)
+    torch.cuda.synchronize()
+    for _ in range(3):   # a session that saw no kernel is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tmm.int8_matmul(x, qw)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "int8_gemv_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 768, 3072), (8, 3072, 768),
+                                   (3, 100, 17)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_int8_matmul_kernel_input_grad_matches_plain(dev, m, k, n, dtype):
     g = torch.Generator(device=dev).manual_seed(m + k)

@@ -1,10 +1,11 @@
 """Import guard and device rule of the PyTorch port.
 
-The port (``deeplearning4j_tpu_torch/`` and ``chip_smoke.py``) must import
-neither ``jax`` nor anything of ``deeplearning4j_tpu``, the package must
-call no library kernel in place of its own (``chip_smoke.py`` times those
-as yardsticks only), and its entry points must raise — not quietly run on
-the CPU — when CUDA is asked for (explicitly or by default) and absent.
+The port (``deeplearning4j_tpu_torch/``, ``chip_smoke.py`` and
+``int8_probe.py``) must import neither ``jax`` nor anything of
+``deeplearning4j_tpu``, the package must call no library kernel in place
+of its own (``chip_smoke.py`` times those as yardsticks only), and its
+entry points must raise — not quietly run on the CPU — when CUDA is
+asked for (explicitly or by default) and absent.
 """
 
 import ast
@@ -18,7 +19,8 @@ PORT = ROOT / "deeplearning4j_tpu_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "int8_probe.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -61,7 +61,8 @@ def test_served_greedy_tokens_identical_to_jax_engine(models, kv_quant, impl):
                   min_prefill_bucket=32, resolve_every=3)
     want = _serve(jeng.InferenceEngine(jmodel, params=jp,
                                        cfg=jeng.ServingConfig(**common)))
-    engine = InferenceEngine(tmodel, tp, ServingConfig(**common), device=CPU)
+    engine = InferenceEngine(tmodel, tp, cfg=ServingConfig(**common),
+                             device=CPU)
     got = _serve(engine)
     assert got == want
     assert [len(t) for t in got] == NEW
@@ -74,7 +75,8 @@ def test_dense_engine_and_sampling_match_offline_sampler(models):
     """Dense engine: greedy and sampled requests equal the port's offline
     ``TransformerLM.sample`` with the same seed."""
     _, _, tmodel, tp = models
-    engine = InferenceEngine(tmodel, tp, ServingConfig(slots=2), device=CPU)
+    engine = InferenceEngine(tmodel, tp, cfg=ServingConfig(slots=2),
+                             device=CPU)
     reqs = [([4, 5, 6], 6, 0.0, 0), ([7, 8], 5, 0.8, 21),
             ([9, 10, 11, 12], 4, 1.3, 5)]
     with engine:
@@ -90,9 +92,9 @@ def test_decode_segment_makes_no_host_sync(models, monkeypatch):
     ``.tolist()`` — emitted tokens stay on the device until _resolve."""
     _, _, tmodel, tp = models
     engine = InferenceEngine(
-        tmodel, tp, ServingConfig(slots=2, paged=True, page_size=4,
-                                  int8_decode=True,
-                                  paged_attention_impl="pallas"),
+        tmodel, tp, cfg=ServingConfig(slots=2, paged=True, page_size=4,
+                                      int8_decode=True,
+                                      paged_attention_impl="pallas"),
         device=CPU)
     real = engine._decode_segment
     calls = []
@@ -115,9 +117,8 @@ def test_decode_segment_makes_no_host_sync(models, monkeypatch):
 
 def test_model_server_client_round_trip(models):
     _, _, tmodel, tp = models
-    engine = InferenceEngine(tmodel, tp, ServingConfig(slots=2, paged=True,
-                                                       page_size=4),
-                             device=CPU)
+    engine = InferenceEngine(tmodel, tp, cfg=ServingConfig(
+        slots=2, paged=True, page_size=4), device=CPU)
     with engine, ModelServer(engine) as server:
         client = ServingClient(port=server.port, timeout_s=60)
         out = client.generate([5, 6, 7], max_new_tokens=4)
@@ -150,7 +151,7 @@ def test_page_pool_and_engine_backpressure(models):
         pool.decref(a[:1])
     # a pool too small for a request rejects it (429) and keeps serving
     _, _, tmodel, tp = models
-    engine = InferenceEngine(tmodel, tp, ServingConfig(
+    engine = InferenceEngine(tmodel, tp, cfg=ServingConfig(
         slots=2, paged=True, page_size=4, num_pages=3), device=CPU)
     with engine:
         big = engine.submit(list(range(1, 13)), 4)       # needs 4 pages
@@ -174,7 +175,7 @@ def test_page_pool_and_engine_backpressure(models):
 def test_engine_refuses_what_is_not_ported(models, kw, exc):
     _, _, tmodel, tp = models
     with pytest.raises(exc):
-        InferenceEngine(tmodel, tp, ServingConfig(**kw), device=CPU)
+        InferenceEngine(tmodel, tp, cfg=ServingConfig(**kw), device=CPU)
 
 
 def test_request_queue_bounds_deadlines_and_tiers():
