@@ -13,22 +13,26 @@ entry points a user calls:
 
 1. the card (``nvidia-smi`` name and power limit), the build time and
    every kernel's registers, spills and static shared memory (``ptxas -v``);
-2. ``int8_matmul`` at M in {1, 8} over the FFN and LM-head weights (and
-   its input gradient at the FFN shapes against the plain version's; and,
-   under ``torch.profiler``, that a call at each of those shapes is one
-   device kernel), and
+2. ``int8_matmul`` at M in {1, 4, 8, 32} (a prefill token, beam search's
+   width, the engines' slots, a speculative verify window) over the FFN
+   and LM-head weights (and its input gradient at the FFN shapes against
+   the plain version's; and, under ``torch.profiler``, that a call at each
+   of those shapes is one device kernel), and
    ``paged_attention`` / ``paged_attention_int8`` at B=8, H=12, Dh=64,
    page 16, 128 pages per row: at the engines' own lengths (16-288
    positions, Kv=12, the main-path case) and at long-context lengths of
-   1-2048 (Kv in {12, 4}); then the training kernels: ``flash_attention`` and
+   1-2048 (Kv in {12, 4}); then the forward kernels: ``flash_attention`` and
    ``fused_attention`` (causal and not) at the two training legs' shapes
-   (B=64, T=512 and B=8, T=2048; H=12, Dh=64), ``fused_residual_layernorm``
-   at N in {32768, 16384} rows of 768 and ``blocked_cross_entropy`` at
-   those N against the tied 32768 x 768 head (also timed with two
-   vocabulary splits against the default) — each in bf16 (and float32
-   for the error alone) against its plain version run in float32 on the
-   same values, with the times of the kernel, its plain version and a
-   one-call PyTorch yardstick beside the least time the card could take;
+   (B=64, T=512 and B=8, T=2048; H=12, Dh=64), at the full-forward
+   sampler's (B=1, T=2048, causal) and the scorer's (B=32, T=512),
+   ``fused_residual_layernorm`` at N in {32768, 16384, 2048} rows of 768
+   (beside ``F.layer_norm`` over a precomputed sum and the transformer's
+   own two-op seam) and ``blocked_cross_entropy`` at N in {32768, 16384}
+   against the tied 32768 x 768 head (also timed with two vocabulary
+   splits against the default) — each in bf16 (and float32 for the error
+   alone) against its plain version run in float32 on the same values,
+   with the times of the kernel, its plain version and a one-call PyTorch
+   yardstick beside the least time the card could take;
 3. engine A: ``InferenceEngine`` at the full width of the default
    ``TransformerConfig`` (random weights from a seed) with
    ``ServingConfig(slots=8, paged=True, page_size=16, int8_decode=True,
@@ -36,10 +40,27 @@ entry points a user calls:
    the kernels' launch counts over that run, and teacher-forced decode
    steps with the kernels against the same steps with the plain versions,
    in bf16 and in float32;
-4. engine B: as A with ``kv_quant="int8", paged_attention_impl=
+4. ``ModelServer`` over engine A answering 2 requests via ``ServingClient``;
+5. engine B: as A with ``kv_quant="int8", paged_attention_impl=
    "pallas_int8"`` and 8 requests;
-5. ``ModelServer`` over engine A answering 2 requests via ``ServingClient``;
-6. training leg A, the BERT-base leg of the JAX package's benchmark
+6. engine S: as A with ``speculative=True, spec_k=3`` and the random
+   one-layer ``zoo.draft_lm`` draft, on A's prompts (tokens/s, TTFT, the
+   step, ``serving.spec_accept_len``, its served tokens against A's), and
+   teacher-forced verify windows (``decode_window_paged``, ``int8_matmul``
+   at M=32) against sequential steps through the plain versions, in bf16
+   and float32;
+7. the prefix cache: 16 requests sharing a 128-token system prompt (with
+   suffixes of 16-128 tokens, 16 new tokens each) on A's and on B's
+   config with ``prefix_cache=True`` against the same with ``False``:
+   the hit rate, and float pages' tokens equal;
+8. ``beam_search`` at width 4, 8 tokens, over the int8 serving tree;
+9. ``sample(kv_cache=False)`` against ``kv_cache=True``, greedy, 8 tokens,
+   on the default causal config with ``attention="fused",
+   fused_ln=True``, in bf16 (the launches) and float32 (tokens equal);
+10. a ``BatchScorer`` over ``forward_local`` at leg A's config behind
+   ``ModelServer``: 32 rows through ``ServingClient.score``, held to
+   direct calls of one row;
+11. training leg A, the BERT-base leg of the JAX package's benchmark
    (vocab 32768, d_model 768, 12 heads, 12 layers, d_ff 3072, T=512,
    bidirectional, bf16, no remat, ``attention="flash", fused_ln=True,
    xent_impl="blocked"``): ``TransformerLM.build_train_step(adamw(
@@ -48,20 +69,21 @@ entry points a user calls:
    loss of every step, the launch counts against what the config implies)
    and one more step under ``torch.profiler`` (device time by kernel and
    by class: the port's kernels, f32 GEMMs, tensor-core GEMMs, the rest);
-7. training leg B, the default causal ``TransformerConfig`` (T=2048,
+12. training leg B, the default causal ``TransformerConfig`` (T=2048,
    remat) with ``attention="fused", fused_ln=True, xent_impl="blocked"`` at
    batch 8 x 2048, one warm-up, three timed steps and one profiled;
-8. one train step's loss and gradients through the kernels against the
+13. one train step's loss and gradients through the kernels against the
    same through every plain version, on one state at batch 4 x 512, for
    both legs' configs, in bf16 and float32;
-9. a ``{"kernels": [...]}`` JSON line, then the card's name and power
-   limit, then ``{"ok": true, "device": {...}}`` as the last line.
+14. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
+   0 just before it runs, read just after), then the card's name and
+   power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--paged-only`` builds ``csrc/paged_attention.cu`` of the checkout at
 ``--root`` (this script's by default) and runs phase 2's paged cases
 alone, printing them as one JSON line: two such runs on one card time
 two versions of the kernel against each other.  ``--int8-only`` does the
-same for ``csrc/int8_matmul.cu``: its six shapes, its input gradient and
+same for ``csrc/int8_matmul.cu``: its twelve shapes, its input gradient and
 its device kernels a call (reported there, not held to one, so that an
 older tree can be timed beside a newer one).
 
@@ -138,12 +160,18 @@ TOL_XENT = 2e-5
 # 0.017 on an H100)
 TOL_STEP_F32 = (1e-6, 2e-5)
 TOL_STEP_BF16 = (1e-4, 0.05)
+# a scored row (log-probabilities through forward_local) against a direct
+# call of that row alone: the attention tolerance of the kernel registry
+TOL_SCORE = 0.05
 
 #: the training kernels' wrappers, by the kernels line's names
 TRAIN_KERNELS = ("flash_attention", "fused_attention",
                  "fused_residual_layernorm", "blocked_cross_entropy")
 #: rows of the LN and xent calls in the two training legs (64 x 512, 8 x 2048)
 TRAIN_ROWS = (32768, 16384)
+#: rows of the LN calls: the training legs' (the scorer's 32 x 512 is leg
+#: B's count) and the full-forward sampler's one row of 2048
+LN_ROWS = TRAIN_ROWS + (2048,)
 
 # the card's rates for the least-time bound, by product name
 RATES = {  # name fragment: (bytes/s, bf16 dense ops/s)
@@ -218,10 +246,16 @@ def copies_for(nbytes: int, floor: int = 2) -> int:
 
 # ------------------------------------------------------------------ kernels
 
+#: int8_matmul's rows on the main paths: a prefill token (1), beam search
+#: (the beam width, 4), a decode step (the engines' 8 slots) and a
+#: speculative verify window (8 slots x (spec_k + 1) = 32)
+INT8_ROWS = (1, 4, 8, 32)
+
+
 def check_int8(torch, tmm, dev, rates, cases):
     gen = torch.Generator(device=dev).manual_seed(1)
     bw, peak = rates
-    for m, (k, n) in [(m, s) for m in (1, 8)
+    for m, (k, n) in [(m, s) for m in INT8_ROWS
                       for s in ((768, 3072), (3072, 768), (768, 32768))]:
         w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
         ncopy = copies_for(k * n)
@@ -287,7 +321,7 @@ def check_int8_grad(torch, tmm, dev, M=8):
 
 def check_int8_one_launch(torch, tmm, dev, tries: int = 3):
     """Device kernels that one ``int8_matmul`` call launches, under
-    ``torch.profiler``, at each of phase 2's six shapes (w2 at M=1 splits
+    ``torch.profiler``, at each of phase 2's twelve shapes (w2 at M=1 splits
     K over a cluster): ``{shape: [kernel names]}``.  A session that saw
     no kernel is taken again, up to ``tries`` times (CUPTI has dropped
     a short session's only record on an H100); more than one is kept.
@@ -298,7 +332,7 @@ def check_int8_one_launch(torch, tmm, dev, tries: int = 3):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
-    for m, (k, n) in [(m, s) for m in (1, 8)
+    for m, (k, n) in [(m, s) for m in INT8_ROWS
                       for s in ((768, 3072), (3072, 768), (768, 32768))]:
         qw = tmm.quantize(torch.randn((k, n), generator=gen, device=dev)
                           * k ** -0.5)
@@ -506,11 +540,15 @@ def torch_isfinite(t) -> bool:
 
 
 #: (kernel, B, T, causal): the two training legs' shapes, each leg's own
-#: kernel first; the other two run a kernel at the other leg's shape
+#: kernel first; the next two run a kernel at the other leg's shape; then
+#: the full-forward sampler (one row of 2048, causal) and the scorer's
+#: batch (32 rows of leg A's 512)
 ATTN_CASES = (("flash_attention", 64, 512, False),
               ("fused_attention", 8, 2048, True),
               ("flash_attention", 8, 2048, True),
-              ("fused_attention", 64, 512, False))
+              ("fused_attention", 64, 512, False),
+              ("fused_attention", 1, 2048, True),
+              ("flash_attention", 32, 512, False))
 
 
 def check_attention(torch, tat, dev, rates, cases, H=12, Dh=64):
@@ -579,7 +617,7 @@ def check_layernorm(torch, tln, dev, rates, cases, D=768):
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    for N in TRAIN_ROWS:
+    for N in LN_ROWS:
         ncopy = copies_for(2 * N * D * 2)
         xs = [torch.randn((N, D), generator=gen, device=dev)
               .to(torch.bfloat16) for _ in range(ncopy)]
@@ -607,8 +645,14 @@ def check_layernorm(torch, tln, dev, rates, cases, D=768):
             x, r, s, b, mask=m) for x, r in zip(xs[:2], rs[:2])], reps=5)
         sums = [x + r for x, r in zip(xs, rs)]
         sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
+        # F.layer_norm over x + r computed beforehand: one (N, D) read and
+        # one write, half the kernel's bytes, so not the same function; the
+        # transformer's own two-op seam (registry candidate "unfused") is
         lms = device_ms(torch, [lambda z=z: F.layer_norm(z, (D,), sb, bb)
                                 for z in sums])
+        ums = device_ms(torch, [lambda x=x, r=r: tln._unfused(x, r, s, b,
+                                                              mask=m)
+                                for x, r in zip(xs[:2], rs[:2])], reps=5)
         nbytes = 4 * N * D * 2 + N * 4 + 2 * D * 4
         ops = 9 * N * D
         bound, by = bound_of(nbytes, ops, rates)
@@ -617,11 +661,13 @@ def check_layernorm(torch, tln, dev, rates, cases, D=768):
                       "tol": f"{TOL_LN_BF16[0]} + {TOL_LN_BF16[1]} |ref|",
                       "max_abs_err_f32": e32, "tol_f32": TOL_LN_F32,
                       "ms": ms, "plain_ms": pms, "library_ms": lms,
+                      "unfused_seam_ms": ums,
                       "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                       "ops": ops})
         print(f"kernel fused_residual_layernorm N={N} D={D}: max_err "
               f"bf16={max(ey, eh):.3g} f32={e32:.3g} kernel_ms={ms:.5f} "
-              f"plain_ms={pms:.5f} library_ms={lms:.5f} "
+              f"plain_ms={pms:.5f} library_ms={lms:.5f} (layer_norm of a "
+              f"precomputed sum) unfused_seam_ms={ums:.5f} "
               f"bound_ms={bound:.5f} ({by})", flush=True)
         del xs, rs, sums
 
@@ -868,11 +914,15 @@ def step_kernels_vs_plain(torch, ttr, tat, tln, txe, base_cfg, label,
 def main_path_weights(case, reports, mcfg, legs):
     """Launches of the main-path runs at a measured case's shape.
 
-    Serving: every step runs 2 FFN matmuls per layer and the head, at M=1
-    in prefill and M=slots in decode; every decode step runs one paged
-    attention per layer with the config's kv heads (prefill attends over
-    its dense batch-of-1 cache).  Training: a leg's attention launches
-    count at its (B, T, causal), its LN and xent launches at its B*T rows.
+    Serving (``reports``: the engines, beam search): every step runs 2
+    FFN matmuls per layer and the head, at the rows each report lists in
+    ``int8_rows`` ({M: steps}: M=1 for prefill, the slots for a decode
+    step, slots x (spec_k + 1) for a verify window, the beam width); every
+    step in ``paged_steps`` runs one paged attention per layer with the
+    config's kv heads (prefill attends over its dense batch-of-1 cache,
+    a verify window over a gather).  Forward runs (``legs``: the training
+    legs, the full-forward sampler, the scorer): attention launches count
+    at their (B, T, causal), LN and xent launches at their B*T rows.
     Cases off the main paths weigh 0: the paged cases at long-context
     lengths and at other kv-head counts than the config's."""
     name = case["kernel"]
@@ -887,16 +937,14 @@ def main_path_weights(case, reports, mcfg, legs):
     if name == "int8_matmul":
         per_step = (mcfg.n_layers if (case["K"], case["N"]) in ffn
                     else 1 if case["N"] == mcfg.vocab_size else 0)
-        steps = sum(r["prefill_steps"] if case["M"] == 1
-                    else r["decode_steps"] if case["M"] == r["slots"] else 0
-                    for r in reports)
-        return per_step * steps
+        return per_step * sum(r["int8_rows"].get(case["M"], 0)
+                              for r in reports)
     if case["Kv"] != mcfg.kv_heads or case["lengths"] != "{}-{}".format(
             *ENGINE_LENGTHS):
         return 0
     quant = name == "paged_attention_int8"
-    return mcfg.n_layers * sum(r["decode_steps"] for r in reports
-                               if (r["kv_quant"] == "int8") == quant)
+    return mcfg.n_layers * sum(r["paged_steps"] for r in reports
+                               if (r.get("kv_quant") == "int8") == quant)
 
 
 def kernel_rows(cases, reports, legs, mcfg, rates):
@@ -936,10 +984,7 @@ def kernel_rows(cases, reports, legs, mcfg, rates):
                                                      "tol_f32")}
                   | {"main_path_launches": wi} for wi, c in zip(w, kcases)]
         bw, peak = rates
-        if kname in TRAIN_KERNELS:
-            launches = sum(leg["launches"][kname] for leg in legs)
-        else:
-            launches = sum(r["launches"][kname] for r in reports)
+        launches = sum(r["launches"][kname] for r in list(reports) + legs)
         rows.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1027,18 +1072,23 @@ def kernels_vs_plain(torch, ttr, tmm, tpa, kv_quant, mcfg, params, quant,
     return out
 
 
-def run_engine(eng, tmodel, params, scfg, n_req, rng, wrappers, label,
-               dev="cuda", max_new=NEW_TOKENS):
-    """Serve ``n_req`` concurrent greedy requests; returns the engine
-    (still running) and the report with the launch counts."""
+def make_prompts(rng, n, vocab, lengths=PROMPT_TOKENS, prefix=()):
+    """``n`` prompts of ``prefix`` plus random tokens, their count drawn
+    from ``lengths`` (inclusive)."""
+    return [list(prefix) + rng.integers(0, vocab, int(rng.integers(
+        lengths[0], lengths[1] + 1))).tolist() for _ in range(n)]
+
+
+def run_engine(eng, tmodel, params, scfg, prompts, wrappers, label,
+               dev="cuda", max_new=NEW_TOKENS, **engine_kw):
+    """Serve ``prompts`` as concurrent greedy requests; returns the engine
+    (still running) and the report with the served tokens and the launch
+    counts of this run alone (reset after warm-up, read at the end)."""
     mcfg = tmodel.cfg
-    engine = eng.InferenceEngine(tmodel, params, cfg=scfg, device=dev)
+    engine = eng.InferenceEngine(tmodel, params, cfg=scfg, device=dev,
+                                 **engine_kw)
     engine.start()                     # builds/loads the kernels, warms up
     reset_counts(wrappers)             # counts of THIS path only
-    prompts = [rng.integers(0, mcfg.vocab_size,
-                            int(rng.integers(PROMPT_TOKENS[0],
-                                             PROMPT_TOKENS[1] + 1))).tolist()
-               for _ in range(n_req)]
     t0 = time.perf_counter()
     handles = [engine.submit(p, max_new) for p in prompts]
     comps = [h.result(timeout=600) for h in handles]
@@ -1051,22 +1101,386 @@ def run_engine(eng, tmodel, params, scfg, n_req, rng, wrappers, label,
         if any(not 0 <= t < mcfg.vocab_size for t in c.tokens):
             fail(f"{label}: token out of range")
     snap = engine.metrics.snapshot()
-    timers = snap["timers"]
+    timers, counters = snap["timers"], snap["counters"]
     tokens = sum(len(c.tokens) for c in comps)
-    report = {"requests": n_req, "completed": len(comps),
+    # prefill runs prompt[:-1] token by token (M=1) past the positions the
+    # prefix cache saved; a decode step runs all slots (M=slots), a verify
+    # window slots x (spec_k + 1) rows
+    prefill = (sum(len(p) - 1 for p in prompts)
+               - int(counters.get("serving.prefix_cached_tokens", 0)))
+    steps = int(counters.get("serving.decode.dispatches", 0))
+    window = scfg.spec_k + 1 if scfg.speculative else 1
+    report = {"requests": len(prompts), "completed": len(comps),
               "prompt_tokens": sum(len(p) for p in prompts),
               "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
               "ttft_p50_s": timers["serving.ttft"]["p50_s"],
               "decode_step_p50_s": timers["serving.decode_step"]["p50_s"],
               "prefill_p50_s": timers["serving.prefill"]["p50_s"],
-              # steps by int8_matmul row count: prefill runs prompt[:-1]
-              # token by token (M=1), decode steps run all slots (M=slots)
-              "prefill_steps": sum(len(p) - 1 for p in prompts),
-              "decode_steps": int(snap["counters"].get(
-                  "serving.decode.dispatches", 0)),
+              "prefill_steps": prefill, "decode_steps": steps,
+              "int8_rows": ({1: prefill, scfg.slots * window: steps}
+                            if scfg.int8_decode else {}),
+              "paged_steps": (steps if scfg.paged and not scfg.speculative
+                              and scfg.paged_attention_impl != "gather"
+                              else 0),
               "slots": scfg.slots, "kv_quant": scfg.kv_quant,
+              "served": [c.tokens for c in comps],
               "launches": counts, "config": str(scfg)}
+    if scfg.speculative:
+        acc = timers["serving.spec_accept_len"]
+        report["spec_accept_len"] = {
+            "p50": acc["p50_s"], "mean": acc["mean_s"],
+            "windows": acc["count"]}
+    if scfg.prefix_cache:
+        stats = engine.stats()
+        report["prefix"] = {k: stats[k] for k in (
+            "prefix_hit_rate", "prefix_hits", "prefix_lookups",
+            "prefix_entries")}
+        report["prefix"]["cached_tokens"] = int(counters.get(
+            "serving.prefix_cached_tokens", 0))
     return engine, report
+
+
+def engine_line(label, rep) -> str:
+    extra = ""
+    if "spec_accept_len" in rep:
+        extra += f" spec_accept_len={rep['spec_accept_len']}"
+    if "prefix" in rep:
+        extra += f" prefix={rep['prefix']}"
+    return (f"{label}: {rep['completed']}/{rep['requests']} requests, "
+            f"tokens/s={rep['tokens_per_s']:.1f} "
+            f"ttft_p50_s={rep['ttft_p50_s']:.4f} "
+            f"decode_step_p50_s={rep['decode_step_p50_s']:.5f} "
+            f"launches={rep['launches']}{extra}")
+
+
+def token_agreement(got, want) -> dict:
+    """Served greedy tokens of two engines on the same prompts: requests
+    identical, and the share of tokens before each request's first
+    difference (after it the two continue different sequences)."""
+    same = sum(g == w for g, w in zip(got, want))
+    lead = 0
+    for g, w in zip(got, want):
+        n = 0
+        while n < min(len(g), len(w)) and g[n] == w[n]:
+            n += 1
+        lead += n
+    total = sum(len(w) for w in want)
+    return {"identical_requests": same, "requests": len(want),
+            "tokens_before_first_difference": lead / total}
+
+
+def window_vs_steps(torch, ttr, tmm, tpa, mcfg, params, dev="cuda", B=8,
+                    fill=128, steps=64, W=4):
+    """Teacher-forced, the speculative verify path against the plain
+    sequential path, in the engines' dtype and in float32 (the same
+    weights): fill a paged state of B rows to ``fill`` positions through
+    the kernel step, then for ``steps`` more positions, a window of W at a
+    time, run ``decode_window_paged`` with the kernels (``int8_matmul`` at
+    M = B*W) on the state and W ``decode_step_paged`` calls through every
+    plain version on a copy; compare the logits.  Held to the
+    teacher-forced rule of the engines (``kernels_vs_plain``)."""
+    import dataclasses
+
+    out = {}
+    for cfg, floor, tol in ((mcfg, TOL_TOP1_BF16, TOL_LOGITS_BF16),
+                            (dataclasses.replace(mcfg, dtype=torch.float32),
+                             TOL_TOP1, TOL_LOGITS_F32)):
+        sp = ttr.cast_for_decode(tmm.quantize_params_for_decode(params, cfg),
+                                 cfg)
+        ps = 16
+        n_slot = -(-cfg.max_len // ps)
+        pages = ttr.init_paged_cache(cfg, B * n_slot + 1, ps, dev)
+        bt = torch.arange(B * n_slot, device=dev,
+                          dtype=torch.int32).reshape(B, n_slot)
+        gen = torch.Generator(device=dev).manual_seed(6)
+        toks = torch.randint(0, cfg.vocab_size, (B, fill + steps),
+                             generator=gen, device=dev)
+        agree = total = 0
+        max_err = 0.0
+        with torch.no_grad():
+            for t in range(fill):
+                ttr.decode_step_paged(sp, pages, bt, toks[:, t], t, cfg,
+                                      attn_fn=tpa.paged_attention)
+            for t0 in range(fill, fill + steps, W):
+                copy = [{k: v.clone() for k, v in c.items()} for c in pages]
+                win, _ = ttr.decode_window_paged(sp, pages, bt,
+                                                 toks[:, t0:t0 + W], t0, cfg)
+                if not torch.isfinite(win).all().item():
+                    fail("non-finite logits in the verify window")
+                for w in range(W):
+                    plain, _ = ttr.decode_step_paged(
+                        sp, copy, bt, toks[:, t0 + w], t0 + w, cfg,
+                        attn_fn=tpa.reference_paged_attention,
+                        int8_fn=tmm.reference_int8_matmul)
+                    max_err = max(max_err,
+                                  (win[:, w] - plain).abs().max().item())
+                    agree += int((win[:, w].argmax(-1) == plain.argmax(-1))
+                                 .sum().item())
+                    total += B
+                del copy
+        dt = str(cfg.dtype).replace("torch.", "")
+        out[dt] = {"top1": agree / total, "max_err": max_err}
+        if agree / total < floor or not max_err <= tol:
+            fail(f"verify window vs steps ({dt}): top1 {agree / total} "
+                 f"(floor {floor}) / max logit err {max_err} (tol {tol})")
+        del sp, pages
+    return out
+
+
+#: the prefix-cache phase: 16 requests share a 128-token system prompt,
+#: each with a suffix of 16-128 tokens, 16 new tokens each
+PREFIX_SYSTEM, PREFIX_SUFFIX, PREFIX_NEW = 128, (16, 128), 16
+
+
+def run_prefix(eng, tmodel, params, rng, wrappers, dev="cuda", n_req=16,
+               slots=8, page_size=16, system=PREFIX_SYSTEM,
+               suffix=PREFIX_SUFFIX, max_new=PREFIX_NEW):
+    """The prefix-cache engine on float and on int8 pages against the same
+    engine with ``prefix_cache=False``, on the same prompts.  Float pages:
+    the hit rate is positive and the tokens are equal (a hit skips
+    positions whose K/V it aliases, the same bytes the prefill would
+    write).  int8 pages: the hit rate is positive, and the two engines'
+    logits are held to the teacher-forced rule of the engines
+    (:func:`prefix_teacher_forced`); their served tokens are reported,
+    not held equal: a hit's suffix prefill attends over the dequantized
+    prefix pages where the uncached prefill attends over the unquantized
+    K/V, in the JAX package as here (whose own int8 prefix test holds
+    agreement, not equality), so a near tie can flip and the two
+    continue different sequences from there."""
+    vocab = tmodel.cfg.vocab_size
+    head = rng.integers(0, vocab, system).tolist()
+    prompts = make_prompts(rng, n_req, vocab, suffix, prefix=head)
+    out = {}
+    for label, extra in (("float", dict(paged_attention_impl="pallas")),
+                         ("int8", dict(kv_quant="int8",
+                                       paged_attention_impl="pallas_int8"))):
+        runs = {}
+        for cache in (True, False):
+            scfg = eng.ServingConfig(slots=slots, paged=True,
+                                     page_size=page_size, int8_decode=True,
+                                     prefix_cache=cache, **extra)
+            engine, rep = run_engine(eng, tmodel, params, scfg, prompts,
+                                     wrappers, f"prefix {label}", dev=dev,
+                                     max_new=max_new)
+            engine.stop()
+            del engine
+            runs[cache] = rep
+        hit = runs[True]["prefix"]["prefix_hit_rate"]
+        agree = token_agreement(runs[True]["served"], runs[False]["served"])
+        if not hit > 0:
+            fail(f"prefix {label}: hit rate {hit}")
+        if label == "float" and runs[True]["served"] != runs[False]["served"]:
+            fail(f"prefix float: tokens differ from prefix_cache=False: "
+                 f"{agree}")
+        print(engine_line(f"prefix {label} (cache)", runs[True])
+              + f" agreement with prefix_cache=False: {agree}", flush=True)
+        print(engine_line(f"prefix {label} (no cache)", runs[False]),
+              flush=True)
+        out[label] = {"cache": runs[True], "no_cache": runs[False],
+                      "agreement": agree}
+        if label == "int8":
+            tf = prefix_teacher_forced(eng, tmodel, params, prompts,
+                                       runs[False]["served"], extra, dev=dev,
+                                       slots=slots, page_size=page_size)
+            out[label]["teacher_forced"] = tf
+            print(f"prefix int8 teacher-forced, cache vs no cache: {tf}",
+                  flush=True)
+            if (tf["top1"] < TOL_TOP1_BF16
+                    or not tf["max_err"] <= TOL_LOGITS_BF16
+                    or tf["hits"] != n_req - 1):
+                fail(f"prefix int8: teacher-forced {tf} (top1 floor "
+                     f"{TOL_TOP1_BF16}, logit tol {TOL_LOGITS_BF16}, "
+                     f"{n_req - 1} hits)")
+    return out
+
+
+def prefix_teacher_forced(eng, tmodel, params, prompts, served, extra,
+                          dev="cuda", slots=8, page_size=16):
+    """Teacher-forced, the prefix-cache engine against the same engine
+    with ``prefix_cache=False``: each prompt goes through the engine's own
+    admission, one at a time (the cache aliases the shared prefix pages
+    and its prefill attends their dequantized content), then the uncached
+    engine's served tokens are fed one at a time through the engine's
+    paged step (its params, pages and paged-attention kernel) on the
+    request's block-table row.  Returns the top-1 agreement and the
+    largest difference of the two engines' logits over every fed
+    position, and the cached engine's prefix hits."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+
+    mcfg = tmodel.cfg
+    logits, hits = {}, 0
+    for cache in (True, False):
+        scfg = eng.ServingConfig(slots=slots, paged=True,
+                                 page_size=page_size, int8_decode=True,
+                                 prefix_cache=cache, **extra)
+        engine = eng.InferenceEngine(tmodel, params, cfg=scfg, device=dev)
+        st, rows = engine._state, []
+        with torch.no_grad():
+            for prompt, cont in zip(prompts, served):
+                engine.submit(prompt, len(cont))
+                engine._admit(engine._queue.take(1))
+                slot, = engine._slots
+                bt = st["bt"][slot:slot + 1]
+                fed = torch.tensor(prompt[-1:] + cont[:-1], device=dev)
+                for j in range(len(cont)):
+                    out, _ = ttr.decode_step_paged(
+                        engine._params, st["pages"], bt, fed[j:j + 1],
+                        len(prompt) - 1 + j, mcfg, attn_fn=engine._attn_fn)
+                    rows.append(out[0])
+                engine._evict(slot, "length", time.monotonic())
+        logits[cache] = torch.stack(rows)
+        if cache:
+            hits = engine.stats()["prefix_hits"]
+        del engine, st
+    a, b = logits[True], logits[False]
+    if not torch.isfinite(a).all().item():
+        fail("prefix int8: non-finite logits in the teacher-forced run")
+    return {"top1": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+            "max_err": (a - b).abs().max().item(), "positions": a.shape[0],
+            "hits": hits}
+
+
+def run_sample(torch, ttr, wrappers, dev="cuda", cfg=None, prime_len=16,
+               length=8):
+    """``TransformerLM.sample(kv_cache=False)`` (a full forward over the
+    ``(1, max_len)`` buffer a token, through the attention and fused LN
+    kernels) against ``kv_cache=True``, greedy, on the default causal
+    config with ``attention="fused", fused_ln=True``: in bf16 (the main
+    path: its launches, times and whether the tokens agree) and in
+    float32, where the two paths differ by summation order only and the
+    tokens must be equal."""
+    import dataclasses
+
+    cfg = cfg or ttr.TransformerConfig(attention="fused", fused_ln=True)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = ttr.TransformerLM(c, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        prime = torch.randint(0, c.vocab_size, (prime_len,), device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(1)).tolist()
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        full = model.sample(params, prime, length, temperature=0.0)
+        t_full = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in wrappers}
+        t0 = time.perf_counter()
+        cached = model.sample(params, prime, length, temperature=0.0,
+                              kv_cache=True)
+        t_cached = time.perf_counter() - t0
+        dt = str(dtype).replace("torch.", "")
+        if len(full) != prime_len + length or full[:prime_len] != prime \
+                or any(not 0 <= t < c.vocab_size for t in full):
+            fail(f"sample({dt}): bad sequence {full}")
+        if dtype == torch.float32 and full != cached:
+            fail(f"sample(kv_cache=False) {full[prime_len:]} != "
+                 f"kv_cache=True {cached[prime_len:]} in float32")
+        out[dt] = {"batch": 1, "seq": c.max_len, "causal": True,
+                   "tokens_full": full[prime_len:],
+                   "tokens_cached": cached[prime_len:],
+                   "equal": full == cached, "full_s": t_full,
+                   "cached_s": t_cached, "launches": counts}
+        print(f"sample {dt}: kv_cache=False {t_full:.3f} s, kv_cache=True "
+              f"{t_cached:.3f} s for {length} tokens, tokens equal: "
+              f"{full == cached}, launches={counts}", flush=True)
+        del model, params
+    expected = cfg.n_layers * length
+    got = out["bfloat16"]["launches"]
+    if dev == "cuda" and (got["fused_attention"] != expected
+                          or got["fused_residual_layernorm"] != expected):
+        fail(f"sample(kv_cache=False): launches {got}, expected {expected} "
+             "fused_attention and fused_residual_layernorm")
+    return out
+
+
+def run_beam(torch, ttr, tmm, tmodel, params, wrappers, width=4, length=8,
+             prime_len=16, dev="cuda"):
+    """``beam_search`` at width 4 over the int8 serving tree (FFN and head
+    through ``int8_matmul`` at M = 4); its parity is held on the CPU."""
+    import math
+
+    cfg = tmodel.cfg
+    sp = ttr.cast_for_decode(tmm.quantize_params_for_decode(params, cfg),
+                             cfg)
+    prime = torch.randint(0, cfg.vocab_size, (prime_len,), device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(2)).tolist()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    seq, score = tmodel.beam_search(sp, prime, length, beam_width=width)
+    wall = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in wrappers}
+    if (len(seq) != prime_len + length or seq[:prime_len] != prime
+            or any(not 0 <= t < cfg.vocab_size for t in seq)
+            or not math.isfinite(score)):
+        fail(f"beam_search: sequence {seq} score {score}")
+    steps = prime_len - 1 + length
+    if dev == "cuda" and counts["int8_matmul"] != steps * (
+            2 * cfg.n_layers + 1):
+        fail(f"beam_search: launches {counts} for {steps} steps")
+    print(f"beam_search width={width}: {length} tokens in {wall:.3f} s, "
+          f"score={score:.4f}, launches={counts}", flush=True)
+    return {"width": width, "tokens": seq[prime_len:], "score": score,
+            "wall_s": wall, "int8_rows": {width: steps}, "paged_steps": 0,
+            "launches": counts}
+
+
+def run_scorer(torch, ttr, serving, cfg, wrappers, rng, rows=32,
+               dev="cuda"):
+    """``BatchScorer`` over ``forward_local`` at ``cfg`` behind
+    ``ModelServer``: ``rows`` concurrent rows of ``cfg.max_len`` token ids
+    through ``ServingClient.score`` (one coalesced batch), each answered
+    with the log-probability of its own tokens; the rows must equal
+    direct ``forward_local`` calls of one row within the attention
+    tolerance (0.05)."""
+    import numpy as np
+
+    model = ttr.TransformerLM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    def logp(toks):
+        logits = ttr.forward_local(params, toks, cfg)
+        return torch.log_softmax(logits, -1).gather(
+            -1, toks[..., None])[..., 0]
+
+    def fn(xs):
+        return logp(torch.as_tensor(xs, device=dev).long())
+
+    data = rng.integers(0, cfg.vocab_size, (rows, cfg.max_len))
+    scorer = serving.BatchScorer(fn, max_batch=rows, max_batch_delay_ms=200)
+    with scorer, serving.ModelServer(scorer=scorer) as server:
+        client = serving.ServingClient(port=server.port, timeout_s=600)
+        client.score(data[:1])                     # warm-up, one row
+        before = scorer.metrics.snapshot()["timers"]["serving.score_batch"]
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        served = np.asarray(client.score(data), np.float32)
+        wall = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in wrappers}
+        after = scorer.metrics.snapshot()["timers"]["serving.score_batch"]
+    batches = after["count"] - before["count"]
+    if batches != 1:
+        fail(f"scorer: {rows} rows ran in {batches} batches, not one")
+    with torch.no_grad():
+        direct = np.stack([logp(torch.as_tensor(r[None], device=dev))[0]
+                           .float().cpu().numpy() for r in data])
+    err = float(np.abs(served - direct).max())
+    if not (served.shape == direct.shape and np.isfinite(served).all()
+            and err <= TOL_SCORE):
+        fail(f"scorer: rows vs direct forward_local max err {err} "
+             f"(tol {TOL_SCORE})")
+    batch_s = after["total_s"] - before["total_s"]
+    print(f"scorer: {rows} rows x {cfg.max_len} over HTTP in {wall:.3f} s "
+          f"(batch {batch_s:.3f} s), max err vs direct calls "
+          f"{err:.3g} (tol {TOL_SCORE}), launches={counts}", flush=True)
+    del model, params
+    return {"batch": rows, "seq": cfg.max_len, "causal": cfg.causal,
+            "rows_per_s": rows / wall, "wall_s": wall,
+            "batch_s": batch_s, "max_abs_err": err, "tol": TOL_SCORE,
+            "launches": counts}
 
 
 def print_ptxas(usage) -> None:
@@ -1148,7 +1562,9 @@ def main() -> int:
             "paged_attention" if args.paged_only else "int8_matmul")
     import numpy as np
 
+    from deeplearning4j_tpu_torch import serving
     from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.ops.cuda import attention as tat
     from deeplearning4j_tpu_torch.ops.cuda import build, kv_quant
     from deeplearning4j_tpu_torch.ops.cuda import layernorm as tln
@@ -1195,7 +1611,8 @@ def main() -> int:
                 txe.blocked_cross_entropy)
     cfg_a = eng.ServingConfig(slots=8, paged=True, page_size=16,
                               int8_decode=True, paged_attention_impl="pallas")
-    engine_a, rep_a = run_engine(eng, tmodel, params, cfg_a, 16, rng,
+    prompts_a = make_prompts(rng, 16, mcfg.vocab_size)
+    engine_a, rep_a = run_engine(eng, tmodel, params, cfg_a, prompts_a,
                                  wrappers, "engine A")
     la = rep_a["launches"]
     if la["int8_matmul"] <= 0 or la["paged_attention"] <= 0:
@@ -1203,10 +1620,8 @@ def main() -> int:
     tf_a = kernels_vs_plain(torch, ttr, tmm, tpa, kv_quant, mcfg, params,
                             False, "engine A")
     rep_a["teacher_forced"] = tf_a
-    print(f"engine A: {rep_a['completed']}/16 requests, tokens/s="
-          f"{rep_a['tokens_per_s']:.1f} ttft_p50_s={rep_a['ttft_p50_s']:.4f} "
-          f"decode_step_p50_s={rep_a['decode_step_p50_s']:.5f} launches={la} "
-          f"teacher_forced={tf_a}", flush=True)
+    print(engine_line("engine A", rep_a) + f" teacher_forced={tf_a}",
+          flush=True)
 
     # ---- 5. the HTTP front end over engine A
     with ModelServer(engine_a) as server:
@@ -1225,7 +1640,8 @@ def main() -> int:
     cfg_b = eng.ServingConfig(slots=8, paged=True, page_size=16,
                               int8_decode=True, kv_quant="int8",
                               paged_attention_impl="pallas_int8")
-    engine_b, rep_b = run_engine(eng, tmodel, params, cfg_b, 8, rng,
+    engine_b, rep_b = run_engine(eng, tmodel, params, cfg_b,
+                                 make_prompts(rng, 8, mcfg.vocab_size),
                                  wrappers, "engine B")
     engine_b.stop()
     lb = rep_b["launches"]
@@ -1234,11 +1650,36 @@ def main() -> int:
     tf_b = kernels_vs_plain(torch, ttr, tmm, tpa, kv_quant, mcfg, params,
                             True, "engine B")
     rep_b["teacher_forced"] = tf_b
-    print(f"engine B: {rep_b['completed']}/8 requests, tokens/s="
-          f"{rep_b['tokens_per_s']:.1f} ttft_p50_s={rep_b['ttft_p50_s']:.4f} "
-          f"decode_step_p50_s={rep_b['decode_step_p50_s']:.5f} launches={lb} "
-          f"teacher_forced={tf_b}", flush=True)
-    del engine_b, tmodel, params
+    print(engine_line("engine B", rep_b) + f" teacher_forced={tf_b}",
+          flush=True)
+    del engine_b
+
+    # ---- 5b. the speculative engine S: engine A's config and prompts,
+    # a random one-layer draft proposing 3 tokens a verify window
+    draft_model, draft_params = zoo.draft_lm(mcfg, device="cuda")
+    cfg_s = eng.ServingConfig(slots=8, paged=True, page_size=16,
+                              int8_decode=True, paged_attention_impl="pallas",
+                              speculative=True, spec_k=3)
+    engine_s, rep_s = run_engine(eng, tmodel, params, cfg_s, prompts_a,
+                                 wrappers, "engine S",
+                                 draft_model=draft_model,
+                                 draft_params=draft_params)
+    engine_s.stop()
+    del engine_s, draft_params
+    if rep_s["launches"]["int8_matmul"] <= 0:
+        fail(f"engine S did not run through its kernels: {rep_s['launches']}")
+    rep_s["agreement_with_a"] = token_agreement(rep_s["served"],
+                                                rep_a["served"])
+    rep_s["teacher_forced"] = window_vs_steps(torch, ttr, tmm, tpa, mcfg,
+                                              params)
+    print(engine_line("engine S", rep_s) + " agreement with engine A: "
+          f"{rep_s['agreement_with_a']} teacher_forced window vs steps="
+          f"{rep_s['teacher_forced']}", flush=True)
+
+    # ---- 5c. the prefix cache on float and int8 pages; 5d. beam search
+    prefix = run_prefix(eng, tmodel, params, rng, wrappers)
+    beam = run_beam(torch, ttr, tmm, tmodel, params, wrappers)
+    del tmodel, params
     torch.cuda.empty_cache()
 
     # ---- 6./7. the train step at full width: the BERT-base leg (flash,
@@ -1249,6 +1690,11 @@ def main() -> int:
         attention="flash", fused_ln=True, xent_impl="blocked")
     cfg_b = ttr.TransformerConfig(attention="fused", fused_ln=True,
                                   xent_impl="blocked")
+    # ---- 5e. sample(kv_cache=False) on the causal config; 5f. the
+    # BatchScorer behind ModelServer on leg A's config
+    sample = run_sample(torch, ttr, wrappers)
+    scorer = run_scorer(torch, ttr, serving, cfg_a, wrappers, rng)
+    torch.cuda.empty_cache()
     leg_a = train_leg(torch, ttr, TT, cfg_a, 64, 512, 5, "train A",
                       wrappers, rates, profile=True)
     leg_b = train_leg(torch, ttr, TT, cfg_b, 8, 2048, 3, "train B",
@@ -1262,8 +1708,10 @@ def main() -> int:
 
     # ---- 9. one line per kernel: its numbers weighted by this run's
     # launches at each main-path shape, and every shape measured
-    kernels = kernel_rows(cases, [rep_a, rep_b], [leg_a, leg_b], mcfg,
-                          rates)
+    kernels = kernel_rows(
+        cases, [rep_a, rep_b, rep_s, prefix["float"]["cache"],
+                prefix["int8"]["cache"], beam],
+        [leg_a, leg_b, sample["bfloat16"], scorer], mcfg, rates)
     if args.report:
         path = Path(args.report)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -1272,8 +1720,9 @@ def main() -> int:
             "ptxas": usage,
             "kernel_cases": cases, "int8_matmul_dx_err": int8_dx,
             "int8_matmul_device_kernels": int8_kernels,
-            "engine_a": rep_a, "engine_b": rep_b,
-            "train_a": leg_a, "train_b": leg_b,
+            "engine_a": rep_a, "engine_b": rep_b, "engine_s": rep_s,
+            "prefix": prefix, "beam": beam, "sample": sample,
+            "scorer": scorer, "train_a": leg_a, "train_b": leg_b,
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},
             "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,9 +5,11 @@ config and parameters; the training forward (``_block`` with the ring /
 flash / fused attention and the fused residual+LayerNorm seam,
 ``encode_local``, ``forward_local``) and losses (``lm_head_loss`` with its
 full, chunked and blocked routes, ``lm_loss_local``, the classifier head);
-the KV-cached ``decode_step`` and the paged ``decode_step_paged``; and
+the KV-cached ``decode_step``, the paged ``decode_step_paged`` and the
+speculative verify windows ``decode_window``/``decode_window_paged``; and
 ``TransformerLM`` with ``build_train_step``/``build_finetune_step``,
-``fit``, ``score`` and ``sample(kv_cache=True)``.  The parameter tree
+``fit``, ``score``, ``sample`` (full forward or KV-cached) and
+``beam_search``.  The parameter tree
 keeps the JAX package's names and layouts (``wqkv`` ``(D, 3, H, Dh)`` or
 ``wq``/``wkv`` under GQA, ``wo`` ``(H, Dh, D)``, ``w1/b1/w2/b2``, tied
 ``tok_embed``, ``pos_embed``, ``final_ln_*``), so moving parameters
@@ -436,13 +438,16 @@ def init_decode_cache(cfg: TransformerConfig, batch: int = 1,
 
 
 def _decode_attend(params, x, valid, write_kv, cfg: TransformerConfig,
-                   attend=None, int8_fn=None):
-    """Shared per-row decode arithmetic over embedded queries ``x`` (N, D).
+                   attend=None, int8_fn=None, window: int = 1):
+    """Shared per-row decode arithmetic over embedded queries ``x`` (N, D),
+    ``N = B * window`` with a row's ``window`` queries adjacent.
     ``write_kv(layer, k, v) -> (ck, cv)`` commits the new K/V wherever
-    the caller keeps it and returns the ``(N, T, Kv, Dh)`` view attention
-    reads; ``attend(layer, q)`` optionally replaces that gather-read
-    attention (the paged-attention kernel hook); ``int8_fn`` replaces the
-    ``int8_matmul`` wrapper for int8 trees.  Returns f32 logits (N, V)."""
+    the caller keeps it and returns the ``(B, T, Kv, Dh)`` view that the
+    row's queries read (every write lands before any query reads);
+    ``valid`` (N, T) masks each query's keys.  ``attend(layer, q)``
+    optionally replaces that gather-read attention (the paged-attention
+    kernel hook); ``int8_fn`` replaces the ``int8_matmul`` wrapper for
+    int8 trees.  Returns f32 logits (N, V)."""
     dt = cfg.dtype
     scale = cfg.head_dim ** -0.5
     n_rep = cfg.n_heads // cfg.kv_heads
@@ -454,11 +459,14 @@ def _decode_attend(params, x, valid, write_kv, cfg: TransformerConfig,
             att = attend(li, q)
         else:
             ck, cv = repeat_kv_heads(ck, n_rep), repeat_kv_heads(cv, n_rep)
-            s = torch.einsum("bhd,bthd->bht", q.float(), ck.float()) * scale
+            qw = q.float().reshape(-1, window, *q.shape[1:])    # (B, W, H, Dh)
+            s = torch.einsum("bwhd,bthd->bwht", qw, ck.float()) * scale
+            s = s.reshape(-1, *s.shape[2:])                     # (N, H, T)
             s = s.masked_fill(~valid[:, None, :], float("-inf"))
-            p = torch.softmax(s, dim=-1)
-            att = torch.einsum("bht,bthd->bhd", p.to(dt).float(),
-                               cv.float()).to(dt)
+            p = torch.softmax(s, dim=-1).to(dt).float()
+            att = torch.einsum("bwht,bthd->bwhd",
+                               p.reshape(-1, window, *p.shape[1:]),
+                               cv.float()).reshape(q.shape).to(dt)
         proj = torch.einsum("bhe,hed->bd", att, lp["wo"].to(dt))
         x = x + proj.to(x.dtype)
         h2 = _layernorm(x, lp["ln2_scale"], lp["ln2_bias"])
@@ -585,22 +593,73 @@ def gather_paged_layer(c, block_table, max_len: int, dtype):
     return out[0], out[1]
 
 
+def scatter_rows(dst, idx, val) -> torch.Tensor:
+    """``dst[idx[i]] = val[i]`` along axis 0, IN PLACE, where entries of
+    ``idx`` outside ``[0, len(dst))`` are dropped (the JAX package's
+    ``.at[idx].set(val, mode="drop")``; the window paths send positions
+    past ``max_len`` to such a sentinel).
+
+    The drop costs no host sync (a boolean-mask index would, through
+    ``nonzero``) and never clamps a sentinel onto a live row, where it
+    could race a real write of the same call.  Instead each dropped entry
+    becomes a copy of the call's first in-range entry, index and value
+    alike, so ``index_put_`` writes the same bytes there however it
+    orders duplicates; with no entry in range, every entry rewrites row 0
+    with the bytes it already holds.  That first entry is picked with a
+    one-element ``index_select``: a 0-d tensor index would read the
+    index on the host.  Returns ``dst``."""
+    if idx.numel() == 0:
+        return dst
+    idx = idx.long()
+    val = val.to(dst.dtype)
+    ok = (idx >= 0) & (idx < dst.shape[0])
+    # (1,): 0 when none is in range
+    first = torch.argmax(ok.to(torch.int32)).reshape(1)
+    live = ok.index_select(0, first)                              # (1,)
+    d_idx = torch.where(live, idx.index_select(0, first), 0)      # (1,)
+    lead = (1,) * (val.dim() - 1)
+    d_val = torch.where(live.reshape((1,) + lead),
+                        val.index_select(0, first), dst[:1])      # (1, ...)
+    okv = ok.reshape((-1,) + lead)
+    dst.index_put_((torch.where(ok, idx, d_idx),),
+                   torch.where(okv, val, d_val))
+    return dst
+
+
 def scatter_paged_layer(c, flat, k, v) -> dict:
     """Commit token K/V rows ``k``/``v`` (N, Kv, Dh) at flat pool indices
     ``flat`` (N,) into one layer's pool dict ``c``, IN PLACE.  Indices
-    must lie inside the pool.  Float pools store the rows as they are;
-    quantized pools quantize at the write: dequantize the whole pool,
-    scatter, requantize against monotone per-page absmax scales (the
-    JAX package's semantics, whole-pool cost included)."""
+    outside the pool are dropped (:func:`scatter_rows`; the window
+    paths' sentinel is ``n_phys * page_size``).  Float pools store the
+    rows as they are; quantized pools quantize at the write: dequantize
+    the whole pool, scatter, requantize against monotone per-page absmax
+    scales (the JAX package's semantics, whole-pool cost included), so
+    pages no write touched keep their bytes."""
+    return _scatter_paged(c, flat, k, v, scatter_rows)
+
+
+def _put_rows(dst, idx, val) -> torch.Tensor:
+    """``dst[idx] = val`` IN PLACE, for ``idx`` known to lie in ``dst``:
+    the paged step's own indices, whose page lookups
+    :func:`paged_flat_index` clamps to the block table, so
+    :func:`scatter_rows`' drop would cost a dozen launches a call for
+    nothing."""
+    dst[idx] = val.to(dst.dtype)
+    return dst
+
+
+def _scatter_paged(c, flat, k, v, put) -> dict:
+    """:func:`scatter_paged_layer` with the row write ``put(dst, idx,
+    val)``."""
     if "k_scale" not in c:
         for key, val in (("k", k), ("v", v)):
             pool = c[key]
-            pool.view((-1,) + tuple(pool.shape[2:]))[flat] = val.to(pool.dtype)
+            put(pool.view((-1,) + tuple(pool.shape[2:])), flat, val)
         return c
     for key, val in (("k", k), ("v", v)):
         skey = key + "_scale"
         f = kv_quant.dequantize_pool(c[key], c[skey], torch.float32)
-        f.view((-1,) + tuple(f.shape[2:]))[flat] = val.to(torch.float32)
+        put(f.view((-1,) + tuple(f.shape[2:])), flat, val)
         q, s = kv_quant.requantize_pool(f, c[skey], c[key].dtype)
         c[key].copy_(q)
         c[skey].copy_(s)
@@ -628,7 +687,7 @@ def decode_step_paged(params, pages, block_tables, tokens, pos,
     flat = paged_flat_index(block_tables, pos_b[:, None], ps)[:, 0]    # (B,)
 
     def write_kv(li, k, v):
-        scatter_paged_layer(pages[li], flat, k, v)
+        _scatter_paged(pages[li], flat, k, v, _put_rows)
         if attn_fn is not None:
             return None, None  # the attend hook reads the pool directly
         return gather_paged_layer(pages[li], block_tables, cfg.max_len, dt)
@@ -650,6 +709,83 @@ def decode_step_paged(params, pages, block_tables, tokens, pos,
     return logits, pages
 
 
+def _window(params, tokens, pos, cfg: TransformerConfig):
+    """The shared front of the verify windows: ``tokens`` (B, W) at
+    positions ``pos[b] .. pos[b]+W-1``.  Returns the embedded queries
+    (B*W, D), their validity masks (B*W, T), the window positions (B, W)
+    and whether each lies below ``max_len``; positions past it embed and
+    mask as ``max_len - 1`` (their writes are dropped by the caller)."""
+    B, W = tokens.shape
+    T = cfg.max_len
+    tok = tokens.long().reshape(B * W)
+    pos_b = torch.as_tensor(pos, device=tok.device).long().expand(B)
+    wpos = pos_b[:, None] + torch.arange(W, device=tok.device)[None, :]
+    pos2 = torch.clamp(wpos, max=T - 1).reshape(B * W)
+    x = (params["tok_embed"][tok] + params["pos_embed"][pos2]).to(cfg.dtype)
+    valid = torch.arange(T, device=tok.device)[None, :] <= pos2[:, None]
+    return x, valid, wpos, wpos < T
+
+
+def decode_window(params, cache, tokens, pos, cfg: TransformerConfig):
+    """Speculative verify window: process ``tokens`` (B, W) at positions
+    ``pos[b] .. pos[b]+W-1`` in one pass, returning logits for every
+    window position.  The window folds into the batch (N = B*W rows of
+    the same per-row ops as :func:`decode_step`); all W writes land in
+    ``cache`` (IN PLACE) before any query reads, and window position w
+    attends exactly the keys a sequential step at ``pos+w`` would see, so
+    per row it is W sequential ``decode_step`` calls up to summation
+    order.  Positions past ``max_len - 1`` are dropped writes (sentinel
+    ``B * max_len``), never clamped onto a live row.  Returns ``(logits
+    (B, W, V) f32, cache)``."""
+    B, W = tokens.shape
+    T = cfg.max_len
+    x, valid, wpos, ok = _window(params, tokens, pos, cfg)
+    row = torch.arange(B, device=x.device)[:, None]
+    flat = torch.where(ok, row * T + wpos,
+                       torch.full_like(wpos, B * T)).reshape(B * W)
+
+    def write_kv(li, k, v):
+        c = cache[li]
+        for key, val in (("k", k), ("v", v)):
+            buf = c[key]
+            scatter_rows(buf.view((B * T,) + tuple(buf.shape[2:])), flat, val)
+        return c["k"], c["v"]
+
+    logits = _decode_attend(params, x, valid, write_kv, cfg, window=W)
+    return logits.reshape(B, W, -1), cache
+
+
+def decode_window_paged(params, pages, block_tables, tokens, pos,
+                        cfg: TransformerConfig):
+    """Paged twin of :func:`decode_window`: the W window writes scatter
+    into the page pool (IN PLACE) through the block table, positions past
+    ``max_len - 1`` becoming dropped sentinel writes (``n_phys *
+    page_size``), then each window query attends a gather of its row's
+    logical K/V, as :func:`decode_step_paged` without ``attn_fn`` does.
+    Returns ``(logits (B, W, V) f32, pages)``."""
+    B, W = tokens.shape
+    T = cfg.max_len
+    ps = pages[0]["k"].shape[1]
+    n_phys = pages[0]["k"].shape[0]
+    x, valid, wpos, ok = _window(params, tokens, pos, cfg)
+    flat = torch.where(ok, paged_flat_index(block_tables, wpos, ps),
+                       torch.full_like(wpos, n_phys * ps)).reshape(B * W)
+
+    def write_kv(li, k, v):
+        scatter_paged_layer(pages[li], flat, k, v)
+        return gather_paged_layer(pages[li], block_tables, T, cfg.dtype)
+
+    logits = _decode_attend(params, x, valid, write_kv, cfg, window=W)
+    return logits.reshape(B, W, -1), pages
+
+
+def gumbel_noise(u: torch.Tensor) -> torch.Tensor:
+    """``log(-log(u))`` of uniforms ``u``: :func:`sample_token` picks
+    ``argmax(logits / temperature - gumbel_noise(u))``.  Elementwise, so
+    a row computed alone has the bits it has inside a larger tensor."""
+    return torch.log(-torch.log(u))
+
+
 def sample_token(logits: torch.Tensor, temperature: float,
                  gen: torch.Generator) -> torch.Tensor:
     """Draw one token id from ``softmax(logits / temperature)`` (one row)
@@ -659,7 +795,7 @@ def sample_token(logits: torch.Tensor, temperature: float,
     :meth:`TransformerLM.sample`."""
     u = torch.rand(logits.shape, generator=gen, device=logits.device,
                    dtype=torch.float32)
-    return torch.argmax(logits.float() / temperature - torch.log(-torch.log(u)))
+    return torch.argmax(logits.float() / temperature - gumbel_noise(u))
 
 
 # --------------------------------------------------------------------------- model facade
@@ -816,19 +952,20 @@ class TransformerLM:
         return params, opt, [float(x) for x in losses]
 
     def sample(self, params, prime, length: int, temperature: float = 1.0,
-               seed: int = 0, kv_cache: bool = True) -> list:
+               seed: int = 0, kv_cache: bool = False) -> list:
         """Temperature-sampled continuation of ``prime`` (greedy when
-        ``temperature <= 0``), decoded incrementally through
+        ``temperature <= 0``).  Two paths: the default recomputes the full
+        forward (:func:`forward_local`) over a ``(1, max_len)`` token
+        buffer for every generated token, so on the card it runs the
+        training kernels (attention, fused residual+LayerNorm) each
+        token; ``kv_cache=True`` decodes incrementally through
         :func:`decode_step`.  Sampled tokens come from a
-        ``torch.Generator`` seeded with ``seed`` (:func:`sample_token`,
-        one draw per generated token); the serving engine reproduces this
-        stream exactly for a request with the same seed.  Torch cannot
-        reproduce the JAX package's threefry stream, so only greedy
-        decoding matches it.  The full-forward path (``kv_cache=False``)
-        is not ported yet."""
-        if not kv_cache:
-            raise NotImplementedError(
-                "sample(kv_cache=False) is not ported yet")
+        ``torch.Generator`` seeded with ``seed`` through
+        :func:`sample_token`, one draw per generated token on either
+        path, so both give the same tokens for a seed (up to summation
+        order), and the serving engine reproduces this stream exactly for
+        a request with the same seed.  Torch cannot reproduce the JAX
+        package's threefry stream, so only greedy decoding matches it."""
         cfg = self.cfg
         if not cfg.causal:
             raise ValueError("sampling needs a causal LM (cfg.causal=True)")
@@ -841,11 +978,71 @@ class TransformerLM:
         gen = None if greedy else torch.Generator(device=dev).manual_seed(seed)
         toks = torch.zeros((cfg.max_len,), dtype=torch.long, device=dev)
         toks[:P] = torch.as_tensor(list(prime), dtype=torch.long)
-        cache = init_decode_cache(cfg, 1, dev)
+
+        def pick(logits):
+            return (torch.argmax(logits) if greedy else
+                    sample_token(logits, temperature, gen))
+
         with torch.no_grad():
-            for i in range(P + length - 1):
-                logits, _ = decode_step(params, cache, toks[i:i + 1], i, cfg)
-                if i + 1 >= P:
-                    toks[i + 1] = (torch.argmax(logits[0]) if greedy else
-                                   sample_token(logits[0], temperature, gen))
+            if kv_cache:
+                cache = init_decode_cache(cfg, 1, dev)
+                for i in range(P + length - 1):
+                    logits, _ = decode_step(params, cache, toks[i:i + 1], i,
+                                            cfg)
+                    if i + 1 >= P:
+                        toks[i + 1] = pick(logits[0])
+            else:
+                for i in range(P - 1, P + length - 1):
+                    logits = forward_local(params, toks[None], cfg)[0, i]
+                    toks[i + 1] = pick(logits)
         return toks[:P + length].tolist()
+
+    def beam_search(self, params, prime, length: int, beam_width: int = 5
+                    ) -> tuple[list, float]:
+        """Highest-log-likelihood continuation of ``prime``: ``(token
+        sequence, total log prob)``.  The beam is the batch axis of the
+        KV-cached :func:`decode_step` (``params`` may be a serving tree
+        from ``quantize_params_for_decode``, whose FFN and head then run
+        ``int8_matmul`` at M = beam width); the top-k bookkeeping (sort
+        W·V scores) runs on the host each step, as in the JAX package,
+        and the cache rows are reordered on the device by
+        ``index_select``."""
+        cfg = self.cfg
+        if not cfg.causal:
+            raise ValueError("beam search needs a causal LM "
+                             "(cfg.causal=True)")
+        # more beams than vocabulary entries cannot all be distinct
+        P, W = len(prime), min(beam_width, cfg.vocab_size)
+        if not (1 <= P and P + length <= cfg.max_len):
+            raise ValueError(f"prime {P} + length {length} must fit "
+                             f"max_len {cfg.max_len}")
+        dev = params["tok_embed"].device
+        toks = torch.zeros((W, cfg.max_len), dtype=torch.long, device=dev)
+        toks[:, :P] = torch.as_tensor(list(prime), dtype=torch.long)
+        cache = init_decode_cache(cfg, W, dev)
+        scores = np.zeros(W)
+        with torch.no_grad():
+            for i in range(P - 1):                       # prefill
+                decode_step(params, cache, toks[:, i], i, cfg)
+            for i in range(P - 1, P - 1 + length):
+                logits, _ = decode_step(params, cache, toks[:, i], i, cfg)
+                logp = torch.log_softmax(logits, dim=-1).cpu().numpy()
+                if i == P - 1:
+                    # all beams are clones of the prime: branch the top-W
+                    # tokens from ONE row (else W duplicate beams)
+                    top = np.argsort(-logp[0])[:W]
+                    beam_idx, next_toks = np.zeros(W, int), top
+                    scores = logp[0][top]
+                else:
+                    flat = (scores[:, None] + logp).reshape(-1)
+                    top = np.argsort(-flat)[:W]
+                    beam_idx, next_toks = np.divmod(top, logp.shape[1])
+                    scores = flat[top]
+                sel = torch.as_tensor(beam_idx, dtype=torch.long, device=dev)
+                toks = toks.index_select(0, sel)
+                toks[:, i + 1] = torch.as_tensor(next_toks, dtype=torch.long,
+                                                 device=dev)
+                cache = [{k: c.index_select(0, sel) for k, c in layer.items()}
+                         for layer in cache]
+        best = int(np.argmax(scores))
+        return toks[best, :P + length].tolist(), float(scores[best])

@@ -30,7 +30,8 @@ def storage_dtype(mode: str) -> torch.dtype:
         return torch.int8
     if mode == "fp8":
         raise ValueError("kv_quant='fp8' is not ported to "
-                         "deeplearning4j_tpu_torch yet")
+                         "deeplearning4j_tpu_torch yet (ROADMAP.md A6: "
+                         "fp8 KV pages)")
     raise ValueError(
         f"unknown kv_quant mode {mode!r} (supported: {KV_QUANT_MODES})")
 

@@ -3,14 +3,15 @@ paged KV bookkeeping, HTTP server and client."""
 
 from .batcher import (Completion, DeadlineExceeded, GenerateRequest,
                       PagePoolExhausted, PendingResult, QueueFull,
-                      RequestQueue, ServingRejected)
+                      RequestQueue, ScoreRequest, ServingRejected)
 from .client import ServingClient, ServingError
-from .engine import InferenceEngine, ServingConfig, kv_page_bytes
-from .paging import PagePool
+from .engine import BatchScorer, InferenceEngine, ServingConfig, kv_page_bytes
+from .paging import PagePool, PrefixEntry, prefix_chain_keys
 from .server import ModelServer
 
-__all__ = ["Completion", "DeadlineExceeded", "GenerateRequest",
-           "InferenceEngine", "ModelServer", "PagePool", "PagePoolExhausted",
-           "PendingResult", "QueueFull", "RequestQueue", "ServingClient",
-           "ServingConfig", "ServingError", "ServingRejected",
-           "kv_page_bytes"]
+__all__ = ["BatchScorer", "Completion", "DeadlineExceeded",
+           "GenerateRequest", "InferenceEngine", "ModelServer", "PagePool",
+           "PagePoolExhausted", "PendingResult", "PrefixEntry", "QueueFull",
+           "RequestQueue", "ScoreRequest", "ServingClient", "ServingConfig",
+           "ServingError", "ServingRejected", "kv_page_bytes",
+           "prefix_chain_keys"]

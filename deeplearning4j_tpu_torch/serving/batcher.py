@@ -1,6 +1,7 @@
 """Request admission: bounded queue, deadlines, coalescing.
 
-Port of ``deeplearning4j_tpu/serving/batcher.py`` (generation requests).
+Port of ``deeplearning4j_tpu/serving/batcher.py`` (generation requests
+and the rows of batched score calls).
 Backpressure is explicit: the queue is bounded and a full queue rejects
 at submit time with :class:`QueueFull` (HTTP 429).  A request whose
 deadline passed while queued completes with :class:`DeadlineExceeded`
@@ -59,6 +60,16 @@ INTERACTIVE = 0
 BACKGROUND = 1
 
 
+def _tier(request) -> int:
+    """The queue tier of ``request``: a ``GenerateRequest`` with
+    ``priority`` > 0 is background work; everything else, ``ScoreRequest``
+    included (it has no ``priority``, as in the JAX package), is
+    interactive."""
+    if isinstance(request, GenerateRequest) and request.priority > 0:
+        return BACKGROUND
+    return INTERACTIVE
+
+
 @dataclasses.dataclass
 class GenerateRequest:
     """One autoregressive generation request in token-id space."""
@@ -71,7 +82,20 @@ class GenerateRequest:
     deadline_s: float | None = None  # absolute time.monotonic() deadline
     id: int = dataclasses.field(default_factory=lambda: next(_REQ_IDS))
     submitted_s: float = 0.0        # stamped by RequestQueue.submit
+    tenant: str = ""                # opaque caller identity (carried; the
+    #                                 per-tenant accounting comes with the
+    #                                 observability registries)
     priority: int = 0               # INTERACTIVE (0) or BACKGROUND (1)
+
+
+@dataclasses.dataclass
+class ScoreRequest:
+    """One row of a batched forward/score call (``BatchScorer``)."""
+
+    x: Any
+    deadline_s: float | None = None
+    id: int = dataclasses.field(default_factory=lambda: next(_REQ_IDS))
+    submitted_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -192,8 +216,7 @@ class RequestQueue:
                     "with backoff")
             request.submitted_s = now
             pending = PendingResult(request)
-            tier = BACKGROUND if request.priority > 0 else INTERACTIVE
-            self._tiers[tier].append(pending)
+            self._tiers[_tier(request)].append(pending)
             self.metrics.gauge(DEPTH_GAUGE, self._total_locked())
             self._cv.notify()
         return pending
@@ -250,7 +273,8 @@ class RequestQueue:
                         f"admission")):
                     self.metrics.increment("serving.deadline_dropped")
                 return False
-            if (p.request.priority > 0 and self._tiers[INTERACTIVE]
+            if (_tier(p.request) == BACKGROUND
+                    and self._tiers[INTERACTIVE]
                     and now - p.request.submitted_s < self.aging_s):
                 self._tiers[BACKGROUND].appendleft(p)
                 self.metrics.increment("serving.preempted")

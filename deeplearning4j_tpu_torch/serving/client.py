@@ -68,7 +68,8 @@ class ServingClient:
     def generate(self, prompt, max_new_tokens: int = 16,
                  temperature: float = 0.0, seed: int = 0,
                  eos_id: int | None = None,
-                 deadline_ms: float | None = None, priority: int = 0,
+                 deadline_ms: float | None = None,
+                 tenant: str | None = None, priority: int = 0,
                  timeout_s: float | None = None) -> dict:
         body = {"prompt": list(prompt), "max_new_tokens": max_new_tokens,
                 "temperature": temperature, "seed": seed}
@@ -76,9 +77,16 @@ class ServingClient:
             body["eos_id"] = eos_id
         if deadline_ms is not None:
             body["deadline_ms"] = deadline_ms
+        if tenant:
+            body["tenant"] = tenant
         if priority:
             body["priority"] = int(priority)
         return self._json("/v1/generate", body, timeout_s=timeout_s)
+
+    def score(self, inputs) -> list:
+        """Rows in, the scorer's output rows out (``/v1/score``)."""
+        return self._json("/v1/score", {"inputs": [list(map(float, r))
+                                                   for r in inputs]})["outputs"]
 
     def healthz(self, timeout_s: float | None = None) -> dict:
         return self._json("/healthz", timeout_s=timeout_s)

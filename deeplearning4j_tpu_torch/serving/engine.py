@@ -18,20 +18,29 @@ where the JAX package donated its state buffers.
 
 Token contract: greedy requests decode exactly as
 ``TransformerLM.sample(..., kv_cache=True)``.  Sampled requests draw from a
-per-request ``torch.Generator`` seeded with the request's ``seed`` through
-:func:`~..models.transformer.sample_token`, once per generated token, so
-they equal the offline sampler with the same seed.  The host knows
-without a sync which slots generate at each step (``generated <
-max_new_tokens``), so each generator advances exactly once per token.
+per-request ``torch.Generator`` seeded with the request's ``seed``, one
+draw of ``V`` uniforms per generated token in token order
+(:func:`~..models.transformer.sample_token`), so they equal the offline
+sampler with the same seed.  A speculative step emits a number of tokens
+that only the device knows, so the engine draws AHEAD: before each step
+the host tops up a per-slot ring of noise rows on the device (row ``g``
+holds generated token ``g``'s draw, as many rows as the step could
+consume), and the device reads the rows at its own token offset.
 
 Prefill runs the prompt token by token through the same ``decode_step``
 as the offline sampler; the power-of-two prompt bucket ladder of the JAX
 package (one compiled prefill per bucket) is kept only as bookkeeping
 (``stats()["prefill_buckets"]``).
 
-Not ported yet: ``speculative``, ``prefix_cache``, ``role != "unified"``
-(they raise ``NotImplementedError``), hot reload from checkpoints,
-tracing, the flight recorder, chaos sites and brownout actuators.
+Also here: the prefix cache (``prefix_cache=True``: a shared prompt
+prefix is admitted by block-table aliasing and its prefill skipped),
+speculative decoding (``speculative=True``: a draft proposes ``spec_k``
+greedy tokens, one ``decode_window(_paged)`` pass of the target verifies
+them), the brownout setters, and :class:`BatchScorer`.
+
+Not ported yet: ``role != "unified"`` (raises ``NotImplementedError``),
+fp8 KV pages, hot reload from checkpoints, tracing, the flight recorder,
+cost capture, per-tenant accounting and the chaos sites.
 """
 
 from __future__ import annotations
@@ -40,21 +49,24 @@ import dataclasses
 import threading
 import time
 import traceback
+from typing import Callable
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models.transformer import (cast_for_decode, decode_step,
-                                  decode_step_paged, gather_paged_layer,
-                                  init_decode_cache, init_paged_cache,
-                                  paged_flat_index, reset_cache_pages,
-                                  reset_cache_slots, sample_token,
-                                  scatter_paged_layer)
+                                  decode_step_paged, decode_window,
+                                  decode_window_paged, gather_paged_layer,
+                                  gumbel_noise, init_decode_cache,
+                                  init_paged_cache, paged_flat_index,
+                                  reset_cache_pages, reset_cache_slots,
+                                  scatter_paged_layer, scatter_rows)
 from ..observability.metrics import MetricsRegistry
 from ..ops.cuda import build, kv_quant, registry
 from ..ops.cuda.matmul_int8 import quantize_params_for_decode
 from .batcher import (Completion, GenerateRequest, PagePoolExhausted,
-                      PendingResult, RequestQueue)
+                      PendingResult, RequestQueue, ScoreRequest)
 from .paging import PagePool
 
 #: unit-interval buckets for fill-ratio histograms
@@ -79,16 +91,17 @@ class ServingConfig:
     paged: bool = False             # page-pool KV instead of dense slot rows
     page_size: int = 16             # tokens per KV page
     num_pages: int | None = None    # pool capacity; None -> slots*ceil(T/ps)
-    prefix_cache: bool = False      # not ported yet (raises)
-    speculative: bool = False       # not ported yet (raises)
-    spec_k: int = 3
+    prefix_cache: bool = False      # content-addressed prefix sharing (paged)
+    speculative: bool = False       # draft proposes, target verifies
+    spec_k: int = 3                 # draft tokens proposed per verify window
     paged_attention_impl: str = "gather"  # "gather" (plain torch) or a
     #                                 registry candidate: "cuda" /
     #                                 "cuda_int8" (aliases "pallas" /
     #                                 "pallas_int8")
     kv_quant: str | None = None     # None = model dtype, "int8" = per-page
     #                                 per-head absmax int8 (needs paged)
-    role: str = "unified"           # only "unified" is ported
+    role: str = "unified"           # only "unified" is ported (the
+    #                                 prefill/decode roles: ROADMAP.md A8)
 
 
 def kv_page_bytes(mcfg, page_size: int, kv_quant: str | None = None) -> int:
@@ -112,8 +125,8 @@ class _Slot:
     delivered: list = dataclasses.field(default_factory=list)
     admitted_s: float = 0.0
     first_token_s: float | None = None
-    generated: int = 0             # decode steps this slot generated in
     gen: torch.Generator | None = None   # sampled requests only
+    drawn: int = 0                 # noise rows drawn ahead
 
 
 class InferenceEngine:
@@ -122,34 +135,57 @@ class InferenceEngine:
     The JAX package's parameter order: ``params`` must already live on
     ``device`` (default ``cuda``, which raises when there is no GPU);
     restoring them from a ``checkpoint`` is not ported yet (ROADMAP.md
-    A6) and raises.  ``registry`` is the metrics registry the engine
-    publishes to (a fresh one by default; ``ModelServer`` serves it)."""
+    A5) and raises.  A speculative engine takes ``draft_model`` and
+    ``draft_params`` (``models.zoo.draft_lm``), sharing the target's
+    vocabulary and ``max_len``.  ``registry`` is the metrics registry the
+    engine publishes to (a fresh one by default; ``ModelServer`` serves
+    it)."""
 
     def __init__(self, model, params=None, checkpoint=None,
-                 cfg: ServingConfig = ServingConfig(), *, device=None,
+                 cfg: ServingConfig = ServingConfig(), draft_model=None,
+                 draft_params=None, *, device=None,
                  registry: MetricsRegistry | None = None):
         if checkpoint is not None:
             raise NotImplementedError(
                 "InferenceEngine(checkpoint=...): restoring params from a "
                 "checkpoint is not ported to deeplearning4j_tpu_torch yet "
-                "(ROADMAP.md A6); pass params")
+                "(ROADMAP.md A5, A6); pass params")
         if params is None:
             raise ValueError("InferenceEngine needs params")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
         self.metrics = registry if registry is not None else MetricsRegistry()
-        if cfg.speculative or cfg.prefix_cache or cfg.role != "unified":
+        if cfg.role != "unified":
             raise NotImplementedError(
-                "speculative decoding, the prefix cache and the "
-                "prefill/decode roles are not ported to "
-                "deeplearning4j_tpu_torch yet")
+                f"role={cfg.role!r}: the prefill/decode roles are not "
+                "ported to deeplearning4j_tpu_torch yet (ROADMAP.md A8)")
+        if cfg.prefix_cache and not cfg.paged:
+            raise ValueError("prefix_cache requires paged=True (sharing is "
+                             "block-table aliasing)")
         if cfg.kv_quant is not None:
             if not cfg.paged:
                 raise ValueError("kv_quant requires paged=True (scales live "
                                  "beside the page pool)")
             kv_quant.storage_dtype(cfg.kv_quant)  # validates the mode
+        if cfg.speculative:
+            if draft_model is None or draft_params is None:
+                raise ValueError("speculative=True needs draft_model and "
+                                 "draft_params (see zoo.draft_lm)")
+            if (draft_model.cfg.vocab_size != model.cfg.vocab_size
+                    or draft_model.cfg.max_len != model.cfg.max_len):
+                raise ValueError("draft model must share the target's "
+                                 "vocab_size and max_len")
+            if cfg.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
         mcfg = model.cfg
+        self._draft_model = draft_model if cfg.speculative else None
+        self._draft_params = (cast_for_decode(draft_params, draft_model.cfg)
+                              if cfg.speculative else None)
+        # tokens a step can emit (a verify window is spec_k + 1), and the
+        # noise rows a segment can consume
+        self._window = cfg.spec_k + 1 if cfg.speculative else 1
+        self._ring = self._window * cfg.resolve_every
         self._page_size = cfg.page_size
         self._pages_per_slot = -(-mcfg.max_len // cfg.page_size)
         self._num_pages = (cfg.num_pages if cfg.num_pages is not None
@@ -166,8 +202,13 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self._params = self._maybe_quantize(params)  # guarded-by: self._lock
         self._rows = torch.arange(cfg.slots, device=self.device)
+        self._offsets = torch.arange(self._window, device=self.device,
+                                     dtype=torch.int32)
         self._state = self._init_state()
         self._warmed = False
+        self._spec_enabled = cfg.speculative         # guarded-by: self._lock
+        self._max_new_cap: int | None = None         # guarded-by: self._lock
+        self._admission_hook = None                  # guarded-by: self._lock
         self._buckets: set[int] = set()              # guarded-by: self._lock
         self._slots: dict[int, _Slot] = {}           # guarded-by: self._lock
         self._slot_pages: dict[int, list[int]] = {}  # guarded-by: self._lock
@@ -182,7 +223,8 @@ class InferenceEngine:
         """The serving tree decode reads: with ``int8_decode`` the FFN
         w1/w2 and the LM head become int8 + per-channel scales; matmul
         operands are cast to the compute dtype once
-        (:func:`~..models.transformer.cast_for_decode`)."""
+        (:func:`~..models.transformer.cast_for_decode`).  The draft's
+        tree is cast, never quantized."""
         mcfg = self.model.cfg
         with self.metrics.time("serving.quantize"), torch.no_grad():
             if self.cfg.int8_decode:
@@ -219,6 +261,14 @@ class InferenceEngine:
                                      device=dev)
         else:
             state["cache"] = init_decode_cache(mcfg, S, dev)
+        if self.cfg.speculative:
+            state["draft_cache"] = init_decode_cache(self._draft_model.cfg,
+                                                     S, dev)
+        # sampled slots' noise rows drawn ahead (row g % ring holds
+        # generated token g's), and each slot's first generating position
+        state["noise"] = zeros((S, self._ring, mcfg.vocab_size),
+                               torch.float32)
+        state["gbase"] = zeros((S,), torch.int32)
         return state
 
     def _paged_attn_fn(self):
@@ -231,14 +281,30 @@ class InferenceEngine:
                 else "paged_attention")
         return registry.get(kind, IMPL_ALIASES.get(impl, impl)).fn
 
-    def _step(self, params, draws) -> torch.Tensor:
+    def _picks(self, logits, sampled) -> torch.Tensor:
+        """Token picks (S, W) int32 from the logits (S, W, V) of a step:
+        the argmax, except for the ``sampled`` slots ``(slot,
+        temperature)``, whose window position w reads the noise row of
+        generated token ``pos - gbase + w`` (drawn ahead by
+        :meth:`_plan_step`): ``sample_token``'s arithmetic on its
+        draw."""
+        pick = torch.argmax(logits, dim=-1).to(torch.int32)
+        st = self._state
+        W = logits.shape[1]
+        for s, temp in sampled:
+            g = (st["pos"][s] - st["gbase"][s]) + self._offsets[:W]
+            noise = st["noise"][s, (g % self._ring).long()]      # (W, V)
+            pick[s] = torch.argmax(logits[s].float() / temp - noise,
+                                   dim=-1).to(torch.int32)
+        return pick
+
+    def _step(self, params, sampled) -> torch.Tensor:
         """Advance every occupied slot one token; returns the emitted ids
         (S,) int32 on the device, -1 for rows that did not generate.
 
         Inactive / exhausted rows still flow through the batched matmuls
         (masked no-ops), but their positions and token buffers are frozen.
-        ``draws`` lists ``(slot, temperature, generator)`` for the sampled
-        slots that generate in this step."""
+        ``sampled`` lists the sampled slots (:meth:`_picks`)."""
         mcfg = self.model.cfg
         st = self._state
         pos, active, limit, toks = (st["pos"], st["active"], st["limit"],
@@ -250,15 +316,66 @@ class InferenceEngine:
                                           pos, mcfg, attn_fn=self._attn_fn)
         else:
             logits, _ = decode_step(params, st["cache"], cur, pos, mcfg)
-        pick = torch.argmax(logits, dim=-1).to(torch.int32)
-        for s, temp, gen in draws:
-            pick[s] = sample_token(logits[s], temp, gen)
+        pick = self._picks(logits[:, None], sampled)[:, 0]
         can = active & (pos < limit) & (pos + 1 < mcfg.max_len)
         emitted = torch.where(can, pick, torch.full_like(pick, -1))
         new_pos = torch.where(can, pos + 1, pos)
         idx = new_pos.long()
         toks[rows, idx] = torch.where(can, pick, toks[rows, idx])
         pos.copy_(new_pos)
+        return emitted
+
+    def _spec_step(self, params, sampled) -> torch.Tensor:
+        """One speculative dispatch: the draft proposes ``spec_k`` greedy
+        tokens, one verify window (``decode_window_paged`` or
+        ``decode_window``) scores ``[cur, proposals]`` on the target, and
+        up to ``spec_k + 1`` tokens emit.  Returns the emitted ids (S, W)
+        int32, -1 where nothing emitted.
+
+        Window logit ``L_i`` is the target's next-token distribution at
+        ``pos + i``, so pick ``i`` is what a sequential step would pick
+        (same draw for sampled slots, :meth:`_picks`); pick ``i`` emits
+        only while every earlier proposal matched its pick (``cumprod`` of
+        ``can & match``), and the position advances by the count m.  The
+        draft decides how many tokens emit, never which.  (The JAX
+        package's chaos term garbling proposals comes with
+        ``resilience/faults.py``; here it is always 0.)"""
+        mcfg = self.model.cfg
+        T = mcfg.max_len
+        st = self._state
+        pos, active, limit, toks = (st["pos"], st["active"], st["limit"],
+                                    st["toks"])
+        S, k = self.cfg.slots, self.cfg.spec_k
+        rows = self._rows
+        cur = toks[rows, pos.long()]
+        proposals, inp = [], cur
+        for i in range(k):
+            # past max_len the draft writes its last row again: only its
+            # proposals degrade, and they decide nothing that emits
+            d_logits, _ = decode_step(self._draft_params, st["draft_cache"],
+                                      inp, torch.clamp(pos + i, max=T - 1),
+                                      self._draft_model.cfg)
+            inp = torch.argmax(d_logits, dim=-1).to(torch.int32)
+            proposals.append(inp)
+        d = torch.stack(proposals, dim=1)                       # (S, k)
+        window = torch.cat([cur[:, None], d], dim=1)            # (S, W)
+        if self.cfg.paged:
+            logits, _ = decode_window_paged(params, st["pages"], st["bt"],
+                                            window, pos, mcfg)
+        else:
+            logits, _ = decode_window(params, st["cache"], window, pos, mcfg)
+        picks = self._picks(logits, sampled)                    # (S, W)
+        p2 = pos[:, None] + self._offsets[None, :]
+        can = active[:, None] & (p2 < limit[:, None]) & (p2 + 1 < T)
+        match = torch.cat([torch.ones_like(can[:, :1]),
+                           d == picks[:, :k]], dim=1)
+        emit = torch.cumprod((can & match).to(torch.int32), dim=1).bool()
+        m = emit.sum(dim=1).to(torch.int32)
+        emitted = torch.where(emit, picks, torch.full_like(picks, -1))
+        flat = torch.where(emit, rows[:, None] * T + p2 + 1,
+                           torch.full_like(p2, S * T))
+        scatter_rows(toks.view(-1), flat.reshape(-1), picks.reshape(-1))
+        pos.add_(m)
         return emitted
 
     # ------------------------------------------------------------ prefill
@@ -269,11 +386,20 @@ class InferenceEngine:
             b <<= 1
         return min(b, self.model.cfg.max_len)
 
-    def _prefill(self, params, slot: int, req: GenerateRequest) -> None:
+    def _prefill(self, params, slot: int, req: GenerateRequest,
+                 cached_len: int = 0) -> None:
         """Run ``prompt[:-1]`` through ``decode_step`` on a batch-of-1
         cache — the offline sampler's own arithmetic — then write the row
         into the slot pool (dense) or the slot's pages (paged; quantized
-        pools quantize at that write), and arm the slot's state."""
+        pools quantize at that write), and arm the slot's state.
+
+        Paged: the batch-of-1 cache starts as a gather of the slot's
+        block-table row, so positions below ``cached_len`` (aliased
+        prefix pages) are already there and skipped; the write back
+        rewrites shared pages with the values they hold (the same bytes
+        for int8 pages: their scales are monotone).  A speculative
+        engine prefills the draft's dense row beside the target, always
+        from position 0 (the prefix cache holds target pages only)."""
         mcfg = self.model.cfg
         st = self._state
         p_len = len(req.prompt)
@@ -286,8 +412,16 @@ class InferenceEngine:
                 c, bt_row, mcfg.max_len, mcfg.dtype))) for c in st["pages"]]
         else:
             cache1 = init_decode_cache(mcfg, 1, self.device)
+        spec = self.cfg.speculative
+        if spec:
+            dcfg = self._draft_model.cfg
+            dcache1 = init_decode_cache(dcfg, 1, self.device)
         for i in range(p_len - 1):
-            decode_step(params, cache1, prompt[i:i + 1], i, mcfg)
+            if i >= cached_len:
+                decode_step(params, cache1, prompt[i:i + 1], i, mcfg)
+            if spec:
+                decode_step(self._draft_params, dcache1, prompt[i:i + 1], i,
+                            dcfg)
         if self.cfg.paged:
             t = torch.arange(mcfg.max_len, device=self.device)[None, :]
             flat = paged_flat_index(bt_row, t, self._page_size)[0]
@@ -297,6 +431,11 @@ class InferenceEngine:
             for c, c1 in zip(st["cache"], cache1):
                 c["k"][slot] = c1["k"][0]
                 c["v"][slot] = c1["v"][0]
+        if spec:
+            for c, c1 in zip(st["draft_cache"], dcache1):
+                c["k"][slot] = c1["k"][0]
+                c["v"][slot] = c1["v"][0]
+        st["gbase"][slot] = p_len - 1
         st["toks"][slot].zero_()
         st["toks"][slot, :p_len] = prompt.to(torch.int32)
         # the first engine step processes token p_len-1 and draws token p_len
@@ -308,10 +447,17 @@ class InferenceEngine:
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
                seed: int = 0, eos_id: int | None = None,
                deadline_ms: float | None = None,
-               priority: int = 0) -> PendingResult:
+               tenant: str = "", priority: int = 0) -> PendingResult:
         """Validate + enqueue; returns a handle whose ``result()`` blocks.
         Raises ``ValueError`` on malformed requests (HTTP 400) and
-        :class:`~.batcher.QueueFull` under backpressure (HTTP 429)."""
+        :class:`~.batcher.QueueFull` under backpressure (HTTP 429).
+        ``tenant`` is an opaque caller identity carried on the request
+        (per-tenant accounting needs the observability registries,
+        ROADMAP.md A7).  ``priority`` > 0 marks background work, claimed
+        only while no interactive request waits.  A brownout cap
+        (:meth:`set_max_new_cap`) clamps ``max_new_tokens``, and an
+        admission hook (:meth:`set_admission_hook`) may reject the
+        validated request by raising."""
         mcfg = self.model.cfg
         prompt = [int(t) for t in prompt]
         if not prompt:
@@ -325,13 +471,24 @@ class InferenceEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds max_len ({mcfg.max_len})")
+        with self._lock:
+            cap = self._max_new_cap
+            hook = self._admission_hook
+        if cap is not None and max_new_tokens > cap:
+            # a shorter completion instead of a rejection: the tokens are
+            # the prefix of the uncapped ones
+            max_new_tokens = cap
+            self.metrics.increment("serving.max_new_clamped")
         req = GenerateRequest(
             prompt=prompt, max_new_tokens=int(max_new_tokens),
             temperature=float(temperature), seed=int(seed),
             eos_id=eos_id if eos_id is not None else self.cfg.default_eos_id,
             deadline_s=(time.monotonic() + deadline_ms / 1000.0
                         if deadline_ms else None),
+            tenant=str(tenant) if tenant else "",
             priority=1 if int(priority) > 0 else 0)
+        if hook is not None:
+            hook(req)
         self.metrics.increment("serving.requests")
         return self._queue.submit(req)
 
@@ -383,13 +540,16 @@ class InferenceEngine:
 
     def warmup(self) -> None:
         """Build and load the CUDA kernels (on a GPU) and run one decode
-        step over the all-inactive state, so the first request pays no
-        build or first-launch cost."""
+        step over the all-inactive state (a speculative engine runs its
+        plain step too, the brownout fallback), so the first request pays
+        no build or first-launch cost."""
         with self.metrics.time("serving.warmup"), torch.no_grad():
             if self.device.type == "cuda":
                 build.build_all()
             with self._lock:
                 params = self._params
+            if self.cfg.speculative:
+                self._spec_step(params, []).cpu()
             self._step(params, []).cpu()
         self._warmed = True
 
@@ -463,22 +623,40 @@ class InferenceEngine:
                 self._buckets.add(self._prompt_bucket(len(req.prompt)))
             acquired: list[int] = []
             try:
+                cached_len = 0
+                usable = len(req.prompt) - 1
                 if self.cfg.paged:
+                    if self.cfg.prefix_cache:
+                        # alias the longest cached chain of the prompt's
+                        # full pages (increffed for this slot)
+                        shared, cached_len = self._pool.lookup_prefix(
+                            req.prompt, usable)
+                        acquired.extend(shared)
                     # allocate for what THIS request can touch (positions
                     # [0, limit]); the row's tail parks on the trash page
                     need = -(-(len(req.prompt) + req.max_new_tokens)
                              // self._page_size)
-                    acquired = self._pool.alloc(need)
+                    acquired.extend(self._pool.alloc(need - len(acquired)))
                     row = acquired + [self._num_pages] * (
                         self._pages_per_slot - len(acquired))
                     self._state["bt"][slot] = torch.tensor(
                         row, dtype=torch.int32)
                 t_pre = time.perf_counter()
-                self._prefill(params, slot, req)
+                self._prefill(params, slot, req, cached_len)
                 self.metrics.observe_time("serving.prefill",
                                           time.perf_counter() - t_pre)
+                if self.cfg.prefix_cache:
+                    # publish every full-page chain of this prompt; the
+                    # entries pin their pages with their own refcounts
+                    self._pool.insert_prefix(req.prompt, acquired, usable)
+                    if cached_len:
+                        self.metrics.increment("serving.prefix_hits")
+                        # prompt positions whose prefill the cache saved
+                        self.metrics.increment("serving.prefix_cached_tokens",
+                                               cached_len)
             except Exception as e:
                 # fail only THIS request; the slot and its pages go back
+                # (an aliased page keeps its other readers' references)
                 self._release_row(slot, acquired)
                 with self._lock:
                     self._free.append(slot)
@@ -526,26 +704,49 @@ class InferenceEngine:
                 len(slot_pages) * self._page_bytes / occupied
                 if occupied else 0.0)
 
-    def _draws(self) -> list:
-        """Host-side plan of this step's sampled draws: each sampled slot
-        that still generates (``generated < max_new_tokens`` is exactly the
-        device's ``pos < limit``) draws once from its own generator."""
-        draws = []
+    def _plan_step(self, width: int, j: int) -> list:
+        """Host-side plan of the sampled draws of step ``j`` of a segment
+        whose steps emit up to ``width`` tokens a slot.  Before step ``j``
+        a slot has emitted at most ``len(delivered) + width * j`` tokens
+        (delivered counts all it emitted before this segment), so each
+        sampled slot's noise rows up to ``width`` beyond that bound (and
+        below ``max_new_tokens``) are drawn now, each one ``torch.rand(V)``
+        from the slot's generator in token order (``sample_token``'s
+        draw), and stored as its Gumbel noise.  No host sync: the device
+        reads the rows at its own offset.  Returns ``[(slot,
+        temperature)]`` of the sampled slots."""
+        sampled = []
+        st = self._state
+        V = self.model.cfg.vocab_size
         for s, sl in self._slots.items():
+            if sl.gen is None:
+                continue
             req = sl.pending.request
-            if sl.generated < req.max_new_tokens:
-                sl.generated += 1
-                if sl.gen is not None:
-                    draws.append((s, req.temperature, sl.gen))
-        return draws
+            want = min(req.max_new_tokens,
+                       len(sl.delivered) + width * (j + 1))
+            for g in range(sl.drawn, want):
+                st["noise"][s, g % self._ring] = gumbel_noise(torch.rand(
+                    (V,), generator=sl.gen, device=self.device,
+                    dtype=torch.float32))
+            sl.drawn = max(sl.drawn, want)
+            sampled.append((s, req.temperature))
+        return sampled
 
     def _decode_segment(self) -> list:
         """Launch ``resolve_every`` decode steps with NO host syncs — the
-        emitted-token tensors stay on the device until ``_resolve``."""
+        emitted-token tensors stay on the device until ``_resolve``.  A
+        speculative engine takes its spec step unless the brownout switch
+        (:meth:`set_speculative`) turned it off, read once a segment."""
         with self._lock:
             params = self._params
-        out = [self._step(params, self._draws())
-               for _ in range(self.cfg.resolve_every)]
+            spec = self.cfg.speculative and self._spec_enabled
+        out = []
+        for j in range(self.cfg.resolve_every):
+            if spec:
+                out.append(self._spec_step(
+                    params, self._plan_step(self._window, j)))
+            else:
+                out.append(self._step(params, self._plan_step(1, j))[:, None])
         self.metrics.increment("serving.decode.dispatches", len(out))
         return out
 
@@ -554,18 +755,27 @@ class InferenceEngine:
         tokens, then EOS/length bookkeeping and metrics."""
         if not pending:
             return
-        em = torch.stack(pending).cpu().numpy()              # (k, S)
+        em = torch.stack(pending).cpu().numpy()              # (k, S, W)
         now = time.monotonic()
         seg_s = time.perf_counter() - t0
         n_steps = len(pending)
         self.metrics.observe_many("serving.decode_step",
                                   [seg_s / n_steps] * n_steps)
+        if self.cfg.speculative:
+            # tokens emitted per dispatch per live slot (clipped emissions
+            # at the limit count too)
+            counts = (em >= 0).sum(axis=2)
+            self.metrics.observe_many(
+                "serving.spec_accept_len",
+                [float(c) for c in counts[counts > 0]],
+                buckets=tuple(float(i)
+                              for i in range(1, self.cfg.spec_k + 2)))
         delivered = 0
         for s in list(self._slots):
             sl = self._slots[s]
             req: GenerateRequest = sl.pending.request
             finish = None
-            for t in em[:, s]:
+            for t in em[:, s].reshape(-1):
                 t = int(t)
                 if t < 0:
                     continue
@@ -610,6 +820,40 @@ class InferenceEngine:
                     if sl.first_token_s is not None else None)))
 
     # ------------------------------------------------------------ stats
+    # ------------------------------------------------- brownout actuators
+    def set_speculative(self, enabled: bool) -> bool:
+        """Turn speculative decoding off (or back on) at runtime; returns
+        the new effective state.  Read once a decode segment, and the
+        draft decides only how many tokens emit, so served tokens are the
+        same either way.  No-op on a plain engine."""
+        if not self.cfg.speculative:
+            return False
+        with self._lock:
+            self._spec_enabled = bool(enabled)
+            now = self._spec_enabled
+        self.metrics.gauge("serving.speculative_enabled", 1.0 if now else 0.0)
+        return now
+
+    def set_max_new_cap(self, cap: int | None) -> None:
+        """Clamp every future request's ``max_new_tokens`` to ``cap`` at
+        submission (``None`` lifts the clamp); admitted requests keep
+        their budget."""
+        if cap is not None and int(cap) < 1:
+            raise ValueError(f"max_new cap must be >= 1, got {cap}")
+        with self._lock:
+            self._max_new_cap = int(cap) if cap is not None else None
+        self.metrics.gauge("serving.max_new_cap",
+                           float(cap) if cap is not None else 0.0)
+
+    def set_admission_hook(self, hook) -> None:
+        """Install (or clear, with ``None``) a gate called with each
+        validated :class:`~.batcher.GenerateRequest` before it enters the
+        queue; it rejects by raising a :class:`~.batcher.ServingRejected`
+        subclass."""
+        with self._lock:
+            self._admission_hook = hook
+
+    # ------------------------------------------------------------ stats
     def stats(self) -> dict:
         with self._lock:
             out = {
@@ -625,14 +869,130 @@ class InferenceEngine:
                 "role": self.cfg.role,
                 "device": str(self.device),
                 "last_error": self._last_error,
+                "speculative_enabled": (self.cfg.speculative
+                                        and self._spec_enabled),
+                "max_new_cap": self._max_new_cap,
             }
         if self._pool is not None:
             out["kv_pages"] = self._num_pages
             out["kv_quant"] = self.cfg.kv_quant
             out["kv_page_bytes"] = self._page_bytes
             out["kv_pages_in_use"] = self._pool.in_use()
+            out["prefix_entries"] = self._pool.prefix_entries()
+            out["prefix_hit_rate"] = self._pool.hit_rate()
+            hits, lookups = self._pool.hit_counts()
+            out["prefix_hits"] = hits
+            out["prefix_lookups"] = lookups
         return out
 
 
-__all__ = ["FILL_BUCKETS", "IMPL_ALIASES", "InferenceEngine", "ServingConfig",
-           "kv_page_bytes"]
+class BatchScorer:
+    """Coalesce concurrent single-row score calls into padded batches
+    through any row-wise ``fn`` (``numpy (B, ...) -> (B, ...)``; a
+    ``forward_local`` over a model's params, for example).
+
+    Rows queue through the same bounded :class:`RequestQueue` as
+    generation; the worker pads each batch up to a power-of-two bucket by
+    repeating the first row (pad outputs are discarded), so ``fn`` sees at
+    most ``log2(max_batch) + 1`` shapes.  ``fn``'s outputs come back to
+    the host once a batch.  Publishes to its own registry ``metrics``."""
+
+    def __init__(self, fn: Callable, max_batch: int = 64,
+                 max_queue: int = 256, max_batch_delay_ms: float = 2.0):
+        self.fn = fn
+        self.max_batch = max_batch
+        self.metrics = MetricsRegistry()
+        self._queue = RequestQueue(max_queue, max_batch_delay_ms,
+                                   metrics=self.metrics)
+        self._shape_lock = threading.Lock()
+        self._row_shape: tuple | None = None  # guarded-by: self._shape_lock
+        self._buckets: set[int] = set()       # serve-thread-owned
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> "BatchScorer":
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="serving-scorer")
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._queue.wake()
+        if self._thread is not None:
+            self._thread.join(timeout=30.0)
+            self._thread = None
+        for p in self._queue.drain():
+            p._fail(RuntimeError("scorer stopped before request ran"))
+
+    def __enter__(self) -> "BatchScorer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def submit(self, x) -> PendingResult:
+        x = np.asarray(x)
+        # check-then-set is atomic: two first submitters racing here
+        # could otherwise publish different shapes
+        with self._shape_lock:
+            if self._row_shape is None:
+                self._row_shape = x.shape
+            elif x.shape != self._row_shape:
+                raise ValueError(
+                    f"row shape {x.shape} != first-seen {self._row_shape}")
+        return self._queue.submit(ScoreRequest(x=x))
+
+    def score(self, x, timeout: float = 30.0):
+        """One row in, one output row out (blocking)."""
+        return self.submit(x).result(timeout)
+
+    def score_batch(self, xs, timeout: float = 30.0) -> np.ndarray:
+        """Submit every row, gather in order: rows of concurrent callers
+        interleave into shared batches."""
+        handles = [self.submit(x) for x in np.asarray(xs)]
+        return np.stack([h.result(timeout) for h in handles])
+
+    def _bucket(self, n: int) -> int:
+        b = 1
+        while b < n:
+            b <<= 1
+        return min(b, self.max_batch)
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            batch = self._queue.take(self.max_batch, block_s=0.05)
+            if not batch:
+                continue
+            try:
+                self._run(batch)
+            except Exception as e:  # fail this batch, keep serving
+                self.metrics.increment("serving.score.errors")
+                for p in batch:
+                    p._fail(e)
+
+    def _run(self, batch: list[PendingResult]) -> None:
+        n = len(batch)
+        bucket = self._bucket(n)
+        xs = np.stack([p.request.x for p in batch])
+        if bucket > n:
+            xs = np.concatenate(
+                [xs, np.broadcast_to(xs[:1], (bucket - n,) + xs.shape[1:])])
+        if bucket not in self._buckets:
+            self._buckets.add(bucket)
+            self.metrics.increment("serving.score.recompile")
+        with self.metrics.time("serving.score_batch"), torch.no_grad():
+            ys = self.fn(xs)
+            ys = (ys.detach().cpu().numpy() if torch.is_tensor(ys)
+                  else np.asarray(ys))
+        self.metrics.observe_time("serving.score.batch_fill", n / bucket,
+                                  buckets=FILL_BUCKETS)
+        self.metrics.increment("serving.score.rows", n)
+        for i, p in enumerate(batch):
+            p._complete(ys[i])
+
+
+__all__ = ["BatchScorer", "FILL_BUCKETS", "IMPL_ALIASES", "InferenceEngine",
+           "ServingConfig", "kv_page_bytes"]

@@ -4,14 +4,18 @@ Port of ``ModelServer`` from ``deeplearning4j_tpu/serving/server.py``
 (stdlib ``ThreadingHTTPServer``, ``port=0`` auto-assign, quiet logging):
 
 - ``POST /v1/generate`` — body ``{"prompt": [ids], "max_new_tokens",
-  "temperature", "seed", "eos_id", "deadline_ms", "priority"}`` →
-  ``{"tokens", "finish_reason", "latency_s", "ttft_s"}``
+  "temperature", "seed", "eos_id", "deadline_ms", "tenant", "priority"}``
+  → ``{"tokens", "finish_reason", "latency_s", "ttft_s"}``
+- ``POST /v1/score``    — batched forward through a ``BatchScorer``;
+  ``{"inputs": [[...], ...]}`` → ``{"outputs": [[...], ...]}``
 - ``GET /healthz``      — liveness + engine slot/queue stats
 - ``GET /metrics``      — JSON registry snapshot
 - ``GET /metrics.prom`` — Prometheus text exposition
 
 Error contract: backpressure keeps its HTTP status (``QueueFull`` → 429,
-``DeadlineExceeded`` → 504), malformed requests → 400.
+``DeadlineExceeded`` → 504), malformed requests → 400, a route whose
+engine or scorer is not mounted → 400.  ``/v1/reload`` and ``/v1/migrate``
+come with hot reload (ROADMAP.md A5) and the disagg roles (A8).
 """
 
 from __future__ import annotations
@@ -20,19 +24,29 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as np
+
 from ..observability.metrics import MetricsRegistry
 from .batcher import ServingRejected
 
 
 class ModelServer:
-    """REST endpoint over an :class:`~.engine.InferenceEngine`; serves the
-    engine's metrics registry unless ``registry`` names another."""
+    """REST endpoint over an :class:`~.engine.InferenceEngine` and/or a
+    :class:`~.engine.BatchScorer` (either may be None; its route 400s).
+    Serves the engine's metrics registry (else the scorer's) unless
+    ``registry`` names another."""
 
-    def __init__(self, engine, registry: MetricsRegistry | None = None,
+    def __init__(self, engine=None, scorer=None,
+                 registry: MetricsRegistry | None = None,
                  host: str = "127.0.0.1", port: int = 0,
                  request_timeout_s: float = 60.0):
         self.engine = engine
-        self.registry = registry if registry is not None else engine.metrics
+        self.scorer = scorer
+        if registry is None:
+            registry = (engine.metrics if engine is not None
+                        else scorer.metrics if scorer is not None
+                        else MetricsRegistry())
+        self.registry = registry
         self.request_timeout_s = request_timeout_s
         outer = self
 
@@ -53,8 +67,7 @@ class ModelServer:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    self._json(200, {"ok": True,
-                                     "engine": outer.engine.stats()})
+                    self._json(200, outer._health())
                 elif self.path == "/metrics":
                     self._json(200, outer.registry.snapshot())
                 elif self.path == "/metrics.prom":
@@ -71,10 +84,12 @@ class ModelServer:
                         raise ValueError("body must be a JSON object")
                 except ValueError as e:   # JSONDecodeError is a ValueError
                     return self._json(400, {"error": f"bad request body: {e}"})
-                if self.path != "/v1/generate":
+                routes = {"/v1/generate": outer._generate,
+                          "/v1/score": outer._score}
+                if self.path not in routes:
                     return self._json(404, {"error": f"no route {self.path}"})
                 try:
-                    return self._json(200, outer._generate(payload))
+                    return self._json(200, routes[self.path](payload))
                 except ServingRejected as e:
                     outer.registry.increment("serving.http.rejected")
                     return self._json(e.status, {"error": str(e)})
@@ -90,6 +105,8 @@ class ModelServer:
         self._thread: threading.Thread | None = None
 
     def _generate(self, p: dict) -> dict:
+        if self.engine is None:
+            raise ValueError("no InferenceEngine mounted on this server")
         if "prompt" not in p:
             raise ValueError("missing required field 'prompt'")
         eos = p.get("eos_id")
@@ -100,10 +117,30 @@ class ModelServer:
             seed=int(p.get("seed", 0)),
             eos_id=int(eos) if eos is not None else None,
             deadline_ms=float(dl) if dl is not None else None,
+            tenant=str(p.get("tenant") or ""),
             priority=int(p.get("priority", 0)),
             timeout=self.request_timeout_s)
         return {"tokens": comp.tokens, "finish_reason": comp.finish_reason,
                 "latency_s": comp.latency_s, "ttft_s": comp.ttft_s}
+
+    def _score(self, p: dict) -> dict:
+        if self.scorer is None:
+            raise ValueError("no BatchScorer mounted on this server")
+        if "inputs" not in p:
+            raise ValueError("missing required field 'inputs'")
+        xs = np.asarray(p["inputs"], np.float32)
+        if xs.ndim < 2:
+            raise ValueError("'inputs' must be a batch of rows")
+        ys = self.scorer.score_batch(xs, timeout=self.request_timeout_s)
+        return {"outputs": ys.tolist()}
+
+    def _health(self) -> dict:
+        out = {"ok": True}
+        if self.engine is not None:
+            out["engine"] = self.engine.stats()
+        if self.scorer is not None:
+            out["scorer"] = {"queue_depth": self.scorer._queue.depth()}
+        return out
 
     def start(self) -> "ModelServer":
         if self._thread is None:

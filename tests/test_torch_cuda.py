@@ -62,6 +62,139 @@ def test_int8_matmul_kernel_ragged_shapes(dev, m, k, n, dtype):
     assert (out - ref).abs().max().item() < 1e-4
 
 
+@pytest.mark.parametrize("m", [4, 32])
+@pytest.mark.parametrize("k,n", [(768, 3072), (3072, 768), (768, 32768)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_matmul_kernel_at_window_and_beam_rows(dev, m, k, n, dtype):
+    """The rows of beam search (M = beam width 4) and of the speculative
+    verify window (M = 8 slots x (spec_k + 1) = 32) at the flagship's FFN
+    and head shapes."""
+    g = torch.Generator(device=dev).manual_seed(m * 131 + n)
+    qw = tmm.quantize(torch.randn((k, n), generator=g, device=dev)
+                      * k ** -0.5)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    before = tmm.int8_matmul.launches
+    out = tmm.int8_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert tmm.int8_matmul.launches == before + 1
+    assert (out - tmm.reference_int8_matmul(x, qw)).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_window_paged_kernels_match_plain(dev, quant, monkeypatch):
+    """A speculative verify window over an int8 serving tree, float or
+    int8 pages, in float32: through the ``int8_matmul`` kernel (M = B*W)
+    against the same window through its plain version, on copies of one
+    pool; logits within 1e-3, pools within 1e-5."""
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+
+    cfg = ttr.TransformerConfig(vocab_size=1000, d_model=256, n_heads=4,
+                                n_layers=2, d_ff=1024, max_len=128,
+                                dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(5)
+    params = tmm.quantize_params_for_decode(
+        ttr.init_params(g, cfg, dev), cfg)
+    B, W, ps = 8, 4, 16
+    n_slot = cfg.max_len // ps
+    P = B * n_slot + 1
+    if quant:
+        pages = kv_quant.init_quantized_paged_cache(cfg, P, ps, "int8", dev)
+    else:
+        pages = ttr.init_paged_cache(cfg, P, ps, dev)
+    bt = torch.randperm(P - 1, generator=g, device=dev)[:B * n_slot] \
+        .reshape(B, n_slot).to(torch.int32)
+    fill = torch.randint(0, cfg.vocab_size, (B, 40), generator=g, device=dev)
+    for t in range(40):
+        ttr.decode_step_paged(params, pages, bt, fill[:, t], t, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (B, W), generator=g, device=dev)
+    pos = torch.tensor([40, 39, 38, 37, 36, 35, 126, 125], device=dev,
+                       dtype=torch.int32)
+    plain_pages = [{k: v.clone() for k, v in c.items()} for c in pages]
+    before = tmm.int8_matmul.launches
+    out, _ = ttr.decode_window_paged(params, pages, bt, toks, pos, cfg)
+    torch.cuda.synchronize()
+    # two FFN matmuls a layer and the head, each one launch at M = B * W
+    assert tmm.int8_matmul.launches == before + 2 * cfg.n_layers + 1
+    monkeypatch.setattr(ttr, "int8_matmul", tmm.reference_int8_matmul)
+    ref, _ = ttr.decode_window_paged(params, plain_pages, bt, toks, pos, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() < 1e-3
+    for a, b in zip(pages, plain_pages):
+        for key in a:
+            assert (a[key].float() - b[key].float()).abs().max().item() \
+                <= (1 if key in ("k", "v") and quant else 1e-5)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_paths_make_no_host_sync(dev, quant):
+    """The serving hot loop under ``torch.cuda.set_sync_debug_mode
+    ("error")``: the paged step through the paged-attention kernel, the
+    paged verify window, and a speculative engine's whole decode segment
+    (noise draws for a sampled slot, draft steps, the verify window, the
+    emission scatter), each through the kernels; any host sync raises."""
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  ServingConfig)
+
+    cfg = ttr.TransformerConfig(vocab_size=1000, d_model=256, n_heads=4,
+                                n_layers=2, d_ff=1024, max_len=128)
+    g = torch.Generator(device=dev).manual_seed(5)
+    raw = ttr.init_params(g, cfg, dev)
+    params = ttr.cast_for_decode(tmm.quantize_params_for_decode(raw, cfg),
+                                 cfg)
+    B, W, ps = 4, 4, 16
+    n_slot = cfg.max_len // ps
+    P = B * n_slot + 1
+    if quant:
+        pages = kv_quant.init_quantized_paged_cache(cfg, P, ps, "int8", dev)
+        attn = tpa.paged_attention_int8
+    else:
+        pages = ttr.init_paged_cache(cfg, P, ps, dev)
+        attn = tpa.paged_attention
+    bt = torch.arange(B * n_slot, device=dev,
+                      dtype=torch.int32).reshape(B, n_slot)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev)
+    win = torch.randint(0, cfg.vocab_size, (B, W), generator=g, device=dev)
+    pos = torch.tensor([5, 9, 40, cfg.max_len - 2], device=dev,
+                       dtype=torch.int32)
+    draft, dparams = zoo.draft_lm(cfg, device=dev)
+    engine = InferenceEngine(
+        ttr.TransformerLM(cfg, device=dev), raw,
+        cfg=ServingConfig(slots=B, paged=True, page_size=ps, int8_decode=True,
+                          speculative=True, spec_k=W - 1,
+                          kv_quant="int8" if quant else None,
+                          paged_attention_impl="cuda_int8" if quant
+                          else "cuda"),
+        draft_model=draft, draft_params=dparams, device=dev)
+
+    def paths():
+        ttr.decode_step_paged(params, pages, bt, tok, pos, cfg, attn_fn=attn)
+        ttr.decode_window_paged(params, pages, bt, win, pos, cfg)
+        return engine._decode_segment()
+
+    with torch.no_grad():
+        engine.warmup()                      # builds and loads the kernels
+        paths()                              # first launches, outside
+        h = engine.submit(list(range(1, 20)), 12, temperature=0.7, seed=3)
+        engine._admit(engine._queue.take(1, block_s=0.0))
+        slot, = engine._slots
+        torch.cuda.synchronize()
+        before = tmm.int8_matmul.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = paths()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert tmm.int8_matmul.launches > before
+    em = torch.stack(out)
+    assert em.shape == (engine.cfg.resolve_every, B, W)
+    assert (em[:, slot, 0] >= 0).all()       # the sampled slot emitted
+    assert not h.done()
+
+
 @pytest.mark.parametrize("m,n", [(1, 3072), (8, 768), (3, 17)])
 def test_int8_matmul_kernel_misaligned_weights(dev, m, n):
     """A contiguous q starting one byte past a 16-byte boundary takes the

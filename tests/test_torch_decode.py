@@ -188,7 +188,8 @@ def test_greedy_sample_tokens_identical_to_jax(n_kv_heads):
 
 def test_sampled_decode_follows_its_generator():
     """Sampled decoding is the port's own torch.Generator stream: the same
-    seed gives the same tokens, another seed (almost surely) not."""
+    seed gives the same tokens, another seed (almost surely) not, and the
+    full-forward default and the KV-cached path draw the same stream."""
     _, tcfg = _cfgs()
     lm = ttr.TransformerLM(tcfg, device=CPU)
     params = lm.init(torch.Generator().manual_seed(3))
@@ -196,5 +197,5 @@ def test_sampled_decode_follows_its_generator():
     b = lm.sample(params, [1, 2, 3], 16, temperature=1.0, seed=11)
     c = lm.sample(params, [1, 2, 3], 16, temperature=1.0, seed=12)
     assert a == b and a != c
-    with pytest.raises(NotImplementedError):
-        lm.sample(params, [1], 2, kv_cache=False)
+    assert lm.sample(params, [1, 2, 3], 16, temperature=1.0, seed=11,
+                     kv_cache=True) == a

@@ -80,6 +80,7 @@ def test_guard_flags_what_it_should():
 def _entry_points():
     from deeplearning4j_tpu_torch import resolve_device
     from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.serving import InferenceEngine
 
     cfg = ttr.TransformerConfig(vocab_size=11, d_model=8, n_heads=2,
@@ -95,13 +96,14 @@ def _entry_points():
         "init_paged_cache": lambda: ttr.init_paged_cache(cfg, 2, 4),
         "InferenceEngine": lambda: InferenceEngine(cpu_model, params),
         "init_cls_head": lambda: ttr.init_cls_head(torch.Generator(), cfg, 2),
+        "draft_lm": lambda: zoo.draft_lm(cfg),
     }
 
 
 @pytest.mark.parametrize("name", sorted([
     "resolve_device", "resolve_device_cuda", "TransformerLM", "init_params",
     "init_decode_cache", "init_paged_cache", "InferenceEngine",
-    "init_cls_head"]))
+    "init_cls_head", "draft_lm"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """Without ``device="cpu"`` an entry point asks for CUDA; with no GPU
     (forced here, so the test means the same on any machine) it raises."""

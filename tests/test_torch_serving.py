@@ -166,8 +166,8 @@ def test_page_pool_and_engine_backpressure(models):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(speculative=True), NotImplementedError),
-    (dict(paged=True, prefix_cache=True), NotImplementedError),
+    (dict(role="decode"), NotImplementedError),         # A8
+    (dict(kv_quant="fp8"), ValueError),               # paged only, A6
     (dict(role="prefill"), NotImplementedError),
     (dict(kv_quant="int8"), ValueError),              # needs paged pages
     (dict(paged=True, kv_quant="fp8"), ValueError),   # not ported

@@ -53,7 +53,6 @@ ALLOWED = {
         "parent_span_id": "the engine's tracing (-> A6, A7)",
         "root_span_id": "the engine's tracing (-> A6, A7)",
         "submitted_perf": "the engine's tracing (-> A6, A7)",
-        "tenant": "tenants (-> A6)",
     },
     "serving.batcher:RequestQueue.__init__": {
         "depth_gauge": "per-tier queue gauges come with the prefill/decode "
@@ -62,26 +61,15 @@ ALLOWED = {
                    "the reference's to the process-wide one; keyword-only "
                    "(kept until A7 ports the global registry)",
     },
-    "serving.client:ServingClient.generate": {
-        "tenant": "tenants (-> A6)",
-    },
     "serving.engine:InferenceEngine.__init__": {
         "compile_cache_dir": "no compile cache: PyTorch runs eagerly; CUDA "
                              "graphs of the step come with B2 item 4 (-> A6)",
-        "draft_model": "speculative decoding (-> A6)",
-        "draft_params": "speculative decoding (-> A6)",
         "device": _DEVICE + "; keyword-only",
         "registry": "the engine's own metrics registry, where the reference "
                     "publishes to the process-wide one; keyword-only "
                     "(kept until A7)",
     },
-    "serving.engine:InferenceEngine.submit": {
-        "tenant": "tenants (-> A6)",
-    },
     "serving.server:ModelServer.__init__": {
-        "engine": "default: a scorer-only server needs BatchScorer (-> A6)",
-        "scorer": "BatchScorer and /v1/score (-> A6); the reference's "
-                  "callers pass it by keyword",
         "registry": "default: the engine's registry, where the reference "
                     "serves the process-wide one (kept until A7)",
         "capture": "online capture (-> A8)",
@@ -110,9 +98,6 @@ ALLOWED = {
     },
     "models.transformer:TransformerLM.sample": {
         "key": _SEED, "seed": _SEED,
-        "kv_cache": "default True: the port has no kv_cache=False path "
-                    "until decode_window; both paths give the same tokens "
-                    "by the reference's own contract (-> A4)",
     },
     "models.transformer:init_params": {
         "key": _SEED, "gen": _SEED, "device": _GEN_DEVICE,
