@@ -75,7 +75,19 @@ entry points a user calls:
 13. one train step's loss and gradients through the kernels against the
    same through every plain version, on one state at batch 4 x 512, for
    both legs' configs, in bf16 and float32;
-14. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
+14. checkpoints, the trainer and hot reload (``run_checkpoints``) on leg
+   B's config at 8 x 512: a determinism probe (one step twice from one
+   state); ``DataParallelTrainer`` under ``TrainingSupervisor`` with a
+   ``CheckpointManager(keep=2)`` (full-width saves of params and both
+   Adam moments), 8 steps, a checkpoint every 2, a bit flipped in the
+   step-4 save, a failed step 5 and a failed batch 7, held to the
+   fault-free run (bitwise, or within ``TOL_CHAOS`` if the probe finds a
+   step not bitwise repeatable); ``InferenceEngine(checkpoint=dir)``
+   (engine A's config) behind ``ModelServer`` serving 8 greedy requests;
+   two more steps publishing step 10, and ``ServingClient.reload()`` while
+   8 requests decode: their stamps and tokens stay step 8's, and 8 later
+   requests carry step 10's and equal a fresh engine's on step 10;
+15. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
    0 just before it runs, read just after), then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -167,8 +179,9 @@ TOL_SCORE = 0.05
 #: the training kernels' wrappers, by the kernels line's names
 TRAIN_KERNELS = ("flash_attention", "fused_attention",
                  "fused_residual_layernorm", "blocked_cross_entropy")
-#: rows of the LN and xent calls in the two training legs (64 x 512, 8 x 2048)
-TRAIN_ROWS = (32768, 16384)
+#: rows of the LN and xent calls in the two training legs (64 x 512,
+#: 8 x 2048) and the checkpoint phase (8 x 512)
+TRAIN_ROWS = (32768, 16384, 4096)
 #: rows of the LN calls: the training legs' (the scorer's 32 x 512 is leg
 #: B's count) and the full-forward sampler's one row of 2048
 LN_ROWS = TRAIN_ROWS + (2048,)
@@ -541,14 +554,15 @@ def torch_isfinite(t) -> bool:
 
 #: (kernel, B, T, causal): the two training legs' shapes, each leg's own
 #: kernel first; the next two run a kernel at the other leg's shape; then
-#: the full-forward sampler (one row of 2048, causal) and the scorer's
-#: batch (32 rows of leg A's 512)
+#: the full-forward sampler (one row of 2048, causal), the scorer's batch
+#: (32 rows of leg A's 512) and the checkpoint phase's (8 x 512, causal)
 ATTN_CASES = (("flash_attention", 64, 512, False),
               ("fused_attention", 8, 2048, True),
               ("flash_attention", 8, 2048, True),
               ("fused_attention", 64, 512, False),
               ("fused_attention", 1, 2048, True),
-              ("flash_attention", 32, 512, False))
+              ("flash_attention", 32, 512, False),
+              ("fused_attention", 8, 512, True))
 
 
 def check_attention(torch, tat, dev, rates, cases, H=12, Dh=64):
@@ -1483,6 +1497,468 @@ def run_scorer(torch, ttr, serving, cfg, wrappers, rng, rows=32,
             "launches": counts}
 
 
+#: the checkpoint phase: the default causal config at 8 x 512, 8 steps under
+#: the supervisor (a checkpoint every 2, keep 2), then 2 more steps
+CKPT_BATCH, CKPT_SEQ, CKPT_STEPS, CKPT_MORE = 8, 512, 8, 2
+#: its three faults: a bit flipped in the step-4 save, a transient failure
+#: of step 5's dispatch, a data-pipeline failure at batch 7
+CKPT_FAULTS = (("checkpoint.write", 4, "bitflip"), ("train.step", 5, None),
+               ("data.next", 7, None))
+#: the chaos run against the fault-free run when the determinism probe
+#: finds that one step repeated from one state is not bitwise equal: the
+#: train step's bf16 tolerance (TOL_STEP_BF16) on every step's loss, and
+#: on the final parameters (max |diff| / max |value| over each leaf)
+TOL_CHAOS = TOL_STEP_BF16
+#: the reload phase's requests: prompt lengths and new tokens
+RELOAD_PROMPTS, RELOAD_NEW = (16, 32), 48
+
+
+def determinism_probe(torch, ttr, tat, tln, txe, make_trainer, params, batch,
+                      cfg, dev="cuda"):
+    """One train step three times from one state — twice with the host
+    waiting on each, once fed by ``prefetch_to_device`` (its copy stream
+    busy beside the step) and queued behind the second — loss, parameters
+    and optimizer state bitwise?  To name what differs: the loss's forward
+    and every gradient leaf twice, and the three training kernels'
+    forwards twice at this phase's shapes."""
+    from deeplearning4j_tpu_torch.datasets import prefetch_to_device
+    from deeplearning4j_tpu_torch.parallel import TrainState
+    from deeplearning4j_tpu_torch.parallel.checkpoint import _walk
+    from deeplearning4j_tpu_torch.parallel.trainer import make_key
+    from deeplearning4j_tpu_torch.utils.tree_math import (tree_leaves,
+                                                          tree_unflatten)
+
+    trainer = make_trainer()
+    base = trainer.init_state(params, key=0)
+    runs, lazies = [], []
+    feeds = [batch, batch, next(iter(prefetch_to_device([batch], device=dev)))]
+    for i, b in enumerate(feeds):
+        st = TrainState(base.params, base.tstate, 0, make_key(0))
+        st, lazy = trainer.step(st, *b)
+        lazies.append(lazy)
+        runs.append((tree_leaves(st.params), tree_leaves(st.tstate)))
+        if i < 1:
+            lazy.value()
+    losses_3 = [float(lz) for lz in lazies]
+    names = [k for k, _ in _walk(params)]
+    diff_steps = sorted({n for r in runs[1:] for n, a, b in zip(
+        names + [f"tstate{i}" for i in range(len(runs[0][1]))],
+        runs[0][0] + runs[0][1], r[0] + r[1]) if not torch.equal(a, b)})
+    step_bitwise = len(set(losses_3)) == 1 and not diff_steps
+    l0, l1 = losses_3[:2]
+    del runs
+    x, y = (torch.as_tensor(a, device=dev) for a in batch)
+    grads, losses = [], []
+    for _ in range(2):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss = ttr.lm_loss_local(tree_unflatten(params, leaves), x, y, cfg)
+        grads.append(torch.autograd.grad(loss, leaves))
+        losses.append(loss.item())
+    differing = [n for n, a, b in zip(names, *grads) if not torch.equal(a, b)]
+    del grads
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B, T, D = batch[0].shape[0], batch[0].shape[1], cfg.d_model
+    H, Dh, N = cfg.n_heads, cfg.head_dim, B * T
+    qkv = torch.randn((B, T, 3, H, Dh), generator=gen, device=dev).to(
+        cfg.dtype)
+    xr = [torch.randn((N, D), generator=gen, device=dev).to(cfg.dtype)
+          for _ in range(2)]
+    m = torch.ones((N, 1), device=dev)
+    s, b = torch.ones((D,), device=dev), torch.zeros((D,), device=dev)
+    head = params["tok_embed"].to(cfg.dtype).T
+    tg = torch.as_tensor(batch[1], device=dev).reshape(-1).to(torch.int32)
+    w = torch.ones((N,), device=dev)
+    calls = {
+        "fused_attention": lambda: tat.attention_fwd(
+            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=True,
+            frontier=True),
+        "fused_residual_layernorm": lambda: tln.residual_layernorm_fwd(
+            xr[0], xr[1], m, s, b),
+        "blocked_cross_entropy": lambda: txe.xent_fwd(xr[0], head, tg, w),
+    }
+    kernels = {}
+    for name, fn in calls.items():
+        a, b2 = fn(), fn()
+        kernels[name] = all(torch.equal(u, v) for u, v in zip(a, b2))
+    out = {"step_bitwise": step_bitwise, "step_losses": losses_3,
+           "step_leaves_differing": diff_steps,
+           "loss_forward_bitwise": losses[0] == losses[1],
+           "grad_leaves_differing": differing,
+           "kernel_forward_bitwise": kernels}
+    print(f"determinism probe: one step three times from one state "
+          f"bitwise={step_bitwise} (losses {losses_3}, leaves differing "
+          f"{diff_steps[:6]}); loss forward bitwise="
+          f"{out['loss_forward_bitwise']}; gradient leaves differing: "
+          f"{len(differing)} of {len(names)} {differing[:6]}; kernel "
+          f"forwards bitwise: {kernels}", flush=True)
+    return out
+
+
+def _serve_wave(client, prompts, new, pool):
+    """Greedy requests over HTTP, concurrently; the answers in order."""
+    futs = [pool.submit(client.generate, p, max_new_tokens=new)
+            for p in prompts]
+    return [f.result(timeout=900) for f in futs]
+
+
+def _engine_deltas(engine, before):
+    """Prefill tokens and decode dispatches since the ``before`` snapshot
+    of the engine's registry."""
+    now = engine.metrics.snapshot()["counters"]
+    return {k: int(now.get(k, 0) - before.get(k, 0)) for k in (
+        "serving.decode.dispatches", "serving.admitted", "serving.tokens")}
+
+
+def run_checkpoints(torch, ttr, TT, tmm, tat, tln, txe, eng, wrappers, rng,
+                    dev="cuda", cfg=None, batch=CKPT_BATCH, seq=CKPT_SEQ,
+                    expect_launches=True):
+    """Checkpoints, the supervised trainer and hot reload on ``cfg`` (the
+    default causal config with ``attention="fused", fused_ln=True`` and
+    blocked xent by default), in a temporary directory removed at the end:
+
+    1. the determinism probe; a fault-free run of ``CKPT_STEPS`` steps at
+       ``batch`` x ``seq`` (p50 step time); the same run under
+       ``TrainingSupervisor`` with a ``CheckpointManager(keep=2)``, a
+       checkpoint every 2 steps and the three ``CKPT_FAULTS``, held to the
+       fault-free run bitwise (or within ``TOL_CHAOS``, as the probe
+       decides); its retries, corruption detected, goodput, save and
+       restore seconds, and the launches of kernels #2-#4;
+    2. an ``InferenceEngine(checkpoint=dir)`` (8 slots, paged, int8
+       decode, the paged kernel) behind ``ModelServer``, restoring the
+       newest valid step, serving 8 greedy requests over HTTP;
+    3. two more steps publishing step 10; 8 more requests, and while they
+       decode, ``ServingClient.reload()``; 8 requests after it.  The
+       in-flight ones must carry generation 0 / step 8 and equal the first
+       wave's tokens, the later ones generation 1 / step 10 and equal a
+       fresh engine's on step 10 (or, failing that, agree teacher-forced
+       with step 10's serving tree: top-1 >= TOL_TOP1_BF16)."""
+    import concurrent.futures as cf
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import observability as tobs
+    from deeplearning4j_tpu_torch.parallel import (CheckpointManager,
+                                                   DataParallelTrainer)
+    from deeplearning4j_tpu_torch.parallel.checkpoint import _walk
+    from deeplearning4j_tpu_torch.resilience import (FaultSpec, RetryPolicy,
+                                                     TrainingSupervisor,
+                                                     inject_faults)
+    from deeplearning4j_tpu_torch.serving import ModelServer, ServingClient
+    from deeplearning4j_tpu_torch.utils.tree_math import tree_leaves
+
+    cfg = cfg or ttr.TransformerConfig(attention="fused", fused_ln=True,
+                                       xent_impl="blocked")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt-"))
+    old_dump = tobs.FLIGHTREC.dump_dir
+    tobs.FLIGHTREC.dump_dir = work / "flightrec"
+    pool = cf.ThreadPoolExecutor(max_workers=8)
+    try:
+        model = ttr.TransformerLM(cfg, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        data = []
+        for _ in range(CKPT_STEPS + CKPT_MORE):
+            toks = rng.integers(0, cfg.vocab_size, (batch, seq))
+            data.append((toks, np.roll(toks, -1, axis=1)))
+
+        def make_trainer():
+            return DataParallelTrainer(
+                lambda p, x, y, g: ttr.lm_loss_local(p, x, y, cfg),
+                TT.adamw(TT.warmup_cosine(1e-3, 2, 1000), weight_decay=0.01),
+                device=dev)
+
+        probe = determinism_probe(torch, ttr, tat, tln, txe, make_trainer,
+                                  params, data[0], cfg, dev)
+        bitwise = probe["step_bitwise"]
+
+        # ---- fault-free run: one resolve a step, for the step times
+        tobs.METRICS.reset()
+        ref_tr = make_trainer()
+        ref, ref_losses = ref_tr.fit(ref_tr.init_state(params, key=0),
+                                     data[:CKPT_STEPS], async_dispatch=False)
+        step_p50 = tobs.METRICS.snapshot()["timers"]["train_step.execute"][
+            "p50_s"]
+        if not all(math.isfinite(v) for v in ref_losses) or abs(
+                ref_losses[0] - math.log(cfg.vocab_size)) > 0.5:
+            fail(f"checkpoint phase: fault-free losses {ref_losses}")
+        # ---- the hot loop: dispatches between fences read nothing back
+        # (device batches from prefetch_to_device; the ring read after)
+        hot = ref_tr.init_state(params, key=0)
+        from deeplearning4j_tpu_torch.datasets import prefetch_to_device
+        batches = list(prefetch_to_device(data[:3], device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for x, y in batches:
+                hot, _ = ref_tr.step(hot, x, y)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        hot_losses = ref_tr._resolve_pending()
+        if not all(abs(a - b) <= (0 if bitwise else TOL_CHAOS[0] * abs(b))
+                   for a, b in zip(hot_losses, ref_losses[:3])):
+            fail(f"hot loop under sync-debug mode: losses {hot_losses}, the "
+                 f"fault-free run's {ref_losses[:3]}")
+        print("hot loop: 3 train steps dispatched under torch.cuda."
+              "set_sync_debug_mode('error'), no host sync; losses "
+              f"{hot_losses} (fault-free run: {ref_losses[:3]})", flush=True)
+        del ref_tr, hot, batches
+
+        # ---- the supervised chaos run
+        tobs.METRICS.reset()
+        mgr = CheckpointManager(work / "ckpt", keep=2)
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        faults = [FaultSpec(site, at_step=at, **({"kind": k} if k else {}))
+                  for site, at, k in CKPT_FAULTS]
+        with inject_faults(*faults, seed=11):
+            sup = TrainingSupervisor(mgr, RetryPolicy(max_attempts=4,
+                                                      backoff_base_s=0.01))
+            state, losses = sup.fit(make_trainer(), params,
+                                    data[:CKPT_STEPS], checkpoint_every=2,
+                                    key=0)
+        chaos_s = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        snap = tobs.METRICS.snapshot()
+        counters, timers = snap["counters"], snap["timers"]
+        dispatched = int(counters["train_step.iterations"])
+        if state.step != CKPT_STEPS or mgr.latest_valid_step() != CKPT_STEPS:
+            fail(f"chaos run ended at step {state.step}, newest valid "
+                 f"checkpoint {mgr.latest_valid_step()}")
+        want_losses = ref_losses[-len(losses):]
+        pairs = list(zip(tree_leaves(state.params) + tree_leaves(state.tstate),
+                         tree_leaves(ref.params) + tree_leaves(ref.tstate)))
+        if bitwise:
+            same = losses == want_losses and all(torch.equal(a, b)
+                                                 for a, b in pairs)
+            if not same:
+                names = [k for k, _ in _walk(state.params)]
+                differ = [n for n, (a, b) in zip(
+                    names + ["tstate"] * len(pairs), pairs)
+                    if not torch.equal(a, b)]
+                fail(f"chaos run is not bitwise equal to the fault-free run, "
+                     f"though one step repeated from one state is: losses "
+                     f"{losses} vs {want_losses}, leaves differing {differ}")
+            loss_err = param_err = 0.0
+        else:
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(losses, want_losses))
+            param_err = max(((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp_min(1e-30)).item()
+                            for a, b in pairs[:len(tree_leaves(ref.params))])
+            if not (loss_err <= TOL_CHAOS[0] and param_err <= TOL_CHAOS[1]):
+                fail(f"chaos run vs fault-free: loss rel err {loss_err} (tol "
+                     f"{TOL_CHAOS[0]}), param rel err {param_err} (tol "
+                     f"{TOL_CHAOS[1]})")
+        del pairs, ref
+        gp = sup.report.goodput
+        if not (abs(gp["accounted_seconds"] - gp["wall_seconds"]) <= 1e-9
+                and counters.get("checkpoint.corrupt_detected", 0) >= 1
+                and sup.report.retries >= 1):
+            fail(f"chaos run: goodput {gp}, counters {counters}, report "
+                 f"{sup.report}")
+        per_step = cfg.n_layers * (2 if cfg.remat else 1)
+        expected = {name: 0 for name in launches}
+        expected.update({"fused_attention": per_step * dispatched,
+                         "fused_residual_layernorm": per_step * dispatched,
+                         "blocked_cross_entropy": dispatched})
+        if expect_launches and launches != expected:
+            fail(f"chaos run: launches {launches}, the config implies "
+                 f"{expected}")
+        save, restore = timers["checkpoint.save"], timers["checkpoint.restore"]
+        ckpt_bytes = sum(p.stat().st_size for p in
+                         (work / "ckpt" / f"ckpt_{CKPT_STEPS:010d}").iterdir())
+        train = {
+            "batch": batch, "seq": seq, "causal": cfg.causal,
+            "steps": CKPT_STEPS, "dispatched": dispatched,
+            "determinism": probe, "held": "bitwise" if bitwise else
+            f"tolerance {TOL_CHAOS}", "loss_rel_err": loss_err,
+            "param_rel_err": param_err, "losses": losses,
+            "fault_free_losses": ref_losses, "p50_step_s": step_p50,
+            "chaos_wall_s": chaos_s, "retries": sup.report.retries,
+            "resumed_from": sup.report.resumed_from,
+            "corrupt_detected": counters.get("checkpoint.corrupt_detected"),
+            "goodput": {k: gp[k] for k in ("wall_seconds",
+                                           "accounted_seconds", "fraction",
+                                           "seconds", "states")},
+            "checkpoint_bytes": ckpt_bytes, "saves": save["count"],
+            "save_s_mean": save["mean_s"], "restores": restore["count"],
+            "restore_s_mean": restore["mean_s"],
+            "verifications": counters.get("checkpoint.verifications"),
+            "launches": launches}
+        print(f"checkpoints: supervised {CKPT_STEPS} steps at {batch}x{seq} "
+              f"with {len(CKPT_FAULTS)} faults in {chaos_s:.2f} s "
+              f"({dispatched} steps dispatched), held {train['held']} "
+              f"(loss rel err {loss_err:.3g}, param rel err {param_err:.3g}); "
+              f"retries={sup.report.retries} resumed_from="
+              f"{sup.report.resumed_from} checkpoint.corrupt_detected="
+              f"{train['corrupt_detected']}; p50 step {step_p50 * 1e3:.2f} ms; "
+              f"{save['count']} saves of {ckpt_bytes / 1e9:.3f} GB, mean "
+              f"{save['mean_s']:.3f} s; {restore['count']} restores, mean "
+              f"{restore['mean_s']:.3f} s; goodput fraction "
+              f"{gp['fraction']:.4f}, accounted {gp['accounted_seconds']:.6f}"
+              f" s == wall {gp['wall_seconds']:.6f} s, seconds "
+              f"{ {k: round(v, 3) for k, v in gp['seconds'].items()} }; "
+              f"launches={launches}", flush=True)
+
+        # ---- serve from the checkpoint
+        scfg = eng.ServingConfig(slots=8, paged=True, page_size=16,
+                                 int8_decode=True,
+                                 paged_attention_impl="pallas")
+        t0 = time.perf_counter()
+        engine = eng.InferenceEngine(model, checkpoint=str(work / "ckpt"),
+                                     cfg=scfg, device=dev)
+        open_s = time.perf_counter() - t0
+        if engine.stats()["loaded_step"] != CKPT_STEPS:
+            fail(f"engine restored step {engine.stats()['loaded_step']}")
+        prompts = make_prompts(rng, 8, cfg.vocab_size, RELOAD_PROMPTS)
+        engine.start()
+        server = ModelServer(engine, request_timeout_s=900).start()
+        client = ServingClient(port=server.port, timeout_s=900)
+        try:
+            before = dict(engine.metrics.snapshot()["counters"])
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            wave0 = _serve_wave(client, prompts, RELOAD_NEW, pool)
+            serve_s = time.perf_counter() - t0
+            serve_launches = {w.__name__: w.launches for w in wrappers}
+            d0 = _engine_deltas(engine, before)
+            stamps0 = {(a["generation"], a["loaded_step"]) for a in wave0}
+            if stamps0 != {(0, CKPT_STEPS)} or any(
+                    len(a["tokens"]) != RELOAD_NEW for a in wave0):
+                fail(f"served from the checkpoint: stamps {stamps0}")
+
+            # ---- two more steps publish step 10, then the hot reload
+            reset_counts(wrappers)
+            tobs.METRICS.reset()
+            more_tr = make_trainer()
+            state, more_losses = more_tr.fit(state, data,
+                                             checkpoint_manager=mgr,
+                                             checkpoint_every=2, resume=False)
+            more_launches = {w.__name__: w.launches for w in wrappers}
+            final = CKPT_STEPS + CKPT_MORE
+            if state.step != final or mgr.latest_valid_step() != final:
+                fail(f"two more steps ended at {state.step}, newest valid "
+                     f"{mgr.latest_valid_step()}")
+            more_snap = tobs.METRICS.snapshot()
+            before = dict(engine.metrics.snapshot()["counters"])
+            admitted0 = engine.stats()["admitted"]
+            reset_counts(wrappers)
+            futs = [pool.submit(client.generate, p, max_new_tokens=RELOAD_NEW)
+                    for p in prompts]
+            deadline = time.monotonic() + 300
+            while engine.stats()["admitted"] < admitted0 + len(prompts):
+                if time.monotonic() > deadline:
+                    fail("the reload wave was not admitted")
+                time.sleep(0.002)
+            t0 = time.perf_counter()
+            got_step = client.reload()
+            reload_s = time.perf_counter() - t0
+            staged = engine.stats()["reload_staged"]
+            wave2 = _serve_wave(client, prompts, RELOAD_NEW, pool)
+            wave1 = [f.result(timeout=900) for f in futs]
+            reload_launches = {w.__name__: w.launches for w in wrappers}
+            d1 = _engine_deltas(engine, before)
+            stats = engine.stats()
+        finally:
+            server.stop()
+            engine.stop()
+        s1 = {(a["generation"], a["loaded_step"]) for a in wave1}
+        s2 = {(a["generation"], a["loaded_step"]) for a in wave2}
+        if got_step != final or s1 != {(0, CKPT_STEPS)} or \
+                s2 != {(1, final)} or stats["generation"] != 1:
+            fail(f"reload: step {got_step}, in-flight stamps {s1}, later "
+                 f"stamps {s2}, engine {stats}")
+        old_equal = [a["tokens"] for a in wave1] == [a["tokens"]
+                                                     for a in wave0]
+        if not old_equal:
+            fail("in-flight completions under step 8 differ from the first "
+                 "wave's tokens on the same step")
+        fresh = eng.InferenceEngine(model, checkpoint=str(work / "ckpt"),
+                                    cfg=scfg, device=dev)
+        with fresh:
+            hs = [fresh.submit(p, RELOAD_NEW) for p in prompts]
+            fresh_tokens = [h.result(timeout=900).tokens for h in hs]
+        new_tokens = [a["tokens"] for a in wave2]
+        new_equal = new_tokens == fresh_tokens
+        agreement = token_agreement(new_tokens, fresh_tokens)
+        tf_top1 = None
+        if not new_equal:
+            tf_top1 = teacher_forced_served(torch, ttr, tmm, cfg, fresh,
+                                            prompts, new_tokens, dev)
+            if tf_top1 < TOL_TOP1_BF16:
+                fail(f"reloaded tokens vs a fresh engine on step {final}: "
+                     f"{agreement}, teacher-forced top-1 {tf_top1}")
+        del fresh
+        for label, ln in (("serving", serve_launches),
+                          ("reload", reload_launches)):
+            if expect_launches and (ln["int8_matmul"] <= 0
+                                    or ln["paged_attention"] <= 0):
+                fail(f"{label} from the checkpoint did not run through its "
+                     f"kernels: {ln}")
+        changed = token_agreement(new_tokens, [a["tokens"] for a in wave0])
+        serve = {"int8_rows": {1: sum(len(p) - 1 for p in prompts),
+                               scfg.slots: d0["serving.decode.dispatches"]},
+                 "paged_steps": d0["serving.decode.dispatches"],
+                 "launches": serve_launches, "open_s": open_s,
+                 "wall_s": serve_s, "tokens_per_s": d0["serving.tokens"]
+                 / serve_s}
+        reload = {"int8_rows": {1: 2 * sum(len(p) - 1 for p in prompts),
+                                scfg.slots: d1["serving.decode.dispatches"]},
+                  "paged_steps": d1["serving.decode.dispatches"],
+                  "launches": reload_launches, "reload_s": reload_s,
+                  "staged": staged, "in_flight_equal_first_wave": old_equal,
+                  "after_equal_fresh_engine": new_equal,
+                  "after_vs_fresh": agreement, "teacher_forced_top1": tf_top1,
+                  "step10_vs_step8_tokens": changed,
+                  "engine_stats": stats}
+        more = {"batch": batch, "seq": seq, "causal": cfg.causal,
+                "losses": more_losses, "launches": more_launches,
+                "saves": more_snap["timers"]["checkpoint.save"]["count"]}
+        print(f"serve from checkpoint: engine opened step {CKPT_STEPS} in "
+              f"{open_s:.2f} s, 8 requests over HTTP in {serve_s:.2f} s, "
+              f"launches={serve_launches}", flush=True)
+        print(f"hot reload: 2 more steps published step {final} (losses "
+              f"{[round(v, 5) for v in more_losses]}); /v1/reload -> "
+              f"{got_step} in {reload_s:.3f} s with 8 requests in flight "
+              f"(staged until they finished: {staged}); in-flight stamps "
+              f"{sorted(s1)} tokens equal the first wave: {old_equal}; later "
+              f"stamps {sorted(s2)} tokens equal a fresh engine on step "
+              f"{final}: {new_equal} {agreement}; step {final} vs step "
+              f"{CKPT_STEPS} tokens: {changed}; launches={reload_launches}",
+              flush=True)
+        leg = {"batch": batch, "seq": seq, "causal": cfg.causal,
+               "launches": {k: launches[k] + more_launches[k]
+                            for k in launches}}
+        return {"train": train, "serve": serve, "more": more,
+                "reload": reload, "leg": leg}
+    finally:
+        pool.shutdown(wait=True)
+        tobs.FLIGHTREC.dump_dir = old_dump
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def teacher_forced_served(torch, ttr, tmm, cfg, engine, prompts, served, dev):
+    """Top-1 agreement of ``served`` continuations with the greedy picks of
+    ``engine``'s serving tree fed the same tokens (one row at a time
+    through ``decode_step``)."""
+    with engine._lock:
+        sp = engine._params
+    agree = total = 0
+    with torch.no_grad():
+        for prompt, toks in zip(prompts, served):
+            seq = list(prompt) + list(toks)
+            cache = ttr.init_decode_cache(cfg, 1, dev)
+            for i in range(len(seq) - 1):
+                logits, _ = ttr.decode_step(sp, cache, torch.tensor(
+                    [seq[i]], device=dev), i, cfg)
+                if i + 1 >= len(prompt):
+                    agree += int(int(logits[0].argmax()) == seq[i + 1])
+                    total += 1
+    return agree / total
+
+
 def print_ptxas(usage) -> None:
     """Registers, spills and static shared memory of the bf16 kernels,
     from the builds' ``ptxas -v`` reports (every kernel's are in the
@@ -1705,13 +2181,19 @@ def main() -> int:
                                    "train A")
     step_b = step_kernels_vs_plain(torch, ttr, tat, tln, txe, cfg_b,
                                    "train B")
+    torch.cuda.empty_cache()
+
+    # ---- 8b. checkpoints, the supervised trainer under faults, serving
+    # from the checkpoint and hot reload (default causal config, 8 x 512)
+    ckpt = run_checkpoints(torch, ttr, TT, tmm, tat, tln, txe, eng, wrappers,
+                           rng)
 
     # ---- 9. one line per kernel: its numbers weighted by this run's
     # launches at each main-path shape, and every shape measured
     kernels = kernel_rows(
         cases, [rep_a, rep_b, rep_s, prefix["float"]["cache"],
-                prefix["int8"]["cache"], beam],
-        [leg_a, leg_b, sample["bfloat16"], scorer], mcfg, rates)
+                prefix["int8"]["cache"], beam, ckpt["serve"], ckpt["reload"]],
+        [leg_a, leg_b, sample["bfloat16"], scorer, ckpt["leg"]], mcfg, rates)
     if args.report:
         path = Path(args.report)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -1724,6 +2206,7 @@ def main() -> int:
             "prefix": prefix, "beam": beam, "sample": sample,
             "scorer": scorer, "train_a": leg_a, "train_b": leg_b,
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},
+            "checkpoints": ckpt,
             "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -803,8 +803,8 @@ def sample_token(logits: torch.Tensor, temperature: float,
 class TransformerLM:
     """The flagship LM on one device: training steps and decoding.
 
-    ``mesh`` must be None: the sharded train step, ZeRO-1 and the
-    checkpointed ``fit`` come with the multi-device and trainer ports."""
+    ``mesh`` must be None: the sharded train step and ZeRO-1 come with the
+    multi-device port (``ROADMAP.md`` A10)."""
 
     def __init__(self, cfg: TransformerConfig, mesh=None, *, device=None):
         if mesh is not None:
@@ -914,42 +914,51 @@ class TransformerLM:
         return self._build_step(tx, loss_of)
 
     def fit(self, params, opt, batches, *, tx=None, lr: float = 1e-3,
-            epochs: int = 1, finetune: bool = False, checkpoint_manager=None):
-        """Training loop over ``batches`` (a list of ``(tokens, targets |
-        labels)`` pairs of numpy arrays or tensors) to ``epochs *
-        len(batches)`` total steps counted by the optimizer's step count,
-        so a carried-over ``opt`` continues where it left off.  The next
-        batch is copied to the device (from pinned memory, with
-        ``non_blocking=True``) before the current step runs.  Returns
-        ``(params, opt, losses)`` with the losses as floats, read once at
-        the end.  ``checkpoint_manager`` raises until the checkpoint
-        port."""
-        if checkpoint_manager is not None:
-            raise NotImplementedError("checkpointed fit comes with the "
-                                      "checkpoint port")
+            epochs: int = 1, finetune: bool = False,
+            checkpoint_manager=None, checkpoint_every: int = 0,
+            resume: bool = True):
+        """Training loop with auto-checkpoint/resume over ``batches`` (a
+        list of ``(tokens, targets | labels)`` pairs of numpy arrays or
+        tensors) to ``epochs * len(batches)`` total steps counted by the
+        optimizer's step count, so a restored state continues where it left
+        off.  With ``checkpoint_manager`` (``parallel.CheckpointManager``)
+        and ``resume``, the newest valid checkpoint is restored first; a
+        save (params, the whole ``opt``, the cursor) follows every
+        ``checkpoint_every`` steps and the end (once, where the two meet;
+        the reference writes that step twice).  Batches reach the device
+        through ``datasets.prefetch_to_device`` (pinned memory, a copy
+        stream).  Returns ``(params, opt, losses)`` with the losses as
+        floats, read once at the end."""
+        from ..datasets.iterator import prefetch_to_device
+
         tx = tx if tx is not None else self._default_tx(lr)
         step_fn = (self.build_finetune_step(tx) if finetune
                    else self.build_train_step(tx))
-        start, total = int(opt[0]), epochs * len(batches)
-        pin = self.device.type == "cuda"
+        if (checkpoint_manager is not None and resume
+                and checkpoint_manager.latest_step() is not None):
+            r = checkpoint_manager.restore(params, tstate_template=opt)
+            params, opt = r["params"], r["tstate"]
 
-        def stage(k):
-            out = []
-            for a in batches[k % len(batches)]:
-                t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
-                if pin and t.device.type == "cpu":
-                    t = t.pin_memory()
-                out.append(t.to(self.device, non_blocking=True))
-            return out
+        def save():
+            checkpoint_manager.save(int(opt[0]), params, tstate=opt,
+                                    data_cursor=int(opt[0]))
 
         losses = []
-        nxt = stage(start) if start < total else None
-        for k in range(start, total):
-            a, b = nxt
-            nxt = stage(k + 1) if k + 1 < total else None
+        start, total = int(opt[0]), epochs * len(batches)
+        feed = (tuple(batches[k % len(batches)]) for k in range(start, total))
+        saved = None
+        for a, b in prefetch_to_device(feed, size=2, device=self.device):
             params, opt, loss = step_fn(params, opt, a, b)
-            losses.append(loss)
-        return params, opt, [float(x) for x in losses]
+            losses.append(loss)   # stays on the device; read once below
+            if (checkpoint_manager is not None and checkpoint_every > 0
+                    and int(opt[0]) % checkpoint_every == 0):
+                save()
+                saved = int(opt[0])
+        losses = [float(x) for x in losses]
+        if checkpoint_manager is not None and losses \
+                and saved != int(opt[0]):
+            save()
+        return params, opt, losses
 
     def sample(self, params, prime, length: int, temperature: float = 1.0,
                seed: int = 0, kv_cache: bool = False) -> list:

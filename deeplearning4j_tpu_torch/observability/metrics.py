@@ -1,27 +1,37 @@
 """Metrics: counters, gauges and bucketed timing histograms.
 
-Port of the part of ``deeplearning4j_tpu/observability/metrics.py`` that
-the serving engine and server publish to: every timer is a ``Histogram``
-with Prometheus-style cumulative buckets plus a bounded window of raw
-values for percentile snapshots (p50/p95/p99), and the registry renders
-to a JSON ``snapshot`` and to Prometheus text (``to_prometheus``).  All
-mutation goes through the registry lock.
+Port of ``deeplearning4j_tpu/observability/metrics.py``: every timer is a
+``Histogram`` with Prometheus-style cumulative buckets plus a bounded
+window of raw values for percentile snapshots (p50/p95/p99), and a
+registry renders to a JSON ``snapshot`` and to Prometheus text
+(``to_prometheus``).  All mutation goes through the registry lock, and
+every mutator returns before taking it while observability is disabled
+(``core.disable()``).
+
+:data:`METRICS` is the process-wide registry the trainer, the checkpoint
+manager, the supervisor and the fault injector publish to.  The serving
+engine still publishes to a registry of its own (``ROADMAP.md`` A7).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import defaultdict, deque
 from typing import Any, Iterable
+
+from . import core
 
 #: default buckets for timings in seconds: 0.5 ms .. 60 s
 DEFAULT_TIME_BUCKETS: tuple[float, ...] = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
 
-#: raw values kept per histogram for percentiles (the most recent ones)
-WINDOW = 4096
+#: raw values kept per histogram for percentiles (the most recent ones);
+#: ``DL4J_TPU_HIST_WINDOW`` sets it for long runs
+ENV_HIST_WINDOW = "DL4J_TPU_HIST_WINDOW"
+WINDOW = max(16, int(os.environ.get(ENV_HIST_WINDOW, "4096") or "4096"))
 
 
 def _percentile(sorted_vals: list[float], q: float) -> float:
@@ -41,12 +51,12 @@ class Histogram:
                  "dropped")
 
     def __init__(self, buckets: Iterable[float] = DEFAULT_TIME_BUCKETS,
-                 window: int = WINDOW):
+                 window: int | None = None):
         self.buckets = tuple(sorted(buckets))
         self.bucket_counts = [0] * len(self.buckets)
         self.count = 0
         self.total = 0.0
-        self.values: deque[float] = deque(maxlen=window)
+        self.values: deque[float] = deque(maxlen=window or WINDOW)
         self.dropped = 0  # raw values evicted from the percentile window
 
     def observe(self, value: float) -> None:
@@ -121,14 +131,36 @@ class MetricsRegistry:
         self.counters: dict[str, float] = defaultdict(float)
         self.gauges: dict[str, float] = {}
         self.timers: dict[str, Histogram] = {}
+        # fn(kind, name, value) after each counter/gauge mutation, outside
+        # the registry lock (the flight recorder takes its own); timing
+        # observations are not forwarded
+        self._listeners: list = []
+
+    def add_listener(self, fn) -> None:
+        self._listeners.append(fn)
+
+    def _notify(self, kind: str, name: str, value: float) -> None:
+        for fn in self._listeners:
+            try:
+                fn(kind, name, value)
+            except Exception:
+                pass
 
     def increment(self, name: str, by: float = 1.0) -> None:
+        if not core.enabled():
+            return
         with self._lock:
             self.counters[name] += by
+        if self._listeners:
+            self._notify("counter", name, by)
 
     def gauge(self, name: str, value: float) -> None:
+        if not core.enabled():
+            return
         with self._lock:
             self.gauges[name] = value
+        if self._listeners:
+            self._notify("gauge", name, value)
 
     def observe_time(self, name: str, seconds: float,
                      buckets: Iterable[float] | None = None) -> None:
@@ -138,6 +170,8 @@ class MetricsRegistry:
     def observe_many(self, name: str, values: Iterable[float],
                      buckets: Iterable[float] | None = None) -> None:
         """Record a batch of observations under one lock acquisition."""
+        if not core.enabled():
+            return
         with self._lock:
             h = self.timers.get(name)
             if h is None:
@@ -145,8 +179,10 @@ class MetricsRegistry:
             for v in values:
                 h.observe(v)
 
-    def time(self, name: str) -> _Timer:
+    def time(self, name: str):
         """Context manager timing its body into the ``name`` histogram."""
+        if not core.enabled():
+            return core.NOOP_SPAN
         return _Timer(self, name)
 
     def reset(self) -> None:
@@ -200,3 +236,30 @@ class MetricsRegistry:
                 lines.append(f"{pn}_sum {_prom_float(h.total)}")
                 lines.append(f"{pn}_count {h.count}")
         return "\n".join(lines) + "\n"
+
+
+METRICS = MetricsRegistry()
+
+
+class StepTimer:
+    """Iteration listener recording each iteration's wall time (through
+    the locked ``observe_time``) and the model's score, if it has one."""
+
+    def __init__(self, registry: MetricsRegistry = METRICS,
+                 name: str = "train_step"):
+        self.registry = registry
+        self.name = name
+        self._last = None
+
+    def iteration_done(self, model, iteration: int) -> None:
+        now = time.perf_counter()
+        if self._last is not None:
+            self.registry.observe_time(self.name, now - self._last)
+        self._last = now
+        self.registry.increment(f"{self.name}.iterations")
+        if hasattr(model, "score"):
+            try:
+                self.registry.gauge(f"{self.name}.score",
+                                    float(model.score()))
+            except Exception:
+                pass

@@ -14,7 +14,9 @@ writes only the per-token ``w * (lse - gold)`` and ``lse``.
   ``blocked_cross_entropy.launches``) and whose backward is the JAX
   package's ``_blocked_bwd`` in torch ops: a loop over token tiles that
   recomputes each tile's logits from the saved lse, with the gold-column
-  term added to dhead through ``index_add_``; targets get no gradient.
+  term added to dhead through an accumulating ``index_put_`` (repeated
+  targets summed in token order, so the step repeats bitwise on the GPU);
+  targets get no gradient.
   Any N and V work: the kernel masks the ragged edges itself.  The bf16
   kernel reads h and head through TMA maps, whose row strides are
   multiples of 16 bytes: the tied head ``tok_embed.T`` (a K-major view)
@@ -153,7 +155,12 @@ def _blocked_bwd(h2, head, t2, w2, lse, gct, block_t: int):
     """Gradients of ``sum(w * (lse - gold))``: a loop over token tiles,
     each recomputing its (tile, V) logits from the saved lse."""
     head32 = head.float()
-    dhead = torch.zeros(head.shape, dtype=torch.float32, device=head.device)
+    # dhead accumulates transposed, (V, D): the gold term is then a
+    # row-wise index_put_ with accumulate, which sums repeated targets in
+    # token order on the GPU too (index_add_ there adds by atomics, in an
+    # order that changes from run to run)
+    dhead_t = torch.zeros(head.shape[::-1], dtype=torch.float32,
+                          device=head.device)
     dh = torch.empty_like(h2)
     dw = torch.empty_like(w2)
     for i in range(0, h2.shape[0], block_t):
@@ -167,11 +174,11 @@ def _blocked_bwd(h2, head, t2, w2, lse, gct, block_t: int):
         gwp = gw * p
         dh[i:i + block_t] = (gwp @ head32.T - gw * head32.T[t_t]).to(h2.dtype)
         h32 = h_t.float()
-        dhead += h32.T @ gwp
-        dhead.index_add_(1, t_t, -(gw * h32).T)
+        dhead_t += gwp.T @ h32
+        dhead_t.index_put_((t_t,), -(gw * h32), accumulate=True)
         gold = logits.gather(1, t_t[:, None])[:, 0]
         dw[i:i + block_t] = gct * (lse_t - gold)
-    return dh, dhead.to(head.dtype), dw
+    return dh, dhead_t.T.to(head.dtype), dw
 
 
 class _BlockedXent(torch.autograd.Function):

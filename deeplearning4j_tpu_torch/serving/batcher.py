@@ -100,12 +100,19 @@ class ScoreRequest:
 
 @dataclasses.dataclass
 class Completion:
-    """Terminal result of a generation request."""
+    """Terminal result of a generation request.
+
+    ``generation``/``loaded_step`` stamp the weight generation EVERY token
+    of this completion was decoded under: the engine defers hot swaps to
+    fences with no request in flight, so one response never mixes
+    generations."""
 
     tokens: list[int]
     finish_reason: str              # "eos" | "length"
     latency_s: float = 0.0
     ttft_s: float | None = None     # fence-granular time to first token
+    generation: int = 0             # weight generation (one per swap)
+    loaded_step: int | None = None  # checkpoint step of that generation
 
 
 class PendingResult:

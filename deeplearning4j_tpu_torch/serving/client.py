@@ -88,6 +88,12 @@ class ServingClient:
         return self._json("/v1/score", {"inputs": [list(map(float, r))
                                                    for r in inputs]})["outputs"]
 
+    def reload(self, step: int | None = None) -> int:
+        """Hot swap the served weights (``/v1/reload``); returns the target
+        step.  409 (a :class:`ServingError`) when nothing verifies."""
+        body = {} if step is None else {"step": step}
+        return self._json("/v1/reload", body)["step"]
+
     def healthz(self, timeout_s: float | None = None) -> dict:
         return self._json("/healthz", timeout_s=timeout_s)
 

@@ -36,11 +36,19 @@ Also here: the prefix cache (``prefix_cache=True``: a shared prompt
 prefix is admitted by block-table aliasing and its prefill skipped),
 speculative decoding (``speculative=True``: a draft proposes ``spec_k``
 greedy tokens, one ``decode_window(_paged)`` pass of the target verifies
-them), the brownout setters, and :class:`BatchScorer`.
+them), the brownout setters, :class:`BatchScorer`, and serving from a
+checkpoint directory with hot reload (:meth:`InferenceEngine.reload`).
+
+Generation consistency: ``reload()`` restores the new tree off the serve
+thread and STAGES it; the swap applies only at a fence with every slot
+free, and admission pauses while a swap is staged.  So in-flight requests
+finish wholly under the old weights and queued ones decode wholly under
+the new, and every completion's ``generation``/``loaded_step`` stamp is
+exact.
 
 Not ported yet: ``role != "unified"`` (raises ``NotImplementedError``),
-fp8 KV pages, hot reload from checkpoints, tracing, the flight recorder,
-cost capture, per-tenant accounting and the chaos sites.
+fp8 KV pages, tracing, the flight recorder, cost capture, per-tenant
+accounting and the chaos sites.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from ..models.transformer import (cast_for_decode, decode_step,
                                   scatter_paged_layer, scatter_rows)
 from ..observability.metrics import MetricsRegistry
 from ..ops.cuda import build, kv_quant, registry
+from ..parallel.checkpoint import CheckpointManager
 from ..ops.cuda.matmul_int8 import quantize_params_for_decode
 from .batcher import (Completion, GenerateRequest, PagePoolExhausted,
                       PendingResult, RequestQueue, ScoreRequest)
@@ -127,31 +136,30 @@ class _Slot:
     first_token_s: float | None = None
     gen: torch.Generator | None = None   # sampled requests only
     drawn: int = 0                 # noise rows drawn ahead
+    # weight generation this request was admitted (and fully decodes)
+    # under: swaps apply only at fences with every slot free
+    generation: int = 0
+    loaded_step: int | None = None
 
 
 class InferenceEngine:
     """Continuous-batching decode over a ``TransformerLM``'s parameters.
 
     The JAX package's parameter order: ``params`` must already live on
-    ``device`` (default ``cuda``, which raises when there is no GPU);
-    restoring them from a ``checkpoint`` is not ported yet (ROADMAP.md
-    A5) and raises.  A speculative engine takes ``draft_model`` and
-    ``draft_params`` (``models.zoo.draft_lm``), sharing the target's
-    vocabulary and ``max_len``.  ``registry`` is the metrics registry the
-    engine publishes to (a fresh one by default; ``ModelServer`` serves
-    it)."""
+    ``device`` (default ``cuda``, which raises when there is no GPU), or
+    come from ``checkpoint`` (a directory, opened read-only, or a
+    :class:`~..parallel.checkpoint.CheckpointManager`), restored at
+    ``latest_valid_step()``; ``model.init`` shapes the restore template,
+    so the checkpoint must match ``model.cfg``.  A speculative engine
+    takes ``draft_model`` and ``draft_params`` (``models.zoo.draft_lm``),
+    sharing the target's vocabulary and ``max_len``.  ``registry`` is the
+    metrics registry the engine publishes to (a fresh one by default;
+    ``ModelServer`` serves it)."""
 
     def __init__(self, model, params=None, checkpoint=None,
                  cfg: ServingConfig = ServingConfig(), draft_model=None,
                  draft_params=None, *, device=None,
                  registry: MetricsRegistry | None = None):
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "InferenceEngine(checkpoint=...): restoring params from a "
-                "checkpoint is not ported to deeplearning4j_tpu_torch yet "
-                "(ROADMAP.md A5, A6); pass params")
-        if params is None:
-            raise ValueError("InferenceEngine needs params")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
@@ -178,6 +186,27 @@ class InferenceEngine:
                                  "vocab_size and max_len")
             if cfg.spec_k < 1:
                 raise ValueError("spec_k must be >= 1")
+        self._ckpt: CheckpointManager | None = None
+        self._loaded_step: int | None = None
+        if checkpoint is not None:
+            self._ckpt = (checkpoint if isinstance(checkpoint,
+                                                   CheckpointManager)
+                          else CheckpointManager.open_read_only(checkpoint))
+        if params is None:
+            if self._ckpt is None:
+                raise ValueError("need params or a checkpoint to serve from")
+            template = model.init(
+                torch.Generator(device=self.device).manual_seed(0))
+            try:
+                # the walk-back restore verifies the newest valid step once
+                # (the reference verifies it twice: listing, then restore)
+                restored = self._ckpt.restore(template)
+            except FileNotFoundError as e:
+                raise FileNotFoundError(
+                    f"no verified checkpoint under {self._ckpt.directory}"
+                ) from e
+            params = restored["params"]
+            self._loaded_step = restored["step"]
         mcfg = model.cfg
         self._draft_model = draft_model if cfg.speculative else None
         self._draft_params = (cast_for_decode(draft_params, draft_model.cfg)
@@ -200,7 +229,18 @@ class InferenceEngine:
         # and callers (stop/stats/HTTP handlers); _state is serve-thread-
         # owned (warmup and stop touch it only while no serve thread runs)
         self._lock = threading.Lock()
+        # _raw_params is the unquantized tree (also the reload restore
+        # template: checkpoints hold no int8 leaves); _params is what
+        # decode reads
+        self._raw_params = params                    # guarded-by: self._lock
         self._params = self._maybe_quantize(params)  # guarded-by: self._lock
+        # _generation counts applied swaps; _staged is the (raw, serving
+        # tree, step) a reload parked for the next all-slots-free fence
+        self._generation = 0                         # guarded-by: self._lock
+        self._staged: tuple | None = None            # guarded-by: self._lock
+        # pages quarantined by reload's clear_prefix: the serve thread
+        # wipes them at its next fence, then requeues them
+        self._pending_wipe: list[int] = []           # guarded-by: self._lock
         self._rows = torch.arange(cfg.slots, device=self.device)
         self._offsets = torch.arange(self._window, device=self.device,
                                      dtype=torch.int32)
@@ -218,6 +258,7 @@ class InferenceEngine:
         self._admitted = 0                           # guarded-by: self._lock
         self._completed = 0                          # guarded-by: self._lock
         self._last_error: str | None = None          # guarded-by: self._lock
+        self._publish_generation_gauges()
 
     def _maybe_quantize(self, params):
         """The serving tree decode reads: with ``int8_decode`` the FFN
@@ -593,12 +634,34 @@ class InferenceEngine:
                         sl.pending._fail(e)
                     if self._pool is not None:
                         self._pool.reset()
+                        with self._lock:
+                            self._pending_wipe = []
                     self._state = self._init_state()
 
+    def _drain_pending_wipe(self) -> None:
+        """Serve-thread half of reload's prefix invalidation: zero the
+        pages :meth:`PagePool.clear_prefix` quarantined, and only then
+        hand them back to the free list (wipe before reallocatable, and
+        here because ``_state`` is serve-thread-owned)."""
+        with self._lock:
+            pending, self._pending_wipe = self._pending_wipe, []
+        if pending:
+            self._wipe_pages(pending)
+            self._pool.requeue(pending)
+
     def _serve_once(self) -> None:
+        self._drain_pending_wipe()
+        with self._lock:
+            applied = self._try_apply_staged_locked()
+            staged = self._staged is not None
+        if applied:
+            self._publish_generation_gauges()
         idle = not self._slots
         n_free = len(self._free)
-        if n_free:
+        if n_free and not staged:
+            # admission pauses while a swap is staged: in-flight slots
+            # drain, the fence arrives, and queued requests then decode
+            # wholly under the NEW generation
             batch = self._queue.take(
                 n_free, block_s=self.cfg.idle_wait_s if idle else 0.0)
             if batch:
@@ -620,6 +683,8 @@ class InferenceEngine:
             with self._lock:
                 slot = self._free.pop()
                 params = self._params
+                # the generation stamp is atomic with the params capture
+                gen_id, lstep = self._generation, self._loaded_step
                 self._buckets.add(self._prompt_bucket(len(req.prompt)))
             acquired: list[int] = []
             try:
@@ -628,9 +693,16 @@ class InferenceEngine:
                 if self.cfg.paged:
                     if self.cfg.prefix_cache:
                         # alias the longest cached chain of the prompt's
-                        # full pages (increffed for this slot)
-                        shared, cached_len = self._pool.lookup_prefix(
-                            req.prompt, usable)
+                        # full pages (increffed for this slot); atomic with
+                        # a params re-capture, since a swap clears the
+                        # cache under this lock: every entry seen here
+                        # holds K/V computed under exactly `params`
+                        with self._lock:
+                            params = self._params
+                            gen_id, lstep = (self._generation,
+                                             self._loaded_step)
+                            shared, cached_len = self._pool.lookup_prefix(
+                                req.prompt, usable)
                         acquired.extend(shared)
                     # allocate for what THIS request can touch (positions
                     # [0, limit]); the row's tail parks on the trash page
@@ -647,8 +719,13 @@ class InferenceEngine:
                                           time.perf_counter() - t_pre)
                 if self.cfg.prefix_cache:
                     # publish every full-page chain of this prompt; the
-                    # entries pin their pages with their own refcounts
-                    self._pool.insert_prefix(req.prompt, acquired, usable)
+                    # entries pin their pages with their own refcounts.
+                    # Skipped when a swap applied mid-prefill: these pages
+                    # hold old-weight K/V the cleared cache must not learn
+                    with self._lock:
+                        if self._params is params:
+                            self._pool.insert_prefix(req.prompt, acquired,
+                                                     usable)
                     if cached_len:
                         self.metrics.increment("serving.prefix_hits")
                         # prompt positions whose prefill the cache saved
@@ -672,7 +749,8 @@ class InferenceEngine:
             with self._lock:
                 self._slots[slot] = _Slot(pending=p,
                                           admitted_s=time.monotonic(),
-                                          gen=gen)
+                                          gen=gen, generation=gen_id,
+                                          loaded_step=lstep)
                 self._slot_pages[slot] = acquired
                 self._admitted += 1
             self.metrics.increment("serving.admitted")
@@ -817,7 +895,78 @@ class InferenceEngine:
             tokens=list(sl.delivered), finish_reason=finish,
             latency_s=now - req.submitted_s,
             ttft_s=(sl.first_token_s - req.submitted_s
-                    if sl.first_token_s is not None else None)))
+                    if sl.first_token_s is not None else None),
+            generation=sl.generation, loaded_step=sl.loaded_step))
+
+    # ------------------------------------------------------------ hot reload
+    def reload(self, step: int | None = None) -> int:
+        """Hot swap to ``latest_valid_step()`` (or an explicit ``step``)
+        without tearing any response: the new tree is restored and
+        quantized on the caller's thread and STAGED; the swap applies only
+        at a fence with every slot free (requests bound their own decode
+        length, so the fence arrives within one request budget).  While a
+        swap is staged admission pauses: in-flight requests finish wholly
+        under the old generation and queued ones decode wholly under the
+        new.  With ``prefix_cache`` every cached chain is dropped with the
+        applied swap (its K/V came from the old weights); pages pinned
+        only by the cache are wiped by the serve thread before they are
+        allocatable again.  Returns the target step (applied, or staged
+        for the next free fence).  Raises ``RuntimeError`` without a
+        checkpoint and ``FileNotFoundError`` when nothing verifies."""
+        if self._ckpt is None:
+            raise RuntimeError("no checkpoint attached — nothing to reload")
+        target = step if step is not None else self._ckpt.latest_valid_step()
+        if target is None:
+            raise FileNotFoundError(
+                f"no verified checkpoint under {self._ckpt.directory}")
+        with self._lock:
+            if target == self._loaded_step:
+                # already serving it — and cancel any staged swap away
+                # from it (a rollback racing an un-applied reload)
+                self._staged = None
+                return target
+            if self._staged is not None and self._staged[2] == target:
+                return target  # same target already parked for the fence
+            template = self._raw_params
+        with self.metrics.time("serving.reload"), torch.no_grad():
+            restored = self._ckpt.restore(template, step=target)
+            new_params = self._maybe_quantize(restored["params"])
+        with self._lock:
+            self._staged = (restored["params"], new_params, target)
+            applied = self._try_apply_staged_locked()
+        self.metrics.increment("serving.reloads")
+        if applied:
+            self._publish_generation_gauges()
+        return target
+
+    def _try_apply_staged_locked(self) -> bool:
+        """Apply a staged swap iff NO request holds a slot (``_free`` at
+        full capacity also covers a request between its slot pop and its
+        registration: the slot leaves ``_free`` under this lock before its
+        prefill reads params).  Caller holds ``self._lock``."""
+        if self._staged is None:
+            return False
+        if len(self._free) != self.cfg.slots:
+            return False  # in-flight responses keep their generation
+        raw, quantized, target = self._staged
+        self._staged = None
+        self._raw_params = raw
+        self._params = quantized
+        self._loaded_step = target
+        self._generation += 1
+        if self._pool is not None and self.cfg.prefix_cache:
+            # in the swap's critical section: _admit's lookup (under this
+            # lock too) never sees old-weight entries beside new params.
+            # clear_prefix only quarantines pages; the serve thread wipes
+            self._pending_wipe.extend(self._pool.clear_prefix())
+        return True
+
+    def _publish_generation_gauges(self) -> None:
+        with self._lock:
+            gen, step = self._generation, self._loaded_step
+        self.metrics.gauge("serving.generation", gen)
+        if step is not None:
+            self.metrics.gauge("serving.loaded_step", step)
 
     # ------------------------------------------------------------ stats
     # ------------------------------------------------- brownout actuators
@@ -863,6 +1012,9 @@ class InferenceEngine:
                 "queue_depth": self._queue.depth(),
                 "admitted": self._admitted,
                 "completed": self._completed,
+                "loaded_step": self._loaded_step,
+                "generation": self._generation,
+                "reload_staged": self._staged is not None,
                 "prefill_buckets": sorted(self._buckets),
                 "running": self._thread is not None,
                 "warmed": self._warmed,

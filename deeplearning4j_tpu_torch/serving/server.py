@@ -5,17 +5,20 @@ Port of ``ModelServer`` from ``deeplearning4j_tpu/serving/server.py``
 
 - ``POST /v1/generate`` — body ``{"prompt": [ids], "max_new_tokens",
   "temperature", "seed", "eos_id", "deadline_ms", "tenant", "priority"}``
-  → ``{"tokens", "finish_reason", "latency_s", "ttft_s"}``
+  → ``{"tokens", "finish_reason", "latency_s", "ttft_s", "generation",
+  "loaded_step"}``
 - ``POST /v1/score``    — batched forward through a ``BatchScorer``;
   ``{"inputs": [[...], ...]}`` → ``{"outputs": [[...], ...]}``
+- ``POST /v1/reload``   — hot swap to ``latest_valid_step()`` (or an
+  explicit ``{"step": N}``) → ``{"step": N}``
 - ``GET /healthz``      — liveness + engine slot/queue stats
 - ``GET /metrics``      — JSON registry snapshot
 - ``GET /metrics.prom`` — Prometheus text exposition
 
 Error contract: backpressure keeps its HTTP status (``QueueFull`` → 429,
 ``DeadlineExceeded`` → 504), malformed requests → 400, a route whose
-engine or scorer is not mounted → 400.  ``/v1/reload`` and ``/v1/migrate``
-come with hot reload (ROADMAP.md A5) and the disagg roles (A8).
+engine or scorer is not mounted → 400, a reload with nothing to load →
+409.  ``/v1/migrate`` comes with the disagg roles (ROADMAP.md A8).
 """
 
 from __future__ import annotations
@@ -85,7 +88,8 @@ class ModelServer:
                 except ValueError as e:   # JSONDecodeError is a ValueError
                     return self._json(400, {"error": f"bad request body: {e}"})
                 routes = {"/v1/generate": outer._generate,
-                          "/v1/score": outer._score}
+                          "/v1/score": outer._score,
+                          "/v1/reload": outer._reload}
                 if self.path not in routes:
                     return self._json(404, {"error": f"no route {self.path}"})
                 try:
@@ -97,7 +101,7 @@ class ModelServer:
                     return self._json(504, {"error": str(e)})
                 except (TypeError, ValueError, KeyError) as e:
                     return self._json(400, {"error": str(e)})
-                except RuntimeError as e:
+                except (FileNotFoundError, RuntimeError) as e:
                     return self._json(409, {"error": str(e)})
 
         self._server = ThreadingHTTPServer((host, port), Handler)
@@ -121,7 +125,9 @@ class ModelServer:
             priority=int(p.get("priority", 0)),
             timeout=self.request_timeout_s)
         return {"tokens": comp.tokens, "finish_reason": comp.finish_reason,
-                "latency_s": comp.latency_s, "ttft_s": comp.ttft_s}
+                "latency_s": comp.latency_s, "ttft_s": comp.ttft_s,
+                "generation": comp.generation,
+                "loaded_step": comp.loaded_step}
 
     def _score(self, p: dict) -> dict:
         if self.scorer is None:
@@ -133,6 +139,13 @@ class ModelServer:
             raise ValueError("'inputs' must be a batch of rows")
         ys = self.scorer.score_batch(xs, timeout=self.request_timeout_s)
         return {"outputs": ys.tolist()}
+
+    def _reload(self, p: dict | None = None) -> dict:
+        if self.engine is None:
+            raise ValueError("no InferenceEngine mounted on this server")
+        step = (p or {}).get("step")
+        return {"step": self.engine.reload(
+            step=int(step) if step is not None else None)}
 
     def _health(self) -> dict:
         out = {"ok": True}

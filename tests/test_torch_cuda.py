@@ -6,6 +6,7 @@ On a machine with the card: ``python -m pytest tests/test_torch_cuda.py
 -q -m cuda --noconftest`` (the repo conftest imports jax).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -193,6 +194,44 @@ def test_decode_paths_make_no_host_sync(dev, quant):
     assert em.shape == (engine.cfg.resolve_every, B, W)
     assert (em[:, slot, 0] >= 0).all()       # the sampled slot emitted
     assert not h.done()
+
+
+def test_trainer_hot_loop_makes_no_host_sync(dev):
+    """``DataParallelTrainer``'s dispatches between fences under
+    ``torch.cuda.set_sync_debug_mode("error")``: a train step of the LM
+    through the fused attention, fused LN and blocked xent kernels, fed
+    by ``prefetch_to_device`` (pinned memory, a copy stream); the ring is
+    read once, after."""
+    from deeplearning4j_tpu_torch.datasets import prefetch_to_device
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.optimize import transforms as TT
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
+
+    cfg = ttr.TransformerConfig(vocab_size=1000, d_model=256, n_heads=4,
+                                n_layers=2, d_ff=1024, max_len=256,
+                                attention="fused", fused_ln=True,
+                                xent_impl="blocked")
+    g = torch.Generator(device=dev).manual_seed(6)
+    params = ttr.init_params(g, cfg, dev)
+    trainer = DataParallelTrainer(
+        lambda p, x, y, gen: ttr.lm_loss_local(p, x, y, cfg),
+        TT.adamw(TT.warmup_cosine(1e-3, 2, 100)), device=dev)
+    state = trainer.init_state(params)
+    rng = np.random.default_rng(6)
+    host = [(t, np.roll(t, -1, axis=1)) for t in
+            (rng.integers(0, cfg.vocab_size, (4, 256)) for _ in range(4))]
+    state, _ = trainer.step(state, *host[0])       # first call: warm-up
+    trainer._resolve_pending()
+    batches = list(prefetch_to_device(host[1:], device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x, y in batches:
+            state, _ = trainer.step(state, x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    vals = trainer._resolve_pending()
+    assert len(vals) == 3 and all(np.isfinite(vals)) and state.step == 4
 
 
 @pytest.mark.parametrize("m,n", [(1, 3072), (8, 768), (3, 17)])
@@ -521,6 +560,37 @@ def test_residual_layernorm_kernel_matches_plain(dev, N, D, dtype):
     for a, ref in ((y, ry), (h, rh)):
         assert ((a.float() - ref.float()).abs()
                 <= 1e-5 + ulp * ref.float().abs()).all().item()
+
+
+def test_blocked_xent_backward_is_deterministic(dev):
+    """Repeated targets: the backward sums each head column's gold terms in
+    token order, so two backwards (one queued behind other work on the
+    stream) give the same bits, and the gradients match the plain loss's."""
+    from deeplearning4j_tpu_torch.ops.cuda import xent as txe
+    g = torch.Generator(device=dev).manual_seed(3)
+    N, V, D = 4096, 32768, 768
+    h = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+    emb = (0.02 * torch.randn((V, D), generator=g, device=dev))
+    tg = torch.randint(0, 64, (N,), generator=g, device=dev)  # many repeats
+
+    def grads():
+        hh = h.detach().requires_grad_(True)
+        ee = emb.detach().requires_grad_(True)
+        loss = txe.blocked_cross_entropy(hh, ee.to(torch.bfloat16).T, tg)
+        return torch.autograd.grad(loss, (hh, ee))
+
+    first = grads()
+    torch.cuda.synchronize()
+    busy = torch.randn((8192, 8192), generator=g, device=dev)
+    busy @ busy                                   # queued ahead of the call
+    second = grads()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    hh = h.float().detach().requires_grad_(True)
+    ee = emb.detach().requires_grad_(True)
+    ref = txe.reference_xent_sum(hh, ee.to(torch.bfloat16).float().T, tg)
+    rh, re = torch.autograd.grad(ref, (hh, ee))
+    assert (first[0].float() - rh).abs().max() <= 0.02 * rh.abs().max()
+    assert (first[1] - re).abs().max() <= 0.02 * re.abs().max()
 
 
 @pytest.mark.parametrize("N,V,D", [

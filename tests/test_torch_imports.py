@@ -31,6 +31,15 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax_and_no_jax_package():
     files = _port_files()
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    mods = {p.relative_to(PORT).as_posix() for p in files
+            if p.is_relative_to(PORT)}
+    assert {"observability/core.py", "observability/tracing.py",
+            "observability/flightrec.py", "observability/goodput.py",
+            "observability/device.py", "resilience/faults.py",
+            "resilience/supervisor.py", "parallel/mesh.py",
+            "parallel/zero.py", "parallel/checkpoint.py",
+            "parallel/trainer.py", "datasets/dataset.py",
+            "datasets/iterator.py"} <= mods
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -81,6 +90,9 @@ def _entry_points():
     from deeplearning4j_tpu_torch import resolve_device
     from deeplearning4j_tpu_torch.models import transformer as ttr
     from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.datasets import prefetch_to_device
+    from deeplearning4j_tpu_torch.optimize import transforms as tx
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
     from deeplearning4j_tpu_torch.serving import InferenceEngine
 
     cfg = ttr.TransformerConfig(vocab_size=11, d_model=8, n_heads=2,
@@ -97,13 +109,17 @@ def _entry_points():
         "InferenceEngine": lambda: InferenceEngine(cpu_model, params),
         "init_cls_head": lambda: ttr.init_cls_head(torch.Generator(), cfg, 2),
         "draft_lm": lambda: zoo.draft_lm(cfg),
+        "DataParallelTrainer": lambda: DataParallelTrainer(
+            lambda p, x, y, g: x.sum(), tx.sgd_lr(0.1)),
+        "prefetch_to_device": lambda: prefetch_to_device([]),
     }
 
 
 @pytest.mark.parametrize("name", sorted([
     "resolve_device", "resolve_device_cuda", "TransformerLM", "init_params",
     "init_decode_cache", "init_paged_cache", "InferenceEngine",
-    "init_cls_head", "draft_lm"]))
+    "init_cls_head", "draft_lm", "DataParallelTrainer",
+    "prefetch_to_device"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch):
     """Without ``device="cpu"`` an entry point asks for CUDA; with no GPU
     (forced here, so the test means the same on any machine) it raises."""

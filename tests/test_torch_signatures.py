@@ -1,15 +1,16 @@
 """The port's public signatures against the JAX package's.
 
-A caller of the JAX package's serving layer, transformer and int8
-matmul should run against the port as it is.  For every public function
-and class (its ``__init__`` and public methods) that the port's
-``serving/`` modules, ``models/transformer.py`` and
-``ops/cuda/matmul_int8.py`` share with their reference counterparts, the
+A caller of the JAX package's serving layer, transformer, int8 matmul,
+trainer, checkpoints, resilience and observability modules should run
+against the port as it is.  For every public function and class (its
+``__init__`` and public methods) that the port's modules in
+:data:`MODULES` share with their reference counterparts, the
 parameters must agree in name, order, kind and default, apart from the
 differences listed in :data:`ALLOWED`: one entry a parameter, each with
 its reason and the ``ROADMAP.md`` item that removes it (or why it stays).
-Annotations are not compared (``torch.Tensor`` against ``jax.Array``),
-and dtype defaults are compared by name.
+Annotations are not compared (``torch.Tensor`` against ``jax.Array``);
+dtype defaults are compared by name, and an object default (a package's
+``METRICS``) by its class's name.
 """
 
 import importlib
@@ -32,6 +33,34 @@ MODULES = [
      "deeplearning4j_tpu.models.transformer"),
     ("deeplearning4j_tpu_torch.ops.cuda.matmul_int8",
      "deeplearning4j_tpu.ops.pallas.matmul_int8"),
+    ("deeplearning4j_tpu_torch.observability.core",
+     "deeplearning4j_tpu.observability.core"),
+    ("deeplearning4j_tpu_torch.observability.metrics",
+     "deeplearning4j_tpu.observability.metrics"),
+    ("deeplearning4j_tpu_torch.observability.tracing",
+     "deeplearning4j_tpu.observability.tracing"),
+    ("deeplearning4j_tpu_torch.observability.flightrec",
+     "deeplearning4j_tpu.observability.flightrec"),
+    ("deeplearning4j_tpu_torch.observability.goodput",
+     "deeplearning4j_tpu.observability.goodput"),
+    ("deeplearning4j_tpu_torch.observability.device",
+     "deeplearning4j_tpu.observability.device"),
+    ("deeplearning4j_tpu_torch.resilience.faults",
+     "deeplearning4j_tpu.resilience.faults"),
+    ("deeplearning4j_tpu_torch.resilience.supervisor",
+     "deeplearning4j_tpu.resilience.supervisor"),
+    ("deeplearning4j_tpu_torch.parallel.mesh",
+     "deeplearning4j_tpu.parallel.mesh"),
+    ("deeplearning4j_tpu_torch.parallel.zero",
+     "deeplearning4j_tpu.parallel.zero"),
+    ("deeplearning4j_tpu_torch.parallel.checkpoint",
+     "deeplearning4j_tpu.parallel.checkpoint"),
+    ("deeplearning4j_tpu_torch.parallel.trainer",
+     "deeplearning4j_tpu.parallel.trainer"),
+    ("deeplearning4j_tpu_torch.datasets.dataset",
+     "deeplearning4j_tpu.datasets.dataset"),
+    ("deeplearning4j_tpu_torch.datasets.iterator",
+     "deeplearning4j_tpu.datasets.iterator"),
 ]
 
 _SEED = ("the port draws from a torch.Generator or an int seed: torch "
@@ -44,10 +73,6 @@ _KERNELS = ("the port's hook to run the same function through its plain "
 
 #: "module:qualname" -> {parameter: reason (-> ROADMAP.md item)}
 ALLOWED = {
-    "serving.batcher:Completion.__init__": {
-        "generation": "hot-reload generation stamps (-> A6)",
-        "loaded_step": "hot-reload generation stamps (-> A6)",
-    },
     "serving.batcher:GenerateRequest.__init__": {
         "trace_id": "the engine's tracing (-> A6, A7)",
         "parent_span_id": "the engine's tracing (-> A6, A7)",
@@ -83,10 +108,6 @@ ALLOWED = {
     "models.transformer:TransformerLM.build_finetune_step": {
         "zero1": "ZeRO-1 over a mesh (-> A5, A10)",
     },
-    "models.transformer:TransformerLM.fit": {
-        "checkpoint_every": "checkpointed fit (-> A5)",
-        "resume": "checkpointed fit (-> A5)",
-    },
     "models.transformer:TransformerLM.init": {
         "key": _SEED, "gen": _SEED,
     },
@@ -112,6 +133,13 @@ ALLOWED = {
     "models.transformer:encode_local": {"kernels": _KERNELS},
     "models.transformer:lm_head_loss": {"kernels": _KERNELS},
     "models.transformer:lm_loss_local": {"kernels": _KERNELS},
+    "parallel.trainer:DataParallelTrainer.__init__": {
+        "device": _DEVICE + "; keyword-only",
+    },
+    "datasets.iterator:prefetch_to_device": {
+        "device": _DEVICE + "; keyword-only (the reference places by "
+                  "`sharding`, which waits for a mesh: -> A10)",
+    },
     "ops.cuda.matmul_int8:int8_matmul": {
         "block_n": "a Pallas tiling knob; the port's launch plan picks its "
                    "tiles from the shape (kept)",
@@ -147,10 +175,13 @@ def _members(mod) -> dict:
 
 
 def _default(value):
-    """A default, comparable across the packages: dtypes by name."""
+    """A default, comparable across the packages: dtypes by name, objects
+    by their class's name."""
     if value is inspect.Parameter.empty:
         return "<required>"
     text = repr(value)
+    if " object at 0x" in text:      # a package's own singleton (METRICS)
+        return "instance of " + type(value).__qualname__
     for prefix in ("torch.", "<class 'jax.numpy.", "<class 'numpy."):
         if text.startswith(prefix):
             return "dtype " + text[len(prefix):].rstrip("'>")
@@ -207,7 +238,8 @@ def test_signature_matches_the_reference(key, port_fn, ref_fn):
 
 
 def test_reference_keywords_reach_the_port():
-    """The three drifts the allowlist does not cover, now repaired."""
+    """The drifts the allowlist does not cover, now repaired, and the
+    reference's answer to a missing checkpoint directory."""
     from deeplearning4j_tpu_torch.models import transformer as ttr
     from deeplearning4j_tpu_torch.serving import (InferenceEngine,
                                                   ServingConfig,
@@ -220,7 +252,9 @@ def test_reference_keywords_reach_the_port():
     assert names[:4] == ["model", "params", "checkpoint", "cfg"]
     model = ttr.TransformerLM(cfg, device="cpu")
     params = model.init()
-    with pytest.raises(NotImplementedError, match="A6"):
+    # a checkpoint directory opens read-only, as the reference's does: a
+    # missing one fails loudly instead of serving from an empty directory
+    with pytest.raises(FileNotFoundError, match="does not exist"):
         InferenceEngine(model, params, "/no/such/checkpoint",
                         ServingConfig(), device="cpu")
     with pytest.raises(ValueError):

@@ -440,8 +440,9 @@ def test_decay_mask_hook_steers_weight_decay():
     assert not torch.equal(out["adam"][-1], out["adamw"][-1])  # tok_embed
 
 
-def test_fit_runs_the_same_steps_and_keeps_the_count():
+def test_fit_runs_the_same_steps_and_keeps_the_count(tmp_path):
     from deeplearning4j_tpu_torch.optimize import transforms as TT
+    from deeplearning4j_tpu_torch.parallel import CheckpointManager
     _, tcfg = _cfgs(remat=False)
     model = ttr.TransformerLM(tcfg, device=CPU)
     tx = TT.adam(1e-3)
@@ -457,8 +458,18 @@ def test_fit_runs_the_same_steps_and_keeps_the_count():
     assert o1[0] == o2[0] == 6 and l1 == l2
     # a carried-over state continues where it left off: nothing to do
     assert model.fit(p1, o1, batches, tx=tx, epochs=2)[2] == []
-    with pytest.raises(NotImplementedError):
-        model.fit(tp, o2, batches, tx=tx, checkpoint_manager=object())
+    # with a checkpoint manager: the same steps, saved every 4 and at the
+    # end; a fresh fit resumes from the newest save with nothing left to do
+    mgr = CheckpointManager(tmp_path, keep=5)
+    p3, o3, l3 = model.fit(tp, model.init_opt(tp, tx), batches, tx=tx,
+                           epochs=2, checkpoint_manager=mgr,
+                           checkpoint_every=4)
+    assert l3 == l1 and mgr.all_steps() == [4, 6]
+    p4, o4, l4 = model.fit(tp, model.init_opt(tp, tx), batches, tx=tx,
+                           epochs=2, checkpoint_manager=mgr)
+    assert l4 == [] and o4[0] == 6
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p4),
+                                                  tree_leaves(p1)))
 
 
 def test_finetune_step_matches_jax():
