@@ -8,8 +8,8 @@
 Builds the port's CUDA kernels from ``deeplearning4j_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), holds each kernel against its
 plain PyTorch version at the shapes of the port's main paths (paged int8
-serving and the flagship train step), then drives those paths through the
-entry points a user calls:
+serving, the flagship train step and the DL4J stack), then drives those
+paths through the entry points a user calls:
 
 1. the card (``nvidia-smi`` name and power limit), the build time and
    every kernel's registers, spills and static shared memory (``ptxas -v``);
@@ -87,7 +87,22 @@ entry points a user calls:
    two more steps publishing step 10, and ``ServingClient.reload()`` while
    8 requests decode: their stamps and tokens stay step 8's, and 8 later
    requests carry step 10's and equal a fresh engine's on step 10;
-15. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
+15. the DL4J network stack (``run_dl4j``), the README's first entry
+   point: seeded MNIST-shaped IDX files (60,000 images, labels from a
+   linear teacher) in a temporary ``DL4J_TPU_DATA``; ``python -m
+   deeplearning4j_tpu_torch train --model dbn --dataset mnist --batch
+   8192 --out ...`` and ``evaluate`` as subprocesses (exit codes 0, the
+   IDX files read, F1 over 3x chance, ``evaluate`` printing ``train``'s
+   stats again); the same DBN (784-500-250-10, CD-1 RBMs, a softmax
+   finetune) fit in process with its iterations cut (per-layer pretrain
+   step, finetune iteration, fit, examples/s, ``evaluate``), then
+   ``losses.score("blocked_mcxent", y, (h, head))`` on its 250-wide head
+   through ``blocked_cross_entropy`` in float32 against its plain
+   version; ``zoo.mlp(784, 10)`` (50 iterations), ``zoo.lenet(10)`` (10)
+   and Hessian-free (3, its CG solves under
+   ``torch.cuda.set_sync_debug_mode("error")``) on the card against the
+   CPU from the same parameters, within ``TOL_DL4J``;
+16. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
    0 just before it runs, read just after), then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -111,9 +126,12 @@ events around eager calls.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -185,6 +203,45 @@ TRAIN_ROWS = (32768, 16384, 4096)
 #: rows of the LN calls: the training legs' (the scorer's 32 x 512 is leg
 #: B's count) and the full-forward sampler's one row of 2048
 LN_ROWS = TRAIN_ROWS + (2048,)
+
+#: the DL4J phase (run_dl4j): the CLI's DBN on MNIST-shaped data,
+#: ``train --batch 8192`` (its first 8192 of 60,000 images)
+DL4J_IMAGES = 60000
+DL4J_ROWS = 8192
+#: the timed in-process DBN: iterations cut from the zoo's 100 / 200
+DL4J_PRETRAIN_IT = 20
+DL4J_FINETUNE_IT = 30
+# card against CPU on the deterministic paths: max over the parameter
+# leaves of max |card - cpu| / max |cpu|, and the relative error of the
+# final parameters' loss, both sides scored in float64 on the CPU.  The
+# same runs on the CPU with the batch rows permuted (another summation
+# order, nothing else) moved the parameters by: mlp 50 iterations
+# 8.8e-6, LeNet 10 iterations 1.2e-5 on raw pixel intensities,
+# Hessian-free 3 iterations 1.3e-7.  (LeNet on binarized pixels is no
+# test of the card: its 2x2 max pools meet exact ties that rounding
+# breaks either way, 3.6e-2 under the same permutation.)  The loss the
+# fit last read in float32 is reported, not held: near a confident fit
+# it is a mean of -log(p) with p within a few ulps of 1, where the card's
+# and the CPU's exp and log round differently (the mlp's read 2.3e-4
+# apart on an H100 with its parameters 1.4e-5 apart).
+TOL_DL4J = 1e-4
+# LeNet's parameters after 10 AdaGrad steps.  AdaGrad divides a gradient
+# by sqrt(sum g^2 + 1e-6): where |g| sits under 1e-3 (39% of the dense
+# layer's gradients at the first step) it multiplies the gradient's
+# rounding by up to lr / 1e-3 = 50 a step, and cuDNN's float32
+# convolution algorithms (full float32, TF32 off in the forward and the
+# backward) round otherwise than the CPU's by ~1e-6 of the largest
+# gradient.  Measured 2.2e-4 on an H100 (700 W), the loss 2.6e-6 apart;
+# the CPU's own runs with the inputs moved by one ulp: 4.7e-5.  The loss
+# is held to TOL_DL4J.
+TOL_DL4J_LENET = 1e-3
+# losses.score("blocked_mcxent", y, (h, head)) through kernel #4 against
+# its plain version: the xent registry entry's max_err
+TOL_DL4J_XENT = 1e-3
+# float32 FMA rates outside the tensor cores, by product name (NVIDIA's
+# data sheets), for the f32 kernel call's bound
+F32_RATES = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H200": 67e12,
+             "H100": 67e12}
 
 # the card's rates for the least-time bound, by product name
 RATES = {  # name fragment: (bytes/s, bf16 dense ops/s)
@@ -1959,6 +2016,311 @@ def teacher_forced_served(torch, ttr, tmm, cfg, engine, prompts, served, dev):
     return agree / total
 
 
+# ------------------------------------------------------------------ DL4J
+
+def write_mnist(np, mnist_idx, root: Path, n=DL4J_IMAGES, seed=0):
+    """Seeded MNIST-shaped IDX files in ``root``: uniform uint8 pixels,
+    labels from a fixed linear teacher on the centred binarized pixels
+    (learnable, and balanced over the 10 classes)."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (n, 28, 28), dtype=np.uint8)
+    bits = (imgs.reshape(n, -1) > 127).astype(np.float32) - 0.5
+    labels = np.argmax(bits @ rng.standard_normal((784, 10)).astype(
+        np.float32), 1).astype(np.uint8)
+    root.mkdir(parents=True, exist_ok=True)
+    mnist_idx.write_idx_images(root / "train-images-idx3-ubyte", imgs)
+    mnist_idx.write_idx_labels(root / "train-labels-idx1-ubyte", labels)
+
+
+def cli_stats(out: str) -> tuple[str, float]:
+    """The ``Evaluation.stats()`` block a CLI printed, and its F1."""
+    lines = out.splitlines()
+    start = lines.index(
+        "==========================Scores==========================")
+    block = [l for l in lines[start:] if not l.startswith("model saved")]
+    f1 = float(next(l for l in block if "F1 Score" in l).split()[-1])
+    return "\n".join(block), f1
+
+
+def params_err(torch, got, want) -> tuple[float, float]:
+    """Over the leaves, the max of max |got - want| / max |want| and the
+    max of ||got - want|| / ||want||."""
+    pairs = [(g[k].cpu(), w[k]) for g, w in zip(got, want) for k in w]
+    return (max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in pairs),
+            max((torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b)).item() for a, b in pairs))
+
+
+def score64(torch, net, ds) -> float:
+    """The supervised loss of ``net``'s parameters on ``ds``, in float64
+    on the CPU."""
+    from deeplearning4j_tpu_torch.ops import dtypes
+
+    old = dtypes.get_policy()
+    dtypes.set_policy(torch.float64, torch.float64)
+    try:
+        params = tuple({k: v.detach().cpu().double() for k, v in p.items()}
+                       for p in net.params)
+        with torch.no_grad():
+            return float(net.supervised_loss(
+                params, torch.from_numpy(ds.features).double(),
+                torch.from_numpy(ds.labels).double()))
+    finally:
+        dtypes.set_policy(old.param_dtype, old.compute_dtype)
+
+
+def card_vs_cpu(torch, build, ds, label, hooks=None, tol=TOL_DL4J):
+    """``build(device)`` fit on the CPU and on the card from the same
+    starting parameters (a CPU generator seeded 0): the parameters must
+    agree within ``tol`` and the float64 loss of each side's final
+    parameters within ``TOL_DL4J``.  ``hooks`` wraps the card's fit."""
+    nets = {}
+    for dev in ("cpu", "cuda"):
+        net = build(dev)
+        net.init(0)
+        nets[dev] = net
+    nets["cpu"].fit(ds)
+    t0 = time.perf_counter()
+    with (hooks() if hooks else contextlib.nullcontext()):
+        nets["cuda"].fit(ds)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    err, norm_err = params_err(torch, nets["cuda"].params,
+                               nets["cpu"].params)
+    s_card, s_cpu = (score64(torch, nets[d], ds) for d in ("cuda", "cpu"))
+    serr = abs(s_card - s_cpu) / abs(s_cpu)
+    f32 = {d: nets[d].score() for d in ("cuda", "cpu")}
+    rep = {"params_rel_err": err, "params_norm_rel_err": norm_err,
+           "tol": tol, "score64_rel_err": serr,
+           "score64": s_cpu, "score_f32": f32,
+           "score_f32_rel_err": abs(f32["cuda"] - f32["cpu"])
+           / abs(f32["cpu"]), "card_fit_s": card_s}
+    print(f"dl4j {label}: card vs CPU {json.dumps(rep)}", flush=True)
+    if not (err < tol and serr < TOL_DL4J):
+        fail(f"dl4j {label}: card vs CPU params {err:.3g} (tol {tol}), "
+             f"score {serr:.3g} (tol {TOL_DL4J})")
+    return rep
+
+
+def run_dl4j(torch, txe, wrappers, rates, cases, card: str):
+    """The DL4J network stack on the card (the README's first entry
+    point): the CLI's ``train --model dbn --dataset mnist --batch 8192``
+    and ``evaluate`` as subprocesses on seeded MNIST-shaped IDX files;
+    the same DBN fit in process (timed, with iterations cut), then
+    ``losses.score("blocked_mcxent", y, (h, head))`` on its head through
+    kernel #4 (counted from 0 before the fit, read after the loss);
+    mlp, LeNet and Hessian-free fits on the card against the CPU."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.datasets import (DataSet,
+                                                   MnistDataFetcher,
+                                                   MnistDataSetIterator,
+                                                   mnist_idx)
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.conf import OptimizationAlgorithm
+    from deeplearning4j_tpu_torch.observability import TRACER
+    from deeplearning4j_tpu_torch.ops import losses
+    from deeplearning4j_tpu_torch.optimize import solvers
+
+    t_phase = time.perf_counter()
+    rep: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="dl4j_smoke_") as tmpdir:
+        tmp = Path(tmpdir)
+        write_mnist(np, mnist_idx, tmp / "mnist")
+        env = dict(os.environ, DL4J_TPU_DATA=str(tmp),
+                   PYTHONPATH=os.pathsep.join(
+                       [str(ROOT)] + [p for p in [os.environ.get(
+                           "PYTHONPATH")] if p]))
+        cli = [sys.executable, "-m", "deeplearning4j_tpu_torch"]
+        saved = tmp / "dbn.pkl"
+        runs = {}
+        for name, args in (
+                ("train", ["train", "--model", "dbn", "--dataset", "mnist",
+                           "--batch", str(DL4J_ROWS), "--out", str(saved)]),
+                ("evaluate", ["evaluate", str(saved), "--dataset", "mnist",
+                              "--batch", str(DL4J_ROWS)])):
+            t0 = time.perf_counter()
+            r = subprocess.run(cli + args, env=env, cwd=tmp,
+                               capture_output=True, text=True, timeout=600)
+            runs[name] = (r, time.perf_counter() - t0)
+            if r.returncode != 0:
+                fail(f"dl4j CLI {name} exited {r.returncode}: "
+                     f"{r.stderr[-2000:]}")
+            if "falling back" in r.stderr or "digits_fallback" in r.stderr:
+                fail(f"dl4j CLI {name} did not read the IDX files")
+        trained, f1 = cli_stats(runs["train"][0].stdout)
+        evaluated, _ = cli_stats(runs["evaluate"][0].stdout)
+        if evaluated != trained:
+            fail(f"dl4j: evaluate does not reproduce train's stats:\n"
+                 f"{trained}\n---\n{evaluated}")
+        chance = 1.0 / 10
+        if f1 < 3 * chance:
+            fail(f"dl4j: the CLI's DBN F1 {f1} is under 3x chance")
+        rep.update(cli_f1=f1, chance_f1=chance,
+                   cli_train_s=runs["train"][1],
+                   cli_evaluate_s=runs["evaluate"][1])
+        print(f"dl4j CLI: train {runs['train'][1]:.2f} s, evaluate "
+              f"{runs['evaluate'][1]:.2f} s (processes), F1 {f1} (chance "
+              f"{chance}), evaluate reproduces train's stats", flush=True)
+
+        # the CLI's data: the first batch, normalized, shuffled
+        it = MnistDataSetIterator(batch=DL4J_ROWS, data_dir=tmp / "mnist")
+        ds = it.next().normalize_zero_mean_unit_variance().shuffle(seed=42)
+        if it.fetcher.source != "idx":
+            fail(f"dl4j: the MNIST fetcher's source is {it.fetcher.source}")
+        raw = MnistDataFetcher(binarize=False, flatten=False,
+                               data_dir=tmp / "mnist")
+        raw.fetch(512)
+        images = raw.next()
+
+    # ---- the main path: the DBN at the CLI's shape, timed by its spans,
+    # then its head's loss through kernel #4
+    def dbn(p_it, f_it):
+        return zoo.dbn(784, 10, pretrain_iterations=p_it,
+                       finetune_iterations=f_it, device="cuda")
+
+    warm = dbn(1, 1)
+    warm.init(0)
+    warm.fit(ds)                              # the same shapes, untimed
+    torch.cuda.synchronize()
+    spans, listening = [], [True]
+    TRACER.add_listener(lambda ev: listening[0] and spans.append(ev))
+    try:
+        net = dbn(DL4J_PRETRAIN_IT, DL4J_FINETUNE_IT)
+        net.init(0)
+        reset_counts(wrappers)
+        net.fit(ds)
+        torch.cuda.synchronize()
+        h = net.feed_forward(ds.features)[2]          # the head's input
+        head = net.params[-1]["W"]
+        y = torch.as_tensor(ds.labels, device="cuda")
+        got = losses.score("blocked_mcxent", y, (h, head))
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in wrappers}
+        t0 = time.perf_counter()
+        ev = net.evaluate(ds)
+        eval_s = time.perf_counter() - t0
+    finally:
+        listening[0] = False
+    expected = {name: 0 for name in counts}
+    expected["blocked_cross_entropy"] = 1
+    if counts != expected:
+        fail(f"dl4j: launches {counts}, the path implies {expected}")
+    dur = {}
+    for sp in spans:
+        key = sp["name"] + ("" if "layer" not in sp["args"] else
+                            f"[{sp['args']['layer']}]")
+        dur[key] = sp["dur"] / 1e6
+    n_pre = sum(1 for k in dur if k.startswith("multilayer.pretrain_layer"))
+    fit_s = dur["multilayer.fit"]
+    rep.update(
+        pretrain_step_ms=[dur[f"multilayer.pretrain_layer[{i}]"] * 1e3
+                          / DL4J_PRETRAIN_IT for i in range(n_pre)],
+        finetune_iteration_ms=dur["multilayer.finetune"] * 1e3
+        / DL4J_FINETUNE_IT,
+        fit_s=fit_s,
+        examples_per_s=DL4J_ROWS * (n_pre * DL4J_PRETRAIN_IT
+                                    + DL4J_FINETUNE_IT) / fit_s,
+        evaluate_s=eval_s, in_process_f1=ev.f1(),
+        iterations={"pretrain": DL4J_PRETRAIN_IT,
+                    "finetune": DL4J_FINETUNE_IT},
+        launches=counts)
+
+    # ---- kernel #4 from the DL4J side against its plain version
+    N, D, V = h.shape[0], h.shape[1], head.shape[1]
+    tg = y.argmax(-1).to(torch.int32)
+    w = torch.ones((N,), device="cuda")
+    rw, rl = txe.reference_xent_rows(h, head, tg, w)
+    mean_err = abs(got.item() - (rw.sum() / N).item())
+    wl, lse = txe.xent_fwd(h, head, tg, w)                # uncounted
+    err = max((wl - rw).abs().max().item(), (lse - rl).abs().max().item())
+    if not (err < TOL_DL4J_XENT and mean_err < TOL_DL4J_XENT
+            and torch_isfinite(wl)):
+        fail(f"dl4j blocked_mcxent: max err {err}, mean err {mean_err} "
+             f"(tol {TOL_DL4J_XENT})")
+    nbytes = N * D * 4 + D * V * 4 + N * 4 * 4
+    n_copy = copies_for(nbytes)
+    hs = [h.clone() for _ in range(n_copy)]
+    heads = [head.clone() for _ in range(n_copy)]
+    ms = device_ms(torch, [lambda a=a, b=b: txe.xent_fwd(a, b, tg, w)
+                           for a, b in zip(hs, heads)])
+    pms = event_ms(torch, lambda: txe.reference_xent_rows(h, head, tg, w), 5)
+    tl = tg.long()
+    lms = event_ms(torch, lambda: F.cross_entropy(h @ head, tl,
+                                                  reduction="sum"), 5)
+    del hs, heads
+    ops = 2 * N * V * D
+    f32_peak = next(r for frag, r in F32_RATES.items() if frag in card)
+    t_bytes, t_ops = nbytes / rates[0], ops / f32_peak
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    cases.append({"kernel": "blocked_cross_entropy", "N": N, "V": V, "D": D,
+                  "dtype": "float32", "call": "losses.blocked_mcxent",
+                  "max_abs_err": err, "tol": TOL_DL4J_XENT,
+                  "mean_loss_err": mean_err, "ms": ms, "plain_ms": pms,
+                  "library_ms": lms, "bound_ms": bound, "bound_by": by,
+                  "bytes": nbytes, "ops": ops})
+    print(f"kernel blocked_cross_entropy (losses.blocked_mcxent) N={N} V={V} "
+          f"D={D} f32: max_err={err:.3g} mean_err={mean_err:.3g} "
+          f"kernel_ms={ms:.5f} plain_ms={pms:.5f} library_ms={lms:.5f} "
+          f"bound_ms={bound:.5f} ({by})", flush=True)
+
+    # ---- card against CPU on the deterministic paths
+    def mlp(dev):
+        return zoo.mlp(784, 10, num_iterations=50, device=dev)
+
+    def lenet(dev):
+        return zoo.lenet(10, num_iterations=10, device=dev)
+
+    def hf(dev):
+        base = zoo.mlp(784, 10, hidden=(64,), num_iterations=3, device=dev)
+        confs = list(base.conf.confs)
+        confs[-1] = confs[-1].replace(
+            optimization_algo=OptimizationAlgorithm.HESSIAN_FREE)
+        return type(base)(base.conf.replace(confs=tuple(confs)), device=dev)
+
+    cg_solves = []
+
+    @contextlib.contextmanager
+    def no_sync_cg():
+        """The card's CG solves under set_sync_debug_mode("error")."""
+        orig = solvers.StochasticHessianFree._cg_solve
+
+        def guarded(self, *a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = orig(self, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            cg_solves.append(1)
+            return out
+
+        solvers.StochasticHessianFree._cg_solve = guarded
+        try:
+            yield
+        finally:
+            solvers.StochasticHessianFree._cg_solve = orig
+
+    rep["card_vs_cpu"] = {
+        "mlp_784_256_10_50it": card_vs_cpu(
+            torch, mlp, DataSet(ds.features[:2048], ds.labels[:2048]),
+            "mlp"),
+        "lenet_10it": card_vs_cpu(torch, lenet, images, "lenet",
+                                  tol=TOL_DL4J_LENET),
+        "hessian_free_784_64_10_3it": card_vs_cpu(
+            torch, hf, DataSet(ds.features[:1024], ds.labels[:1024]),
+            "hessian_free", hooks=no_sync_cg)}
+    if len(cg_solves) != 3:
+        fail(f"dl4j: {len(cg_solves)} CG solves ran under the sync check")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print("dl4j: " + json.dumps(rep), flush=True)
+    leg = {"batch": N, "seq": 1, "causal": None, "launches": counts}
+    return rep, leg
+
+
 def print_ptxas(usage) -> None:
     """Registers, spills and static shared memory of the bf16 kernels,
     from the builds' ``ptxas -v`` reports (every kernel's are in the
@@ -2187,13 +2549,19 @@ def main() -> int:
     # from the checkpoint and hot reload (default causal config, 8 x 512)
     ckpt = run_checkpoints(torch, ttr, TT, tmm, tat, tln, txe, eng, wrappers,
                            rng)
+    torch.cuda.empty_cache()
+
+    # ---- 8c. the DL4J network stack: the CLI's DBN, the same fit in
+    # process, kernel #4 on its head, card against CPU
+    dl4j, dl4j_leg = run_dl4j(torch, txe, wrappers, rates, cases, card)
 
     # ---- 9. one line per kernel: its numbers weighted by this run's
     # launches at each main-path shape, and every shape measured
     kernels = kernel_rows(
         cases, [rep_a, rep_b, rep_s, prefix["float"]["cache"],
                 prefix["int8"]["cache"], beam, ckpt["serve"], ckpt["reload"]],
-        [leg_a, leg_b, sample["bfloat16"], scorer, ckpt["leg"]], mcfg, rates)
+        [leg_a, leg_b, sample["bfloat16"], scorer, ckpt["leg"], dl4j_leg],
+        mcfg, rates)
     if args.report:
         path = Path(args.report)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -2206,7 +2574,7 @@ def main() -> int:
             "prefix": prefix, "beam": beam, "sample": sample,
             "scorer": scorer, "train_a": leg_a, "train_b": leg_b,
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},
-            "checkpoints": ckpt,
+            "checkpoints": ckpt, "dl4j": dl4j,
             "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -4,17 +4,22 @@ The JAX package beside it is the reference this port is held against.
 This package imports ``torch`` and never ``jax`` or ``deeplearning4j_tpu``;
 parameters cross between the two as numpy arrays (``models.convert``).
 
-Ported so far (the paged int8 serving path of the flagship causal LM):
+Ported so far:
 
-- ``models.transformer``: config, params, KV-cached and paged decode,
-  ``TransformerLM.sample(kv_cache=True)``;
-- ``ops.cuda``: the kernel registry, the ``nvcc`` build, and the three
-  hand-written Hopper kernels of this path — ``int8_matmul``,
-  ``paged_attention`` and ``paged_attention_int8`` — each beside its plain
-  PyTorch version;
-- ``serving``: ``InferenceEngine``, ``RequestQueue``, ``PagePool``,
-  ``ModelServer`` and ``ServingClient``;
-- ``observability.metrics``: the metrics registry the engine publishes to.
+- the flagship transformer LM (``models.transformer``): training,
+  KV-cached, paged and speculative decoding, ``sample`` and
+  ``beam_search``; ``serving`` (``InferenceEngine``, ``ModelServer``,
+  ``ServingClient``, ``BatchScorer``, hot reload);
+- ``parallel`` (checkpoints, the data-parallel trainer on one device),
+  ``resilience`` (the supervisor, fault injection) and ``observability``;
+- the DL4J network stack: ``ops`` (activations, losses, convolution,
+  linalg, sampling, rng, dtypes), ``nn`` (configurations, layers,
+  ``MultiLayerNetwork``), ``optimize`` (transforms, solvers, listeners),
+  ``datasets`` (fetchers, IDX files, iterators), ``evaluation``,
+  ``models.zoo`` and the ``python -m deeplearning4j_tpu_torch``
+  ``train`` / ``evaluate`` CLI;
+- ``ops.cuda``: the kernel registry, the ``nvcc`` build and the seven
+  hand-written Hopper kernels, each beside its plain PyTorch version.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,8 +1,44 @@
-"""Datasets of the port: the ``DataSet`` container and the double-buffered
-host-to-device feed (``prefetch_to_device``).  Fetchers and the dataset
-iterators come with the capability set (``ROADMAP.md`` A9)."""
+"""Datasets of the port: the ``DataSet`` container, the fetchers (MNIST
+IDX files, Iris, digits, curves, LFW, CSV), the dataset iterators and the
+double-buffered host-to-device feed (``prefetch_to_device``).  The
+SVMLight and record readers come later (``ROADMAP.md`` A9)."""
 
 from .dataset import DataSet, to_outcome_matrix
-from .iterator import prefetch_to_device
+from .fetchers import (
+    BaseDataFetcher,
+    CSVDataFetcher,
+    CurvesDataFetcher,
+    DigitsDataFetcher,
+    IrisDataFetcher,
+    LFWDataFetcher,
+    MnistDataFetcher,
+)
+from .iterator import (
+    BaseDatasetIterator,
+    CSVDataSetIterator,
+    CurvesDataSetIterator,
+    DataSetIterator,
+    DigitsDataSetIterator,
+    IrisDataSetIterator,
+    ListDataSetIterator,
+    MnistDataSetIterator,
+    MovingWindowDataSetIterator,
+    MultipleEpochsIterator,
+    ReconstructionDataSetIterator,
+    SamplingDataSetIterator,
+    TestDataSetIterator,
+    prefetch_to_device,
+)
 
-__all__ = ["DataSet", "prefetch_to_device", "to_outcome_matrix"]
+__all__ = [
+    "DataSet", "to_outcome_matrix", "prefetch_to_device",
+    "BaseDataFetcher", "CSVDataFetcher", "CurvesDataFetcher",
+    "DigitsDataFetcher", "IrisDataFetcher", "LFWDataFetcher",
+    "MnistDataFetcher",
+    "BaseDatasetIterator", "CSVDataSetIterator", "CurvesDataSetIterator",
+    "DataSetIterator", "DigitsDataSetIterator", "IrisDataSetIterator",
+    "ListDataSetIterator", "MnistDataSetIterator",
+    "MovingWindowDataSetIterator", "MultipleEpochsIterator",
+    "ReconstructionDataSetIterator", "SamplingDataSetIterator",
+    "TestDataSetIterator",
+]

@@ -1,8 +1,12 @@
-"""Double-buffered host-to-device feed.
+"""DataSet iterators and the double-buffered host-to-device feed.
 
-Port of ``prefetch_to_device`` from
-``deeplearning4j_tpu/datasets/iterator.py``; the dataset iterators there
-come with the capability set (``ROADMAP.md`` A9).
+Port of ``deeplearning4j_tpu/datasets/iterator.py``: the
+``DataSetIterator`` protocol, the fetcher-backed ``BaseDatasetIterator``
+(Iris, digits, MNIST, curves, CSV), ``ListDataSetIterator``,
+``TestDataSetIterator`` and the wrappers (``MultipleEpochsIterator``,
+``SamplingDataSetIterator``, ``ReconstructionDataSetIterator``,
+``MovingWindowDataSetIterator``), all host-side numpy as in the
+reference; and ``prefetch_to_device``.
 
 On a GPU each batch is copied from pinned host memory with
 ``non_blocking=True`` on a side stream, so the copy of batch k+1 overlaps
@@ -22,10 +26,326 @@ from __future__ import annotations
 import collections
 import queue as _queue
 import threading
+from typing import Callable, Iterator as PyIterator, Protocol, Sequence
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
+from .dataset import DataSet
+from .fetchers import (
+    BaseDataFetcher,
+    CSVDataFetcher,
+    CurvesDataFetcher,
+    DigitsDataFetcher,
+    IrisDataFetcher,
+    MnistDataFetcher,
+)
+
+DataSetPreProcessor = Callable[[DataSet], DataSet]
+
+
+class DataSetIterator(Protocol):
+    """``DataSetIterator.java:10-31`` contract."""
+
+    def next(self, num: int | None = None) -> DataSet: ...
+    def has_next(self) -> bool: ...
+    def total_examples(self) -> int: ...
+    def input_columns(self) -> int: ...
+    def total_outcomes(self) -> int: ...
+    def reset(self) -> None: ...
+    def batch(self) -> int: ...
+    def cursor(self) -> int: ...
+    def set_pre_processor(self, pre: DataSetPreProcessor) -> None: ...
+
+
+class _IterBase:
+    """Python-iteration sugar shared by all iterators."""
+
+    def __iter__(self) -> PyIterator[DataSet]:
+        self.reset()
+        while self.has_next():
+            yield self.next()
+
+
+class BaseDatasetIterator(_IterBase):
+    """Fetcher-backed iterator (``BaseDatasetIterator.java``)."""
+
+    def __init__(self, batch_size: int, num_examples: int, fetcher: BaseDataFetcher):
+        self._batch = batch_size
+        self._num_examples = num_examples if num_examples > 0 else fetcher.total_examples()
+        self.fetcher = fetcher
+        self.pre_processor: DataSetPreProcessor | None = None
+
+    def has_next(self) -> bool:
+        return self.fetcher.has_more() and self.fetcher.cursor < self._num_examples
+
+    def next(self, num: int | None = None) -> DataSet:
+        n = num or self._batch
+        # honor the num_examples cap (fetch clamps only to the full corpus)
+        n = min(n, self._num_examples - self.fetcher.cursor)
+        self.fetcher.fetch(n)
+        ds = self.fetcher.next()
+        return self.pre_processor(ds) if self.pre_processor else ds
+
+    def total_examples(self) -> int:
+        return self._num_examples
+
+    def input_columns(self) -> int:
+        self.fetcher._ensure_loaded()
+        return self.fetcher.input_columns
+
+    def total_outcomes(self) -> int:
+        self.fetcher._ensure_loaded()
+        return self.fetcher.num_outcomes
+
+    def reset(self) -> None:
+        self.fetcher.reset()
+
+    def batch(self) -> int:
+        return self._batch
+
+    def cursor(self) -> int:
+        return self.fetcher.cursor
+
+    def set_pre_processor(self, pre: DataSetPreProcessor) -> None:
+        self.pre_processor = pre
+
+
+class IrisDataSetIterator(BaseDatasetIterator):
+    """``IrisDataSetIterator``."""
+
+    def __init__(self, batch: int = 150, num_examples: int = 150):
+        super().__init__(batch, num_examples, IrisDataFetcher())
+
+
+class DigitsDataSetIterator(BaseDatasetIterator):
+    """Offline 8x8-digits iterator (fast MNIST-class corpus for tests)."""
+
+    def __init__(self, batch: int = 100, num_examples: int = 0, **kw):
+        super().__init__(batch, num_examples, DigitsDataFetcher(**kw))
+
+
+class MnistDataSetIterator(BaseDatasetIterator):
+    """``MnistDataSetIterator`` (IDX-file MNIST w/ offline fallback)."""
+
+    def __init__(self, batch: int = 100, num_examples: int = 0, **kw):
+        super().__init__(batch, num_examples, MnistDataFetcher(**kw))
+
+
+class CurvesDataSetIterator(BaseDatasetIterator):
+    """``CurvesDataSetIterator`` (synthesized curves; see the fetcher)."""
+
+    def __init__(self, batch: int = 100, num_examples: int = 0, **kw):
+        super().__init__(batch, num_examples, CurvesDataFetcher(**kw))
+
+
+class CSVDataSetIterator(BaseDatasetIterator):
+    """``CSVDataSetIterator``."""
+
+    def __init__(self, batch: int, num_examples: int, path, label_col: int = -1, **kw):
+        super().__init__(batch, num_examples, CSVDataFetcher(path, label_col, **kw))
+
+
+class ListDataSetIterator(_IterBase):
+    """``ListDataSetIterator`` — iterate over an in-memory list of examples."""
+
+    def __init__(self, data: DataSet | Sequence[DataSet], batch: int = 10):
+        ds = data if isinstance(data, DataSet) else DataSet.merge(list(data))
+        self.data = ds
+        self._batch = batch
+        self._cursor = 0
+        self.pre_processor: DataSetPreProcessor | None = None
+
+    def has_next(self) -> bool:
+        return self._cursor < self.data.num_examples()
+
+    def next(self, num: int | None = None) -> DataSet:
+        n = num or self._batch
+        end = min(self._cursor + n, self.data.num_examples())
+        ds = DataSet(self.data.features[self._cursor:end], self.data.labels[self._cursor:end])
+        self._cursor = end
+        return self.pre_processor(ds) if self.pre_processor else ds
+
+    def total_examples(self) -> int:
+        return self.data.num_examples()
+
+    def input_columns(self) -> int:
+        return self.data.num_inputs()
+
+    def total_outcomes(self) -> int:
+        return self.data.num_outcomes()
+
+    def reset(self) -> None:
+        self._cursor = 0
+
+    def batch(self) -> int:
+        return self._batch
+
+    def cursor(self) -> int:
+        return self._cursor
+
+    def set_pre_processor(self, pre: DataSetPreProcessor) -> None:
+        self.pre_processor = pre
+
+
+class TestDataSetIterator(ListDataSetIterator):
+    """``datasets/test/TestDataSetIterator.java`` — wrap any DataSet for
+    tests (main-tree fixture in the reference as well)."""
+
+    __test__ = False  # not a pytest class despite the name
+
+
+# --------------------------------------------------------------------------- wrappers
+
+class MultipleEpochsIterator(_IterBase):
+    """``MultipleEpochsIterator.java`` — replay an iterator N epochs."""
+
+    def __init__(self, num_epochs: int, inner):
+        self.num_epochs = num_epochs
+        self.inner = inner
+        self.epoch = 0
+
+    def has_next(self) -> bool:
+        return self.epoch < self.num_epochs - 1 or self.inner.has_next()
+
+    def next(self, num: int | None = None) -> DataSet:
+        if not self.inner.has_next():
+            self.inner.reset()
+            self.epoch += 1
+        return self.inner.next(num)
+
+    def reset(self) -> None:
+        self.epoch = 0
+        self.inner.reset()
+
+    def total_examples(self) -> int:
+        return self.inner.total_examples() * self.num_epochs
+
+    def input_columns(self) -> int:
+        return self.inner.input_columns()
+
+    def total_outcomes(self) -> int:
+        return self.inner.total_outcomes()
+
+    def batch(self) -> int:
+        return self.inner.batch()
+
+    def cursor(self) -> int:
+        return self.inner.cursor()
+
+    def set_pre_processor(self, pre) -> None:
+        self.inner.set_pre_processor(pre)
+
+
+class SamplingDataSetIterator(_IterBase):
+    """``SamplingDataSetIterator`` — draw with-replacement samples from a
+    base DataSet for a fixed number of batches."""
+
+    def __init__(self, data: DataSet, batch: int, total_batches: int, seed: int = 0):
+        self.data = data
+        self._batch = batch
+        self.total_batches = total_batches
+        self._count = 0
+        self._rng = np.random.default_rng(seed)
+        self.pre_processor: DataSetPreProcessor | None = None
+
+    def has_next(self) -> bool:
+        return self._count < self.total_batches
+
+    def next(self, num: int | None = None) -> DataSet:
+        n = num or self._batch
+        idx = self._rng.choice(self.data.num_examples(), size=n, replace=True)
+        self._count += 1
+        ds = DataSet(self.data.features[idx], self.data.labels[idx])
+        return self.pre_processor(ds) if self.pre_processor else ds
+
+    def reset(self) -> None:
+        self._count = 0
+
+    def total_examples(self) -> int:
+        return self._batch * self.total_batches
+
+    def input_columns(self) -> int:
+        return self.data.num_inputs()
+
+    def total_outcomes(self) -> int:
+        return self.data.num_outcomes()
+
+    def batch(self) -> int:
+        return self._batch
+
+    def cursor(self) -> int:
+        return self._count * self._batch
+
+    def set_pre_processor(self, pre) -> None:
+        self.pre_processor = pre
+
+
+class ReconstructionDataSetIterator(_IterBase):
+    """``ReconstructionDataSetIterator`` — labels become the features
+    (unsupervised pretraining view)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def has_next(self) -> bool:
+        return self.inner.has_next()
+
+    def next(self, num: int | None = None) -> DataSet:
+        return self.inner.next(num).as_reconstruction()
+
+    def reset(self) -> None:
+        self.inner.reset()
+
+    def total_examples(self) -> int:
+        return self.inner.total_examples()
+
+    def input_columns(self) -> int:
+        return self.inner.input_columns()
+
+    def total_outcomes(self) -> int:
+        return self.inner.input_columns()
+
+    def batch(self) -> int:
+        return self.inner.batch()
+
+    def cursor(self) -> int:
+        return self.inner.cursor()
+
+    def set_pre_processor(self, pre) -> None:
+        self.inner.set_pre_processor(pre)
+
+
+class MovingWindowDataSetIterator(_IterBase):
+    """``MovingWindowBaseDataSetIterator.java:12`` — slide a (rows, cols)
+    window over each example image and emit the flattened windows as
+    examples (same labels)."""
+
+    def __init__(self, batch: int, data: DataSet, window_rows: int, window_cols: int):
+        feats = data.features
+        if feats.ndim == 2:
+            side = int(np.sqrt(feats.shape[1]))
+            feats = feats.reshape(-1, side, side)
+        elif feats.ndim == 4:
+            feats = feats[..., 0]
+        windows, labels = [], []
+        for i in range(feats.shape[0]):
+            img = feats[i]
+            for r in range(0, img.shape[0] - window_rows + 1, window_rows):
+                for c in range(0, img.shape[1] - window_cols + 1, window_cols):
+                    windows.append(img[r:r + window_rows, c:c + window_cols].reshape(-1))
+                    labels.append(data.labels[i])
+        self._list = ListDataSetIterator(
+            DataSet(np.stack(windows), np.stack(labels)), batch)
+
+    def __getattr__(self, name):
+        return getattr(self._list, name)
+
+    def __iter__(self):
+        return iter(self._list)
+
+
 
 
 def _map(batch, fn):

@@ -17,12 +17,14 @@ writes only the per-token ``w * (lse - gold)`` and ``lse``.
   term added to dhead through an accumulating ``index_put_`` (repeated
   targets summed in token order, so the step repeats bitwise on the GPU);
   targets get no gradient.
-  Any N and V work: the kernel masks the ragged edges itself.  The bf16
-  kernel reads h and head through TMA maps, whose row strides are
-  multiples of 16 bytes: the tied head ``tok_embed.T`` (a K-major view)
-  and a row-major (D, V) head with V % 8 == 0 go in as they are; any other
-  head is copied, its columns padded with zeros to a multiple of 8 (the
-  kernel masks them by the real V).  On a CUDA tensor the kernel runs or
+  Any N, D and V work: the kernel masks the ragged edges itself.  The
+  bf16 kernel reads h and head through TMA maps, whose row strides are
+  multiples of 16 bytes: h with D % 8 != 0 is copied with D padded by
+  zero columns, and the head by zero rows (``_pad_d``); the tied head
+  ``tok_embed.T`` (a K-major view) and a row-major (D, V) head with
+  V % 8 == 0 go in as they are; any other head is copied, its columns
+  padded with zeros to a multiple of 8 (the kernel masks them by the
+  real V).  On a CUDA tensor the kernel runs or
   the call raises.
 - :func:`_scan_xent_sum` is the torch incumbent: checkpointed token tiles
   whose logits do materialize.
@@ -95,6 +97,20 @@ def _tma_head(head):
     return padded, False
 
 
+def _pad_d(h, head):
+    """``(h, head)`` with D padded to a multiple of 8 by zero columns of
+    ``h`` and zero rows of ``head``, for the bf16 kernel's TMA maps (rows
+    of 16 bytes): the added products are zero, so the logits are exact."""
+    n, d = h.shape
+    d8 = -(-d // 8) * 8
+    hp = torch.zeros((n, d8), dtype=h.dtype, device=h.device)
+    hp[:, :d] = h
+    headp = torch.zeros((d8, head.shape[1]), dtype=head.dtype,
+                        device=head.device)
+    headp[:d] = head
+    return hp, headp
+
+
 def _launch(h, head, targets, weights, n_splits=None):
     what = "blocked_cross_entropy"
     if h.device.type != "cuda":
@@ -118,8 +134,8 @@ def _launch(h, head, targets, weights, n_splits=None):
             and weights.is_contiguous()):
         raise ValueError(f"{what}: h, targets and weights must be contiguous")
     if h.dtype == torch.bfloat16 and (d % 8 or h.data_ptr() % 16):
-        raise ValueError(f"{what}: bf16 rows must be 16-byte aligned "
-                         f"(D={d} a multiple of 8)")
+        h, head = _pad_d(h, head)
+        d = h.shape[1]
     kmajor = False
     if h.dtype == torch.bfloat16:
         head, kmajor = _tma_head(head)

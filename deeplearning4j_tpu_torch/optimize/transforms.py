@@ -2,7 +2,9 @@
 
 Port of ``deeplearning4j_tpu/optimize/transforms.py``: each transform is
 an ``(init, update)`` pair, ``chain`` composes them, ``apply_updates``
-subtracts the result.  Trees are nested dicts/lists/tuples of tensors
+subtracts the result, and ``from_conf`` assembles the DL4J
+post-processing chain of a ``NeuralNetConfiguration`` (AdaGrad or plain
+LR, momentum, L2, the unit-norm clip).  Trees are nested dicts/lists/tuples of tensors
 (``utils.tree_math``).  Optimizer state is always f32, as in the
 reference.  Updates are functional, as in JAX: every call returns new
 tensors and leaves its inputs untouched; the heavy per-leaf arithmetic
@@ -19,13 +21,16 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from contextvars import ContextVar
-from typing import Any, Callable, NamedTuple
+from typing import TYPE_CHECKING, Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..utils import tree_math as tm
 from ..utils.tree_math import tree_leaves, tree_map, tree_unflatten
+
+if TYPE_CHECKING:
+    from ..nn.conf import NeuralNetConfiguration
 
 
 class GradientTransform(NamedTuple):
@@ -252,11 +257,76 @@ def momentum(base: float,
     return GradientTransform(_f32_zeros, update)
 
 
+def weight_decay(l2: float) -> GradientTransform:
+    """L2 regularization ``g += l2 * w`` on the weight-class leaves
+    (``decay_leaf_mask``): biases stay unregularized, as in the reference."""
+
+    def update(grads, s, params=None, iteration=0):
+        if params is None:
+            return grads, s
+        return l2_grad(l2, grads, params), s
+
+    return GradientTransform(lambda p: (), update)
+
+
+def l2_grad(l2: float, grads, params):
+    """``g + l2*w`` over the leaves ``weight_decay`` touches."""
+    return tree_map(lambda g, w, m: g + l2 * w if m else g,
+                    grads, params, decay_leaf_mask(params))
+
+
+def l2_penalty(l2: float, params) -> torch.Tensor:
+    """``0.5*l2*||W||^2`` over the leaves ``weight_decay`` touches: the
+    value that matches the decayed direction (line-search probes)."""
+    leaves = [0.5 * l2 * torch.sum(w * w)
+              for w, m in zip(tree_leaves(params),
+                              tree_leaves(decay_leaf_mask(params)))
+              if m]
+    return sum(leaves) if leaves else torch.zeros(())
+
+
+def clip_unit_norm() -> GradientTransform:
+    """``constrainGradientToUnitNorm``: scale the whole gradient to unit L2."""
+
+    def update(grads, s, params=None, iteration=0):
+        return tm.unit_norm(grads), s
+
+    return GradientTransform(lambda p: (), update)
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransform:
     def update(grads, s, params=None, iteration=0):
         return tm.clip_by_global_norm(grads, max_norm), s
 
     return GradientTransform(lambda p: (), update)
+
+
+def divide_by_batch(batch_size_fn: Callable[[], float] | float
+                    ) -> GradientTransform:
+    def update(grads, s, params=None, iteration=0):
+        bs = batch_size_fn() if callable(batch_size_fn) else batch_size_fn
+        return tree_map(lambda g: g / bs, grads), s
+
+    return GradientTransform(lambda p: (), update)
+
+
+def from_conf(conf: NeuralNetConfiguration) -> GradientTransform:
+    """The reference's post-processing chain of a conf, in its order:
+    AdaGrad (or plain LR), momentum, L2 — added after the adaptive-LR
+    scaling, so the decay term is not rescaled by the per-param learning
+    rate — then the unit-norm clip."""
+    parts: list[GradientTransform] = []
+    if conf.use_adagrad:
+        parts.append(adagrad(conf.lr))
+    else:
+        parts.append(sgd_lr(conf.lr))
+    if conf.momentum > 0 or conf.momentum_schedule:
+        parts.append(momentum(conf.momentum, conf.momentum_schedule))
+    if conf.use_regularization and conf.l2 > 0:
+        parts.append(weight_decay(conf.l2))
+    if conf.constrain_gradient_to_unit_norm:
+        parts.append(clip_unit_norm())
+    return chain(*parts) if parts else identity()
 
 
 def apply_updates(params, updates):

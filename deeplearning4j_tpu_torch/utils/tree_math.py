@@ -1,9 +1,9 @@
 """Parameter trees (nested dicts, lists and tuples of tensors) and their
 arithmetic.
 
-A port of the part of ``deeplearning4j_tpu/utils/tree_math.py`` the
-optimizers call (``dot``, ``norm2``, ``scale``, ``clip_by_global_norm``),
-plus the three tree walks JAX's ``tree_util`` gave the reference:
+A port of ``deeplearning4j_tpu/utils/tree_math.py`` (``add``, ``sub``,
+``scale``, ``axpy``, ``dot``, ``norm2``, ``neg``, ``zeros_like``,
+``max_abs``, ``clip_by_global_norm``, ``unit_norm``), plus the three tree walks JAX's ``tree_util`` gave the reference:
 :func:`tree_leaves`, :func:`tree_unflatten` and :func:`tree_map`.  Dict
 keys are visited in sorted order, as ``jax.tree_util`` visits them; an
 empty tuple is an empty subtree.  Everything else (a tensor, a bool) is a
@@ -51,8 +51,21 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
 def scale(s, a):
     return tree_map(lambda x: s * x, a)
+
+
+def axpy(s, a, b):
+    """b + s*a."""
+    return tree_map(lambda x, y: y + s * x, a, b)
 
 
 def dot(a, b) -> torch.Tensor:
@@ -64,7 +77,24 @@ def norm2(a) -> torch.Tensor:
     return torch.sqrt(dot(a, a))
 
 
+def neg(a):
+    return tree_map(torch.neg, a)
+
+
+def zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def max_abs(a) -> torch.Tensor:
+    return torch.stack([x.abs().max() for x in tree_leaves(a)]).max()
+
+
 def clip_by_global_norm(a, max_norm: float):
     """``a`` scaled by ``min(1, max_norm / ||a||)`` (no host sync)."""
     factor = torch.clamp(max_norm / (norm2(a) + 1e-12), max=1.0)
     return scale(factor, a)
+
+
+def unit_norm(a):
+    """Scale to unit L2 norm (``constrainGradientToUnitNorm``)."""
+    return scale(1.0 / (norm2(a) + 1e-12), a)

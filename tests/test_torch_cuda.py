@@ -624,3 +624,147 @@ def test_blocked_xent_kernel_matches_plain(dev, N, V, D, dtype, tied):
     assert (lse - rl).abs().max().item() < 2e-5 * (1 + rl.abs().max().item())
     assert (wloss - rw).abs().max().item() < 2e-5 * (1 + rw.abs().max().item())
     assert wloss[0].item() == 0.0
+
+
+# ------------------------------------------------------------------ the DL4J stack
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N", [37, 8192])
+def test_blocked_mcxent_at_the_dbn_head(dev, N, dtype):
+    """``losses.score("blocked_mcxent", y, (h, head))`` at the DBN head's
+    D = 250, V = 10: the bf16 kernel takes D padded to 256 (zero columns
+    of h, zero rows of the head), the f32 kernel D as it is."""
+    from deeplearning4j_tpu_torch.ops import losses
+    from deeplearning4j_tpu_torch.ops.cuda import xent as txe
+    g = torch.Generator(device=dev).manual_seed(N)
+    h = torch.rand((N, 250), generator=g, device=dev).to(dtype)
+    head = (0.1 * torch.randn((250, 10), generator=g, device=dev)).to(dtype)
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, 10, (N,), generator=g, device=dev), 10).float()
+    before = txe.blocked_cross_entropy.launches
+    got = losses.score("blocked_mcxent", y, (h, head))
+    torch.cuda.synchronize()
+    assert txe.blocked_cross_entropy.launches == before + 1
+    rw, _ = txe.reference_xent_rows(h, head, y.argmax(-1).int(),
+                                    torch.ones(N, device=dev))
+    want = rw.sum() / N
+    assert abs(got.item() - want.item()) < 1e-5 * (1 + abs(want.item()))
+
+
+def _mlp_twins(dev, algo="iteration_gradient_descent", iterations=5):
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.conf import OptimizationAlgorithm
+    nets = []
+    for d in ("cpu", dev):
+        net = zoo.mlp(32, 4, hidden=(16,), num_iterations=iterations,
+                      device=d)
+        if algo != "iteration_gradient_descent":
+            confs = list(net.conf.confs)
+            confs[-1] = confs[-1].replace(
+                optimization_algo=OptimizationAlgorithm(algo))
+            net = type(net)(net.conf.replace(confs=tuple(confs)), device=d)
+        net.init(0)
+        nets.append(net)
+    rng = np.random.default_rng(0)
+    x = (rng.uniform(size=(64, 32)) > 0.5).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[np.argmax(
+        x @ rng.standard_normal((32, 4)), 1)]
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    return nets, DataSet(x, y)
+
+
+def _rel(a, b) -> float:
+    return max(((pa[k].cpu() - pb[k].cpu()).abs().max()
+                / pb[k].cpu().abs().max()).item()
+               for pa, pb in zip(a, b) for k in pb)
+
+
+def test_multilayer_fit_on_the_card_matches_the_cpu(dev):
+    (cpu, gpu), ds = _mlp_twins(dev)
+    cpu.fit(ds)
+    gpu.fit(ds)
+    assert gpu.params[0]["W"].device.type == "cuda"
+    assert _rel(gpu.params, cpu.params) < 1e-4
+    assert abs(gpu.score() - cpu.score()) < 1e-4 * abs(cpu.score())
+
+
+def test_hessian_free_cg_solve_makes_no_host_sync(dev, monkeypatch):
+    from deeplearning4j_tpu_torch.optimize import solvers
+    (cpu, gpu), ds = _mlp_twins(dev, "hessian_free", iterations=2)
+    orig = solvers.StochasticHessianFree._cg_solve
+
+    def guarded(self, *a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(self, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(solvers.StochasticHessianFree, "_cg_solve", guarded)
+    gpu.fit(ds)
+    cpu.fit(ds)
+    assert _rel(gpu.params, cpu.params) < 1e-4
+
+
+def test_f32_convolution_runs_without_tf32(dev):
+    """cuDNN takes TF32 for float32 convolutions by default on Hopper;
+    the port's f32 is plain f32 (TF32 would be ~1e-3 off here), in the
+    forward and in the backward that ``utils.autodiff`` runs."""
+    from deeplearning4j_tpu_torch.ops import convolution as conv
+    from deeplearning4j_tpu_torch.utils.autodiff import value_and_grad
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 16, 28, 28), generator=g)
+    w = torch.randn((32, 16, 5, 5), generator=g)
+    u = torch.randn((8, 32, 28, 28), generator=g)
+
+    def f(w, x, u):
+        return (conv.conv2d(x, w, (1, 1), "SAME") * u).sum()
+
+    want = conv.conv2d(x.double(), w.double(), (1, 1), "SAME")
+    got = conv.conv2d(x.to(dev), w.to(dev), (1, 1), "SAME").cpu().double()
+    assert ((got - want).abs().max() / want.abs().max()).item() < 1e-5
+    _, gw_want = value_and_grad(f)(w.double(), x.double(), u.double())
+    _, gw = value_and_grad(f)(w.to(dev), x.to(dev), u.to(dev))
+    gw = gw.cpu().double()
+    assert ((gw - gw_want).abs().max() / gw_want.abs().max()).item() < 1e-5
+    assert torch.backends.cudnn.allow_tf32        # the flag is scoped
+
+
+def test_dbn_pretrains_and_finetunes_on_the_card(dev):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    net = zoo.dbn(32, 4, hidden=(24, 12), pretrain_iterations=5,
+                  finetune_iterations=5, device=dev)
+    net.init(0)
+    rng = np.random.default_rng(1)
+    x = (rng.uniform(size=(128, 32)) > 0.5).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 128)]
+    net.fit(DataSet(x, y))
+    assert np.isfinite(net.score()) and net.params[0]["W"].is_cuda
+    ev = net.evaluate(DataSet(x, y))
+    assert 0.0 <= ev.f1() <= 1.0
+
+
+def test_cli_trains_and_evaluates_on_the_card(dev, tmp_path, monkeypatch,
+                                              capsys):
+    from deeplearning4j_tpu_torch import __main__ as cli
+    from deeplearning4j_tpu_torch.datasets import fetchers, mnist_idx
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (600, 28, 28), dtype=np.uint8)
+    lbls = np.argmax((imgs.reshape(600, -1) > 127) @ rng.standard_normal(
+        (784, 10)), 1).astype(np.uint8)
+    (tmp_path / "mnist").mkdir()
+    mnist_idx.write_idx_images(tmp_path / "mnist/train-images-idx3-ubyte",
+                               imgs)
+    mnist_idx.write_idx_labels(tmp_path / "mnist/train-labels-idx1-ubyte",
+                               lbls)
+    monkeypatch.setattr(fetchers, "DEFAULT_BASE_DIR", tmp_path)
+    out = tmp_path / "net.pkl"
+    assert cli.main(["train", "--dataset", "mnist", "--batch", "600",
+                     "--iterations", "20", "--out", str(out)]) == 0
+    trained = capsys.readouterr().out
+    assert cli.main(["evaluate", str(out), "--dataset", "mnist",
+                     "--batch", "600"]) == 0
+    evaluated = capsys.readouterr().out
+    assert evaluated.strip() in trained

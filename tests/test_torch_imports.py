@@ -39,7 +39,14 @@ def test_port_imports_no_jax_and_no_jax_package():
             "resilience/supervisor.py", "parallel/mesh.py",
             "parallel/zero.py", "parallel/checkpoint.py",
             "parallel/trainer.py", "datasets/dataset.py",
-            "datasets/iterator.py"} <= mods
+            "datasets/iterator.py", "datasets/fetchers.py",
+            "datasets/mnist_idx.py", "ops/dtypes.py", "ops/rng.py",
+            "ops/sampling.py", "ops/activations.py", "ops/linalg.py",
+            "ops/losses.py", "ops/convolution.py", "nn/conf.py",
+            "nn/weights.py", "nn/layers.py", "nn/multilayer.py",
+            "optimize/transforms.py", "optimize/api.py",
+            "optimize/solvers.py", "evaluation/evaluation.py",
+            "models/zoo.py", "utils/autodiff.py", "__main__.py"} <= mods
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -86,7 +93,7 @@ def test_guard_flags_what_it_should():
     assert not _forbidden("deeplearning4j_tpu_torch.ops")
 
 
-def _entry_points():
+def _entry_points(tmp_path):
     from deeplearning4j_tpu_torch import resolve_device
     from deeplearning4j_tpu_torch.models import transformer as ttr
     from deeplearning4j_tpu_torch.models import zoo
@@ -99,7 +106,24 @@ def _entry_points():
                                 n_layers=1, d_ff=16, max_len=8)
     cpu_model = ttr.TransformerLM(cfg, device="cpu")
     params = cpu_model.init()
+    from deeplearning4j_tpu_torch import __main__ as cli
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import rng
+
+    mlp = zoo.mlp(4, 3, device="cpu")
     return {
+        "MultiLayerNetwork": lambda: MultiLayerNetwork(mlp.conf),
+        "MultiLayerNetwork.load": lambda: MultiLayerNetwork.load(
+            _saved(mlp, tmp_path)),
+        "zoo.mlp": lambda: zoo.mlp(4, 3),
+        "zoo.dbn": lambda: zoo.dbn(4, 3),
+        "zoo.stacked_denoising_autoencoder":
+            lambda: zoo.stacked_denoising_autoencoder(4, 3),
+        "zoo.lenet": lambda: zoo.lenet(10),
+        "RngStream": lambda: rng.RngStream(0),
+        "key_for": lambda: rng.key_for(0),
+        "cli train": lambda: cli.main(["train", "--dataset", "iris"]),
+        "cli evaluate": lambda: cli.main(["evaluate", _saved(mlp, tmp_path)]),
         "resolve_device": lambda: resolve_device(),
         "resolve_device_cuda": lambda: resolve_device("cuda"),
         "TransformerLM": lambda: ttr.TransformerLM(cfg),
@@ -115,16 +139,24 @@ def _entry_points():
     }
 
 
+def _saved(net, tmp_path) -> str:
+    path = str(tmp_path / "net.pkl")
+    net.save(path)
+    return path
+
+
 @pytest.mark.parametrize("name", sorted([
     "resolve_device", "resolve_device_cuda", "TransformerLM", "init_params",
     "init_decode_cache", "init_paged_cache", "InferenceEngine",
     "init_cls_head", "draft_lm", "DataParallelTrainer",
-    "prefetch_to_device"]))
-def test_entry_points_raise_without_cuda(name, monkeypatch):
+    "prefetch_to_device", "MultiLayerNetwork", "MultiLayerNetwork.load",
+    "zoo.mlp", "zoo.dbn", "zoo.stacked_denoising_autoencoder", "zoo.lenet",
+    "RngStream", "key_for", "cli train", "cli evaluate"]))
+def test_entry_points_raise_without_cuda(name, monkeypatch, tmp_path):
     """Without ``device="cpu"`` an entry point asks for CUDA; with no GPU
     (forced here, so the test means the same on any machine) it raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    fn = _entry_points()[name]
+    fn = _entry_points(tmp_path)[name]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fn()
 

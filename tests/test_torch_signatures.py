@@ -61,6 +61,34 @@ MODULES = [
      "deeplearning4j_tpu.datasets.dataset"),
     ("deeplearning4j_tpu_torch.datasets.iterator",
      "deeplearning4j_tpu.datasets.iterator"),
+    ("deeplearning4j_tpu_torch.datasets.fetchers",
+     "deeplearning4j_tpu.datasets.fetchers"),
+    ("deeplearning4j_tpu_torch.datasets.mnist_idx",
+     "deeplearning4j_tpu.datasets.mnist_idx"),
+    ("deeplearning4j_tpu_torch.ops.dtypes", "deeplearning4j_tpu.ops.dtypes"),
+    ("deeplearning4j_tpu_torch.ops.rng", "deeplearning4j_tpu.ops.rng"),
+    ("deeplearning4j_tpu_torch.ops.sampling",
+     "deeplearning4j_tpu.ops.sampling"),
+    ("deeplearning4j_tpu_torch.ops.activations",
+     "deeplearning4j_tpu.ops.activations"),
+    ("deeplearning4j_tpu_torch.ops.linalg", "deeplearning4j_tpu.ops.linalg"),
+    ("deeplearning4j_tpu_torch.ops.losses", "deeplearning4j_tpu.ops.losses"),
+    ("deeplearning4j_tpu_torch.ops.convolution",
+     "deeplearning4j_tpu.ops.convolution"),
+    ("deeplearning4j_tpu_torch.nn.conf", "deeplearning4j_tpu.nn.conf"),
+    ("deeplearning4j_tpu_torch.nn.weights", "deeplearning4j_tpu.nn.weights"),
+    ("deeplearning4j_tpu_torch.nn.layers", "deeplearning4j_tpu.nn.layers"),
+    ("deeplearning4j_tpu_torch.nn.multilayer",
+     "deeplearning4j_tpu.nn.multilayer"),
+    ("deeplearning4j_tpu_torch.optimize.transforms",
+     "deeplearning4j_tpu.optimize.transforms"),
+    ("deeplearning4j_tpu_torch.optimize.api", "deeplearning4j_tpu.optimize.api"),
+    ("deeplearning4j_tpu_torch.optimize.solvers",
+     "deeplearning4j_tpu.optimize.solvers"),
+    ("deeplearning4j_tpu_torch.evaluation.evaluation",
+     "deeplearning4j_tpu.evaluation.evaluation"),
+    ("deeplearning4j_tpu_torch.models.zoo", "deeplearning4j_tpu.models.zoo"),
+    ("deeplearning4j_tpu_torch.__main__", "deeplearning4j_tpu.__main__"),
 ]
 
 _SEED = ("the port draws from a torch.Generator or an int seed: torch "
@@ -150,6 +178,56 @@ ALLOWED = {
         "_": "takes and ignores the kernel's keywords, so the registry can "
              "call both alike (kept)",
     },
+    "ops.rng:RngStream.__init__": {"device": _DEVICE + "; keyword-only"},
+    "ops.rng:key_for": {"device": _DEVICE + "; keyword-only"},
+    "models.zoo:draft_lm": {"device": _DEVICE},
+    "nn.multilayer:MultiLayerNetwork.__init__": {
+        "device": _DEVICE + "; keyword-only"},
+    "nn.multilayer:MultiLayerNetwork.load": {
+        "device": _DEVICE + "; keyword-only"},
+    **{f"models.zoo:{name}": {"device": _DEVICE + "; keyword-only"}
+       for name in ("mlp", "dbn", "stacked_denoising_autoencoder", "lenet")},
+    **{key: {"key": _SEED, "gen": _SEED} for key in (
+        "ops.sampling:binomial", "ops.sampling:gaussian",
+        "ops.sampling:dropout_mask", "ops.sampling:uniform",
+        "ops.sampling:normal",
+        "nn.weights:init_weights", "nn.weights:init_from_conf",
+        "nn.layers:dropout_mask",
+        "nn.layers:Layer.init", "nn.layers:DenseLayer.init",
+        "nn.layers:BasePretrainLayer.init",
+        "nn.layers:BasePretrainLayer.pretrain_value_and_grad",
+        "nn.layers:AutoEncoder.corrupt", "nn.layers:AutoEncoder.pretrain_loss",
+        "nn.layers:AutoEncoder.pretrain_value_and_grad",
+        "nn.layers:RBM.sample_hidden_given_visible",
+        "nn.layers:RBM.sample_visible_given_hidden", "nn.layers:RBM.gibbs_hvh",
+        "nn.layers:RBM.pretrain_value_and_grad",
+        "nn.layers:RecursiveAutoEncoder.init",
+        "nn.layers:RecursiveAutoEncoder.pretrain_loss",
+        "nn.layers:RecursiveAutoEncoder.pretrain_value_and_grad",
+        "nn.layers:LSTM.init", "nn.layers:ConvolutionDownSampleLayer.init",
+        "nn.layers:BatchNorm.init", "nn.layers:Embedding.init",
+        "nn.multilayer:MultiLayerNetwork.init",
+        "nn.multilayer:MultiLayerNetwork.pretrain",
+        "nn.multilayer:MultiLayerNetwork.finetune",
+        "nn.multilayer:MultiLayerNetwork.fit",
+        "nn.multilayer:MultiLayerNetwork.fit_arrays",
+        "optimize.solvers:BaseOptimizer.optimize",
+        "optimize.solvers:StochasticHessianFree.optimize",
+        "optimize.solvers:Solver.optimize")},
+}
+
+#: the CLI's options that differ from the reference's: "command option"
+#: -> reason.  Every other option of every command must match the
+#: reference's in its flags, default, type and choices.
+ALLOWED_CLI = {
+    "main --platform": "a torch device that defaults to cuda where the "
+                       "reference's is a JAX platform that defaults to cpu: "
+                       "the port's entry points run on the card unless the "
+                       "CPU is asked for, and raise without one (kept)",
+    "train --platform": "also accepted after the command "
+                        "(`train --platform cpu`), as the README writes it "
+                        "(kept)",
+    "evaluate --platform": "as train's (kept)",
 }
 
 
@@ -259,3 +337,56 @@ def test_reference_keywords_reach_the_port():
                         ServingConfig(), device="cpu")
     with pytest.raises(ValueError):
         InferenceEngine(model, cfg=ServingConfig(), device="cpu")
+
+
+def _cli_options(mod) -> dict:
+    """``{"command option": (default, type, choices)}`` of a package's
+    CLI parser, captured from its ``main`` without running a command."""
+    import argparse
+
+    class Captured(Exception):
+        pass
+
+    def capture(self, *a, **kw):
+        raise Captured(self)
+
+    orig = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = capture
+    try:
+        mod.main([])
+    except Captured as e:
+        parser = e.args[0]
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    out = {}
+
+    def walk(p, name):
+        for a in p._actions:
+            if isinstance(a, argparse._SubParsersAction):
+                for cmd, sp in a.choices.items():
+                    walk(sp, cmd)
+            elif a.option_strings and "--help" not in a.option_strings:
+                key = f"{name} {max(a.option_strings, key=len)}"
+                out[key] = (repr(a.default), getattr(a.type, "__name__", None),
+                            a.choices)
+            elif not a.option_strings:
+                out[f"{name} <{a.dest}>"] = (None, None, None)
+
+    walk(parser, "main")
+    return out
+
+
+def test_cli_options_match_the_reference():
+    import deeplearning4j_tpu.__main__ as ref
+    import deeplearning4j_tpu_torch.__main__ as port
+
+    p, r = _cli_options(port), _cli_options(ref)
+    assert {k for k in p if k.startswith("train ")} >= {
+        "train --model", "train --dataset", "train --batch", "train --out"}
+    for key in sorted(set(p) | set(r)):
+        if key in ALLOWED_CLI:
+            assert key not in r or p.get(key) != r[key], \
+                f"{key} is not a difference"
+            continue
+        assert p.get(key) == r.get(key), (key, p.get(key), r.get(key))
+    assert set(ALLOWED_CLI) <= set(p)
