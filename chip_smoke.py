@@ -54,6 +54,17 @@ paths through the entry points a user calls:
    config with ``prefix_cache=True`` against the same with ``False``:
    the hit rate, and float pages' tokens equal;
 8. ``beam_search`` at width 4, 8 tokens, over the int8 serving tree;
+8b. the router phase (``run_router``): 16 requests of 4 tenants (a
+   128-token system prompt each) through two engines (A's config with the
+   prefix cache) behind ``PrefixRouter`` and ``RouterServer`` over HTTP,
+   held to one engine's tokens and hit rate, with affinity, one trace id
+   from the client to the engines' spans, exact tenant accounts,
+   ``serving.decode_mfu``/``decode_mbu`` in (0, 1], SLO burn rates read
+   back through a ``StatusServer`` scrape; the brownout ladder, an
+   over-quota tenant's 429 and an autoscaler scaling up by a warmed
+   replica and back down; a ``ProcessReplica`` of the same engine joining
+   the ring (tokens equal, its ``/metrics.prom`` federated), killed: its
+   key spills or answers 503 and its quarantine leaves a bundle;
 9. ``sample(kv_cache=False)`` against ``kv_cache=True``, greedy, 8 tokens,
    on the default causal config with ``attention="fused",
    fused_ln=True``, in bf16 (the launches) and float32 (tokens equal);
@@ -86,7 +97,9 @@ paths through the entry points a user calls:
    (engine A's config) behind ``ModelServer`` serving 8 greedy requests;
    two more steps publishing step 10, and ``ServingClient.reload()`` while
    8 requests decode: their stamps and tokens stay step 8's, and 8 later
-   requests carry step 10's and equal a fresh engine's on step 10;
+   requests carry step 10's and equal a fresh engine's on step 10; the
+   trainer's live ``train.mfu`` is held to this script's MFU of the same
+   step within ``TOL_TRAIN_MFU``;
 15. the DL4J network stack (``run_dl4j``), the README's first entry
    point: seeded MNIST-shaped IDX files (60,000 images, labels from a
    linear teacher) in a temporary ``DL4J_TPU_DATA``; ``python -m
@@ -1155,11 +1168,14 @@ def run_engine(eng, tmodel, params, scfg, prompts, wrappers, label,
     """Serve ``prompts`` as concurrent greedy requests; returns the engine
     (still running) and the report with the served tokens and the launch
     counts of this run alone (reset after warm-up, read at the end)."""
+    from deeplearning4j_tpu_torch.observability import METRICS
+
     mcfg = tmodel.cfg
     engine = eng.InferenceEngine(tmodel, params, cfg=scfg, device=dev,
                                  **engine_kw)
     engine.start()                     # builds/loads the kernels, warms up
     reset_counts(wrappers)             # counts of THIS path only
+    METRICS.reset()                    # and the registry's (process-wide)
     t0 = time.perf_counter()
     handles = [engine.submit(p, max_new) for p in prompts]
     comps = [h.result(timeout=600) for h in handles]
@@ -1171,7 +1187,7 @@ def run_engine(eng, tmodel, params, scfg, prompts, wrappers, label,
                  f"{len(c.tokens)} tokens")
         if any(not 0 <= t < mcfg.vocab_size for t in c.tokens):
             fail(f"{label}: token out of range")
-    snap = engine.metrics.snapshot()
+    snap = METRICS.snapshot()
     timers, counters = snap["timers"], snap["counters"]
     tokens = sum(len(c.tokens) for c in comps)
     # prefill runs prompt[:-1] token by token (M=1) past the positions the
@@ -1413,6 +1429,445 @@ def prefix_teacher_forced(eng, tmodel, params, prompts, served, extra,
             "hits": hits}
 
 
+# ------------------------------------------------------------------ router
+
+#: the router phase: 4 tenants x 4 requests, each a tenant's 128-token
+#: system prompt, a 16-64-token suffix and 16 new tokens; engine A's
+#: serving config with the prefix cache; weights from ROUTER_SEED
+ROUTER_TENANTS, ROUTER_PER_TENANT = 4, 4
+ROUTER_SYSTEM, ROUTER_SUFFIX, ROUTER_NEW = 128, (16, 64), 16
+ROUTER_SEED = 5
+ROUTER_SERVING = dict(slots=8, paged=True, page_size=16, int8_decode=True,
+                      prefix_cache=True, paged_attention_impl="pallas")
+#: the scripted burn sequence the brownout ladder takes, and its levels
+BROWNOUT_BURNS = (0.5, 1.5, 2.5, 5.0, 1.5, 0.4, 0.4, 0.2)
+BROWNOUT_LEVELS = (0, 1, 2, 3, 2, 1, 0, 0)
+
+
+def router_model(seed=ROUTER_SEED, device="cuda", **cfg_kw):
+    """The router phase's model: the flagship's full width unless
+    ``cfg_kw`` narrows it (``dtype`` by name), weights drawn from ``seed``
+    on a CPU generator and then placed on ``device``, so that every
+    process builds the same."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+
+    if "dtype" in cfg_kw:
+        cfg_kw["dtype"] = getattr(torch, cfg_kw["dtype"])
+    model = ttr.TransformerLM(ttr.TransformerConfig(**cfg_kw), device=device)
+    return model, model.init(torch.Generator().manual_seed(seed))
+
+
+def router_engine(seed=ROUTER_SEED, device="cuda", **cfg_kw):
+    """An unstarted engine of the router phase (``ROUTER_SERVING``): the
+    ``ProcessReplica`` factory, ``chip_smoke:router_engine``."""
+    from deeplearning4j_tpu_torch.serving import engine as eng
+
+    model, params = router_model(seed, device, **cfg_kw)
+    return eng.InferenceEngine(model, params,
+                               cfg=eng.ServingConfig(**ROUTER_SERVING),
+                               device=device)
+
+
+def _by_tenant(pool, plans, send):
+    """Each tenant's requests in order on a thread of its own (so a
+    tenant's later requests find its system prompt cached); the answers
+    by (tenant, index)."""
+    futs = {t: pool.submit(lambda ps=ps, t=t: [send(t, p) for p in ps])
+            for t, ps in plans.items()}
+    return {(t, i): out for t, f in futs.items()
+            for i, out in enumerate(f.result(timeout=1800))}
+
+
+def run_router(torch, eng, wrappers, card, dev="cuda", cfg_kw=None,
+               boot_timeout_s=900.0, expect_launches=True):
+    """The prefix-affinity router, observability and the control plane on
+    the flagship (``cfg_kw`` narrows it for a CPU rehearsal):
+
+    1. one engine (``ROUTER_SERVING``) serves the phase's 16 requests, 4
+       tenants on 4 threads: the single-replica tokens and hit rate;
+    2. two ``EngineReplica`` s behind ``PrefixRouter(RouterConfig(
+       page_size=16, affinity_pages=4))`` and a ``RouterServer``, the same
+       requests through ``ServingClient`` over HTTP, each in a client
+       span, a ``TimeSeriesStore`` at 0.1 s with ``SLOEvaluator(
+       default_serving_objectives())`` sampling beside them: tokens equal
+       the single engine's, each tenant on one replica, the aggregate hit
+       rate at least the single replica's, one trace id from the client
+       through ``router.request`` / ``router.route`` to the replica's
+       ``serving.*`` spans, ``TENANTS`` exactly each tenant's prompt and
+       generated tokens, ``serving.decode_mfu`` / ``decode_mbu`` in
+       (0, 1]; ``slo.burn_rate.*`` published and read back through a
+       ``StatusServer`` scrape and ``parse_prometheus``;
+    3. control: ``BROWNOUT_BURNS`` through a ``BrownoutController`` on
+       one engine follow ``BROWNOUT_LEVELS`` (the clamp shortens a
+       request to a prefix of its tokens; level 3 sheds background work);
+       an over-quota tenant gets ``Throttled`` (429) and
+       ``tenant.<t>.throttled``; ``Autoscaler.step`` over
+       ``router_actuators`` scales up by one warmed ``EngineReplica`` on a
+       forced burn and back down after two quiet windows;
+    4. a ``ProcessReplica`` of the same engine joins through
+       ``router.scale_up``: its tokens equal the in-process ones,
+       ``FleetScraper`` federates its ``/metrics.prom``; after ``kill()``
+       a key it owned spills or answers 503 within the client timeout,
+       and its quarantine leaves a flight-recorder bundle naming it."""
+    import concurrent.futures as cf
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import observability as tobs
+    from deeplearning4j_tpu_torch.control import (Autoscaler,
+                                                  AutoscalerConfig,
+                                                  BrownoutConfig,
+                                                  BrownoutController,
+                                                  ControlSignals,
+                                                  OverloadGate, Throttled,
+                                                  TokenBucketAdmission)
+    from deeplearning4j_tpu_torch.control.autoscaler import router_actuators
+    from deeplearning4j_tpu_torch.control.overload import BucketConfig
+    from deeplearning4j_tpu_torch.serving import (EngineReplica,
+                                                  PrefixRouter,
+                                                  ProcessReplica,
+                                                  RouterConfig, RouterServer,
+                                                  ServingClient, ServingError)
+
+    t_phase = time.perf_counter()
+    cfg_kw = dict(cfg_kw or {})
+    rng = np.random.default_rng(ROUTER_SEED)
+    model, params = router_model(ROUTER_SEED, dev, **dict(cfg_kw))
+    vocab = model.cfg.vocab_size
+    scfg = eng.ServingConfig(**ROUTER_SERVING)
+    tenants = [f"tenant{i}" for i in range(ROUTER_TENANTS)]
+    heads = {t: rng.integers(0, vocab, ROUTER_SYSTEM).tolist()
+             for t in tenants}
+    plans = {t: [heads[t] + rng.integers(0, vocab, int(rng.integers(
+        ROUTER_SUFFIX[0], ROUTER_SUFFIX[1] + 1))).tolist()
+        for _ in range(ROUTER_PER_TENANT)] for t in tenants}
+    n_req = ROUTER_TENANTS * ROUTER_PER_TENANT
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_router-"))
+    old_dump = tobs.FLIGHTREC.dump_dir
+    tobs.FLIGHTREC.dump_dir = work / "flightrec"
+    pool = cf.ThreadPoolExecutor(max_workers=ROUTER_TENANTS)
+    timings = {}
+
+    def make_engine():
+        t0 = time.perf_counter()
+        e = eng.InferenceEngine(model, params, cfg=scfg, device=dev)
+        e.start()
+        timings.setdefault("engine_start_s", []).append(
+            time.perf_counter() - t0)
+        return e
+
+    try:
+        # ---- 1. one replica: the tokens and the hit rate to match
+        single = make_engine()
+        t0 = time.perf_counter()
+        base = _by_tenant(pool, plans, lambda t, p: single.generate(
+            p, ROUTER_NEW, tenant=t, timeout=900).tokens)
+        single_s = time.perf_counter() - t0
+        single_hit = single.stats()["prefix_hit_rate"]
+        single.stop()
+        del single
+
+        # ---- 2. two replicas behind the router, over HTTP
+        engines = [make_engine() for _ in range(2)]
+        reps = [EngineReplica(f"r{i}", e, own_engine=True)
+                for i, e in enumerate(engines)]
+        # requests wait on the host-bound prefill of the others: a
+        # timeout of 600 s, not the default 60, so no slow answer is
+        # taken for a dead replica
+        router = PrefixRouter(reps, RouterConfig(page_size=16,
+                                                 affinity_pages=4,
+                                                 request_timeout_s=600.0))
+        tobs.METRICS.reset()
+        tobs.TENANTS.reset()
+        tobs.TRACER.clear()
+        store = tobs.TimeSeriesStore(interval_s=0.1)
+        slo = tobs.SLOEvaluator(tobs.default_serving_objectives(), store)
+        server = RouterServer(router).start()
+        client = ServingClient(port=server.port, timeout_s=900)
+        store.start()
+
+        def send(t, p):
+            with tobs.trace.span("client.generate", tenant=t) as sp:
+                out = client.generate(p, ROUTER_NEW, tenant=t)
+            out["trace_id"] = sp.trace_id
+            return out
+
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        served = _by_tenant(pool, plans, send)
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        time.sleep(0.35)                  # a few more samples, then stop
+        store.stop()
+        router.pool.probe_once()
+        snap = tobs.METRICS.snapshot()
+        counters, gauges, timers = (snap["counters"], snap["gauges"],
+                                    snap["timers"])
+        bad = [k for k in base if served[k]["tokens"] != base[k]]
+        if bad:
+            fail(f"router: tokens differ from one engine's for {bad}")
+        homes = {t: {served[(t, i)]["replica"]
+                     for i in range(ROUTER_PER_TENANT)} for t in tenants}
+        spills = int(counters.get("router.spillover", 0))
+        if any(len(h) != 1 for h in homes.values()) or spills:
+            fail(f"router: tenants spread over replicas {homes}, "
+                 f"{spills} spills")
+        hit = gauges["router.prefix_hit_rate"]
+        if not hit >= single_hit:
+            fail(f"router: aggregate prefix hit rate {hit} below one "
+                 f"replica's {single_hit}")
+        want_spans = {"client.generate", "router.request", "router.route",
+                      "serving.queue_wait", "serving.prefill",
+                      "serving.decode.segment", "serving.emit",
+                      "serving.request"}
+        events = tobs.TRACER.to_chrome_trace()["traceEvents"]
+        by_trace = {}
+        for ev in events:
+            tid = (ev.get("args") or {}).get("trace_id")
+            by_trace.setdefault(tid, set()).add(ev["name"])
+        short = {k: sorted(want_spans - by_trace.get(o["trace_id"], set()))
+                 for k, o in served.items()
+                 if not want_spans <= by_trace.get(o["trace_id"], set())}
+        if short:
+            fail(f"router: requests missing spans under their trace id: "
+                 f"{short}")
+        accounts = {t: (counters.get(f"tenant.{t}.prompt_tokens"),
+                        counters.get(f"tenant.{t}.generated_tokens"))
+                    for t in tenants}
+        want_accounts = {t: (float(sum(len(p) for p in plans[t])),
+                             float(ROUTER_PER_TENANT * ROUTER_NEW))
+                         for t in tenants}
+        if accounts != want_accounts:
+            fail(f"router: tenant accounts {accounts}, the requests "
+                 f"{want_accounts}")
+        mfu, mbu = (gauges.get("serving.decode_mfu"),
+                    gauges.get("serving.decode_mbu"))
+        if not (mfu is not None and mbu is not None and 0 < mfu <= 1
+                and 0 < mbu <= 1):
+            fail(f"router: serving.decode_mfu {mfu} / decode_mbu {mbu} not "
+                 "both in (0, 1]")
+        burns = {k: v for k, v in gauges.items()
+                 if k.startswith("slo.burn_rate.")}
+        status = tobs.StatusServer().start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{status.port}/metrics.prom",
+                    timeout=30) as r:
+                scraped = tobs.parse_prometheus(r.read().decode())
+        finally:
+            status.stop()
+        read_back = {k: v for k, v in scraped["gauges"].items()
+                     if k.startswith("slo_burn_rate_")}
+        if len(burns) != 3 or len(read_back) != 3 \
+                or store.stats()["samples"] < 3:
+            fail(f"slo: burn rates {burns}, scraped {read_back}, samples "
+                 f"{store.stats()}")
+        prefill = (sum(len(p) - 1 for ps in plans.values() for p in ps)
+                   - int(counters.get("serving.prefix_cached_tokens", 0)))
+        steps = int(counters["serving.decode.dispatches"])
+        if expect_launches and (launches["int8_matmul"] <= 0
+                                or launches["paged_attention"] <= 0):
+            fail(f"router: the replicas did not run through their kernels: "
+                 f"{launches}")
+        tokens = sum(len(o["tokens"]) for o in served.values())
+        report = {
+            "requests": n_req, "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "ttft_p50_s": timers["serving.ttft"]["p50_s"],
+            "decode_step_p50_s": timers["serving.decode_step"]["p50_s"],
+            "single_replica_wall_s": single_s,
+            "prefix_hit_rate": hit, "single_replica_hit_rate": single_hit,
+            "homes": {t: sorted(h) for t, h in homes.items()},
+            "spills": spills, "decode_mfu": mfu, "decode_mbu": mbu,
+            "slo_burn_rates": burns, "slo_scraped": read_back,
+            "tenant_accounts": accounts,
+            "int8_rows": {1: prefill, scfg.slots: steps},
+            "paged_steps": steps, "kv_quant": None, "launches": launches}
+
+        # ---- 3. control: the brownout ladder on engine r0
+        clock = [0.0]
+        bc = BrownoutController(engines[0], BrownoutConfig(
+            dwell_s=1.0, clamp_max_new=ROUTER_NEW // 2),
+            clock=lambda: clock[0])
+        levels, capped, shed = [], None, None
+        probe_key = next(k for k in base if served[k]["replica"] == "r0")
+        probe = plans[probe_key[0]][probe_key[1]]
+        for b in BROWNOUT_BURNS:
+            clock[0] += 1.0
+            levels.append(bc.update(b))
+            stats = engines[0].stats()
+            if levels[-1] == 2 and capped is None:
+                if stats["max_new_cap"] != ROUTER_NEW // 2:
+                    fail(f"brownout level 2: cap {stats['max_new_cap']}")
+                capped = engines[0].generate(probe, ROUTER_NEW,
+                                             timeout=900).tokens
+            if levels[-1] == 3 and shed is None:
+                gate = OverloadGate(brownout=bc).install(engines[0])
+                try:
+                    engines[0].submit(probe, 4, priority=1)
+                    shed = False
+                except Throttled as e:
+                    shed = e.status == 429
+                engines[0].set_admission_hook(None)
+                del gate
+        final_cap = engines[0].stats()["max_new_cap"]
+        if tuple(levels) != BROWNOUT_LEVELS or capped != base[probe_key][
+                :ROUTER_NEW // 2] or not shed or final_cap is not None:
+            fail(f"brownout: levels {levels} (want {BROWNOUT_LEVELS}), "
+                 f"clamped tokens {capped}, background shed {shed}, final "
+                 f"cap {final_cap}")
+
+        # ---- an over-quota tenant
+        OverloadGate(bucket=TokenBucketAdmission(BucketConfig(
+            rate_tokens_s=1.0, burst_tokens=1.5 * ROUTER_NEW))).install(
+                engines[0])
+        first = engines[0].submit(probe, ROUTER_NEW, tenant="noisy")
+        try:
+            engines[0].submit(probe, ROUTER_NEW, tenant="noisy")
+            throttled = None
+        except Throttled as e:
+            throttled = e.status
+        engines[0].set_admission_hook(None)
+        first.result(timeout=900)
+        n_throttled = tobs.METRICS.snapshot()["counters"].get(
+            "tenant.noisy.throttled")
+        if throttled != 429 or n_throttled != 1:
+            fail(f"fair share: the over-quota tenant got {throttled}, "
+                 f"tenant.noisy.throttled={n_throttled}")
+
+        # ---- the autoscaler over the router's actuators
+        seq = [len(engines)]
+        built = {}
+
+        def factory():
+            name = f"r{seq[0]}"
+            seq[0] += 1
+            t0 = time.perf_counter()
+            built[name] = EngineReplica(name, make_engine(), own_engine=True)
+            timings["scale_up_build_s"] = time.perf_counter() - t0
+            return built[name]
+
+        acfg = AutoscalerConfig(cooldown_s=0.0, down_consecutive=2,
+                                max_replicas=4, warm_timeout_s=900.0,
+                                drain_timeout_s=120.0)
+        up, down, size = router_actuators(router, factory, acfg)
+        feed = [ControlSignals(burn=2.0), ControlSignals(burn=0.1),
+                ControlSignals(burn=0.1)]
+        aclock = [0.0]
+        scaler = Autoscaler(lambda: feed.pop(0), up, down, size, cfg=acfg,
+                            clock=lambda: aclock[0])
+        decisions, sizes = [], []
+        t0 = time.perf_counter()
+        for _ in range(3):
+            aclock[0] += 1.0
+            decisions.append(scaler.step())
+            sizes.append(size())
+            if decisions[-1] == "up":
+                timings["scale_up_s"] = time.perf_counter() - t0
+                new = router.pool.names()[-1]
+                out = router.generate(probe, ROUTER_NEW)
+                timings["scale_up_probe_replica"] = out["replica"]
+                if new not in set(router.ring.walk("any")):
+                    fail(f"autoscaler: {new} is not on the ring")
+        if decisions != ["up", None, "down"] or sizes != [3, 3, 2]:
+            fail(f"autoscaler: decisions {decisions}, pool sizes {sizes}")
+
+        # ---- 4. a process replica joins the ring, then dies
+        t0 = time.perf_counter()
+        rep = ProcessReplica("p0", "chip_smoke:router_engine", work,
+                             factory_kwargs={"seed": ROUTER_SEED,
+                                             "device": dev, **cfg_kw},
+                             boot_timeout_s=boot_timeout_s,
+                             client_timeout_s=300.0)
+        boot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        router.scale_up(rep, warm_timeout_s=boot_timeout_s)
+        admit_s = time.perf_counter() - t0
+        firsts = [(t, 0) for t in tenants]
+        direct = {k: rep.generate({"prompt": plans[k[0]][k[1]],
+                                   "max_new_tokens": ROUTER_NEW,
+                                   "tenant": k[0]}, 900)["tokens"]
+                  for k in firsts}
+        if any(direct[k] != base[k] for k in firsts):
+            fail(f"process replica: tokens differ from the in-process "
+                 f"replicas' for {[k for k in firsts if direct[k] != base[k]]}")
+        scraper = tobs.FleetScraper(router.pool, timeout_s=30.0)
+        federated = scraper.scrape_once()
+        p0_requests = scraper.fed.value("serving.requests", "p0")
+        if federated != 1 or p0_requests != len(firsts):
+            fail(f"fleet: {federated} replicas federated, p0 requests "
+                 f"{p0_requests}")
+        fleet_tokens = tobs.METRICS.snapshot()["gauges"][
+            "fleet.tokens_total"]
+        owned = None
+        for _ in range(10_000):
+            cand = rng.integers(0, vocab, ROUTER_SYSTEM + 8).tolist()
+            if router.route_order(router.routing_key(cand))[0] == "p0":
+                owned = cand
+                break
+        if owned is None:
+            fail("no key of 10,000 lands on p0")
+        rep.kill()
+        t0 = time.perf_counter()
+        try:
+            after_kill = client.generate(owned, 4)
+            outcome = f"spilled to {after_kill['replica']} " \
+                      f"({after_kill['spills']} spills)"
+            ok = after_kill["replica"] != "p0" and after_kill["spills"] >= 1
+        except ServingError as e:
+            outcome, ok = f"HTTP {e.status}", e.status == 503
+        kill_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 30.0
+        while router.pool.is_active("p0") and time.monotonic() < deadline:
+            time.sleep(0.05)
+        bundles = [json.loads(b.read_text()) for b in sorted(
+            tobs.FLIGHTREC.dump_dir.glob(
+                "flightrec-router_replica_quarantine-*.json"))]
+        named = any(b["extra"]["replica"] == "p0" for b in bundles)
+        if not (ok and kill_s < 300.0 and not router.pool.is_active("p0")
+                and named):
+            fail(f"after kill: {outcome} in {kill_s:.2f} s, p0 active "
+                 f"{router.pool.is_active('p0')}, bundle naming p0 {named}")
+        quarantines = int(tobs.METRICS.snapshot()["counters"].get(
+            "router.quarantines", 0))
+        server.stop()
+        report.update({
+            "brownout_levels": levels, "scale_decisions": decisions,
+            "engine_start_s": timings["engine_start_s"],
+            "scale_up_s": timings["scale_up_s"],
+            "scale_up_build_s": timings["scale_up_build_s"],
+            "process_boot_s": boot_s, "process_admit_s": admit_s,
+            "fleet_tokens_total": fleet_tokens,
+            "after_kill": outcome, "after_kill_s": kill_s,
+            "quarantines": quarantines,
+            "phase_s": time.perf_counter() - t_phase})
+        print(f"router: {card} | {n_req} requests of {ROUTER_TENANTS} "
+              f"tenants over HTTP through 2 replicas: tokens/s="
+              f"{report['tokens_per_s']:.2f} ttft_p50_s="
+              f"{report['ttft_p50_s']:.4f} decode_step_p50_s="
+              f"{report['decode_step_p50_s']:.5f} hit rate {hit:.4f} (one "
+              f"replica {single_hit:.4f}) homes {report['homes']} spills="
+              f"{spills} decode_mfu={mfu:.6f} decode_mbu={mbu:.6f} "
+              f"slo={ {k[14:]: round(v, 4) for k, v in burns.items()} } "
+              f"brownout {levels} autoscaler {decisions} (scale-up "
+              f"{timings['scale_up_s']:.2f} s, its engine warm "
+              f"{timings['scale_up_build_s']:.2f} s) process replica boot "
+              f"{boot_s:.2f} s, admitted in {admit_s:.3f} s, tokens equal; "
+              f"after kill: {outcome} in {kill_s:.3f} s, quarantines="
+              f"{quarantines}; the phase {report['phase_s']:.1f} s; "
+              f"launches={launches}", flush=True)
+        return report
+    finally:
+        pool.shutdown(wait=False)
+        tobs.FLIGHTREC.dump_dir = old_dump
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def run_sample(torch, ttr, wrappers, dev="cuda", cfg=None, prime_len=16,
                length=8):
     """``TransformerLM.sample(kv_cache=False)`` (a full forward over the
@@ -1509,6 +1964,8 @@ def run_scorer(torch, ttr, serving, cfg, wrappers, rng, rows=32,
     tolerance (0.05)."""
     import numpy as np
 
+    from deeplearning4j_tpu_torch.observability import METRICS
+
     model = ttr.TransformerLM(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
 
@@ -1525,13 +1982,13 @@ def run_scorer(torch, ttr, serving, cfg, wrappers, rng, rows=32,
     with scorer, serving.ModelServer(scorer=scorer) as server:
         client = serving.ServingClient(port=server.port, timeout_s=600)
         client.score(data[:1])                     # warm-up, one row
-        before = scorer.metrics.snapshot()["timers"]["serving.score_batch"]
+        before = METRICS.snapshot()["timers"]["serving.score_batch"]
         reset_counts(wrappers)
         t0 = time.perf_counter()
         served = np.asarray(client.score(data), np.float32)
         wall = time.perf_counter() - t0
         counts = {w.__name__: w.launches for w in wrappers}
-        after = scorer.metrics.snapshot()["timers"]["serving.score_batch"]
+        after = METRICS.snapshot()["timers"]["serving.score_batch"]
     batches = after["count"] - before["count"]
     if batches != 1:
         fail(f"scorer: {rows} rows ran in {batches} batches, not one")
@@ -1553,6 +2010,9 @@ def run_scorer(torch, ttr, serving, cfg, wrappers, rng, rows=32,
             "batch_s": batch_s, "max_abs_err": err, "tol": TOL_SCORE,
             "launches": counts}
 
+
+#: the trainer's live train.mfu against this script's MFU (relative)
+TOL_TRAIN_MFU = 0.10
 
 #: the checkpoint phase: the default causal config at 8 x 512, 8 steps under
 #: the supervisor (a checkpoint every 2, keep 2), then 2 more steps
@@ -1651,6 +2111,39 @@ def determinism_probe(torch, ttr, tat, tln, txe, make_trainer, params, batch,
     return out
 
 
+def train_mfu_check(torch, cfg, trainer, mfus, step_p50, tokens, dev):
+    """The trainer's live ``train.mfu`` (its step counted by
+    ``COSTS.capture`` on fake tensors, over each step's own time) against
+    this script's MFU for the same step: ``flops_per_token`` x tokens over
+    the p50 step time and the card's bf16 peak.  The gauge of the p50 step
+    is the p50 of the gauges (one step a window, so the gauge falls as
+    the time rises); the two must agree within ``TOL_TRAIN_MFU``."""
+    from deeplearning4j_tpu_torch.observability import COSTS
+
+    cost = trainer._step_cost
+    if cost is None or len(mfus) < 2:
+        fail(f"train.mfu: no counted step cost ({cost}) or gauges {mfus}")
+    n = len(mfus)
+    gauge = sorted(mfus, reverse=True)[min(n - 1, int(round(0.5 * (n - 1))))]
+    peak = (rates_for(torch.cuda.get_device_name(0))[1] if dev == "cuda"
+            else COSTS.peak_flops())
+    script = cfg.flops_per_token() * tokens / step_p50 / peak
+    rel = gauge / script - 1.0
+    out = {"train_mfu": gauge, "script_mfu": script, "rel": rel,
+           "counted_flops": cost.flops, "counted_bytes": cost.bytes_accessed,
+           "source": cost.source,
+           "flops_per_token_x_tokens": cfg.flops_per_token() * tokens,
+           "gauges": mfus}
+    print(f"train.mfu {gauge:.5f} (counted {cost.flops:.4e} flops, "
+          f"{cost.bytes_accessed:.4e} bytes a step) vs the script's "
+          f"{script:.5f} (flops_per_token x {tokens} tokens = "
+          f"{cfg.flops_per_token() * tokens:.4e}): {rel * 100:+.2f}% "
+          f"(tol {TOL_TRAIN_MFU * 100:.0f}%)", flush=True)
+    if not (0 < gauge <= 1 and abs(rel) <= TOL_TRAIN_MFU):
+        fail(f"train.mfu {gauge} vs the script's MFU {script}: {out}")
+    return out
+
+
 def _serve_wave(client, prompts, new, pool):
     """Greedy requests over HTTP, concurrently; the answers in order."""
     futs = [pool.submit(client.generate, p, max_new_tokens=new)
@@ -1658,10 +2151,12 @@ def _serve_wave(client, prompts, new, pool):
     return [f.result(timeout=900) for f in futs]
 
 
-def _engine_deltas(engine, before):
+def _engine_deltas(before):
     """Prefill tokens and decode dispatches since the ``before`` snapshot
-    of the engine's registry."""
-    now = engine.metrics.snapshot()["counters"]
+    of the process-wide registry's counters."""
+    from deeplearning4j_tpu_torch.observability import METRICS
+
+    now = METRICS.snapshot()["counters"]
     return {k: int(now.get(k, 0) - before.get(k, 0)) for k in (
         "serving.decode.dispatches", "serving.admitted", "serving.tokens")}
 
@@ -1730,16 +2225,24 @@ def run_checkpoints(torch, ttr, TT, tmm, tat, tln, txe, eng, wrappers, rng,
                                   params, data[0], cfg, dev)
         bitwise = probe["step_bitwise"]
 
-        # ---- fault-free run: one resolve a step, for the step times
+        # ---- fault-free run: one resolve a step, for the step times; the
+        # trainer's train.mfu gauge of every step is kept
         tobs.METRICS.reset()
+        mfus, listening = [], [True]
+        tobs.METRICS.add_listener(
+            lambda kind, name, v: mfus.append(v)
+            if listening[0] and name == "train.mfu" else None)
         ref_tr = make_trainer()
         ref, ref_losses = ref_tr.fit(ref_tr.init_state(params, key=0),
                                      data[:CKPT_STEPS], async_dispatch=False)
+        listening[0] = False
         step_p50 = tobs.METRICS.snapshot()["timers"]["train_step.execute"][
             "p50_s"]
         if not all(math.isfinite(v) for v in ref_losses) or abs(
                 ref_losses[0] - math.log(cfg.vocab_size)) > 0.5:
             fail(f"checkpoint phase: fault-free losses {ref_losses}")
+        mfu = train_mfu_check(torch, cfg, ref_tr, mfus, step_p50,
+                              batch * seq, dev)
         # ---- the hot loop: dispatches between fences read nothing back
         # (device batches from prefetch_to_device; the ring read after)
         hot = ref_tr.init_state(params, key=0)
@@ -1833,6 +2336,7 @@ def run_checkpoints(torch, ttr, TT, tmm, tat, tln, txe, eng, wrappers, rng,
             f"tolerance {TOL_CHAOS}", "loss_rel_err": loss_err,
             "param_rel_err": param_err, "losses": losses,
             "fault_free_losses": ref_losses, "p50_step_s": step_p50,
+            "train_mfu": mfu,
             "chaos_wall_s": chaos_s, "retries": sup.report.retries,
             "resumed_from": sup.report.resumed_from,
             "corrupt_detected": counters.get("checkpoint.corrupt_detected"),
@@ -1874,13 +2378,13 @@ def run_checkpoints(torch, ttr, TT, tmm, tat, tln, txe, eng, wrappers, rng,
         server = ModelServer(engine, request_timeout_s=900).start()
         client = ServingClient(port=server.port, timeout_s=900)
         try:
-            before = dict(engine.metrics.snapshot()["counters"])
+            before = dict(tobs.METRICS.snapshot()["counters"])
             reset_counts(wrappers)
             t0 = time.perf_counter()
             wave0 = _serve_wave(client, prompts, RELOAD_NEW, pool)
             serve_s = time.perf_counter() - t0
             serve_launches = {w.__name__: w.launches for w in wrappers}
-            d0 = _engine_deltas(engine, before)
+            d0 = _engine_deltas(before)
             stamps0 = {(a["generation"], a["loaded_step"]) for a in wave0}
             if stamps0 != {(0, CKPT_STEPS)} or any(
                     len(a["tokens"]) != RELOAD_NEW for a in wave0):
@@ -1899,7 +2403,7 @@ def run_checkpoints(torch, ttr, TT, tmm, tat, tln, txe, eng, wrappers, rng,
                 fail(f"two more steps ended at {state.step}, newest valid "
                      f"{mgr.latest_valid_step()}")
             more_snap = tobs.METRICS.snapshot()
-            before = dict(engine.metrics.snapshot()["counters"])
+            before = dict(tobs.METRICS.snapshot()["counters"])
             admitted0 = engine.stats()["admitted"]
             reset_counts(wrappers)
             futs = [pool.submit(client.generate, p, max_new_tokens=RELOAD_NEW)
@@ -1916,7 +2420,7 @@ def run_checkpoints(torch, ttr, TT, tmm, tat, tln, txe, eng, wrappers, rng,
             wave2 = _serve_wave(client, prompts, RELOAD_NEW, pool)
             wave1 = [f.result(timeout=900) for f in futs]
             reload_launches = {w.__name__: w.launches for w in wrappers}
-            d1 = _engine_deltas(engine, before)
+            d1 = _engine_deltas(before)
             stats = engine.stats()
         finally:
             server.stop()
@@ -2520,6 +3024,11 @@ def main() -> int:
     del tmodel, params
     torch.cuda.empty_cache()
 
+    # ---- 5g. two engines behind the prefix-affinity router, SLOs, the
+    # control plane and a process replica
+    router = run_router(torch, eng, wrappers, card)
+    torch.cuda.empty_cache()
+
     # ---- 6./7. the train step at full width: the BERT-base leg (flash,
     # bidirectional) and the default causal config (fused, remat)
     cfg_a = ttr.TransformerConfig(
@@ -2559,7 +3068,8 @@ def main() -> int:
     # launches at each main-path shape, and every shape measured
     kernels = kernel_rows(
         cases, [rep_a, rep_b, rep_s, prefix["float"]["cache"],
-                prefix["int8"]["cache"], beam, ckpt["serve"], ckpt["reload"]],
+                prefix["int8"]["cache"], beam, router, ckpt["serve"],
+                ckpt["reload"]],
         [leg_a, leg_b, sample["bfloat16"], scorer, ckpt["leg"], dl4j_leg],
         mcfg, rates)
     if args.report:
@@ -2571,7 +3081,8 @@ def main() -> int:
             "kernel_cases": cases, "int8_matmul_dx_err": int8_dx,
             "int8_matmul_device_kernels": int8_kernels,
             "engine_a": rep_a, "engine_b": rep_b, "engine_s": rep_s,
-            "prefix": prefix, "beam": beam, "sample": sample,
+            "prefix": prefix, "beam": beam, "router": router,
+            "sample": sample,
             "scorer": scorer, "train_a": leg_a, "train_b": leg_b,
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},
             "checkpoints": ckpt, "dl4j": dl4j,

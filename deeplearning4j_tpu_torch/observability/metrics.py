@@ -8,9 +8,9 @@ registry renders to a JSON ``snapshot`` and to Prometheus text
 every mutator returns before taking it while observability is disabled
 (``core.disable()``).
 
-:data:`METRICS` is the process-wide registry the trainer, the checkpoint
-manager, the supervisor and the fault injector publish to.  The serving
-engine still publishes to a registry of its own (``ROADMAP.md`` A7).
+:data:`METRICS` is the process-wide registry every layer publishes to:
+the serving engine and its queue, the router, the trainer, the checkpoint
+manager, the supervisor, the control plane and the fault injector.
 """
 
 from __future__ import annotations

@@ -33,7 +33,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from ...observability.cost import kernel_work
 from . import build, registry
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -147,12 +149,26 @@ def _launch(q, k, v, causal: bool, frontier: bool):
     return out, lse
 
 
+def _counted(q, causal: bool):
+    """The fake branch (a cost count, ``observability.cost``): the
+    forward's flops over the (query, key) pairs it needs and its bytes, an
+    empty output, no launch."""
+    B, T, H, Dh = q.shape
+    pairs = T * (T + 1) // 2 if causal else T * T
+    kernel_work(4 * B * H * Dh * pairs,
+                4 * B * T * H * Dh * q.element_size() + B * H * T * 4)
+    return (q.new_empty((B, T, H, Dh)),
+            q.new_empty((B, H, T), dtype=torch.float32))
+
+
 def attention_fwd(q, k, v, *, causal: bool, frontier: bool):
     """``(out, lse)`` of the forward: the kernel for CUDA tensors (counted
     on ``fused_attention.launches`` when ``frontier`` else on
     ``flash_attention.launches``), the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return reference_flash_fwd(q, k, v, causal)
+    if is_fake(q):
+        return _counted(q, causal)
     out, lse = _launch(q, k, v, causal, frontier)
     (fused_attention if frontier else flash_attention).launches += 1
     return out, lse

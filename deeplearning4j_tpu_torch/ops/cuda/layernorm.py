@@ -22,7 +22,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from ...observability.cost import kernel_work
 from . import build, registry
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,6 +88,11 @@ def residual_layernorm_fwd(x2, r2, m2, scale, bias, eps: float = 1e-5):
     if x2.device.type == "cpu":
         return reference_residual_layernorm(x2, r2, scale, bias, mask=m2,
                                             eps=eps)
+    if is_fake(x2):
+        # a cost count (``observability.cost``): flops, bytes, no launch
+        n, d = x2.shape
+        kernel_work(9 * n * d, 4 * n * d * x2.element_size() + n * 4 + d * 8)
+        return torch.empty_like(x2), torch.empty_like(x2)
     y, h = _launch(x2, r2, m2, scale, bias, eps)
     fused_residual_layernorm.launches += 1
     return y, h

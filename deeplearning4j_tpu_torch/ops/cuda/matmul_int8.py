@@ -27,8 +27,10 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ...device import sm_count
+from ...observability.cost import kernel_work
 from . import build, registry
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -166,6 +168,16 @@ def _launch(x: torch.Tensor, q: torch.Tensor,
     return out.reshape(*lead, N)
 
 
+def _counted(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The fake branch (a cost count, ``observability.cost``): the
+    kernel's flops and bytes, an empty output, no launch."""
+    K, N = q.shape
+    M = x.numel() // K
+    kernel_work(2 * M * K * N,
+                M * K * x.element_size() + K * N + N * 4 + M * N * 4)
+    return x.new_empty((*x.shape[:-1], N), dtype=torch.float32)
+
+
 class _Int8Matmul(torch.autograd.Function):
     """Differentiable in ``x`` only, as the JAX kernel's ``custom_vjp``:
     the int8 weights are frozen serving artifacts and get no gradient."""
@@ -176,6 +188,8 @@ class _Int8Matmul(torch.autograd.Function):
         ctx.x_dtype = x.dtype
         if x.device.type == "cpu":
             return reference_int8_matmul(x, QuantizedLinear(q, scale))
+        if is_fake(x):
+            return _counted(x, q)
         return _launch(x, q, scale)
 
     @staticmethod

@@ -33,8 +33,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ...device import sm_count
+from ...observability.cost import kernel_work
 from . import build, kv_quant, registry
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -171,6 +173,21 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
     return out
 
 
+def _counted(q, k_pages, block_tables, quant: bool) -> torch.Tensor:
+    """The fake branch (a cost count, ``observability.cost``): flops and
+    bytes over every position the block tables address (the lengths are
+    data; the kernel stops at each row's), an empty output, no launch."""
+    B, H, Dh = q.shape
+    _, ps, Kv, _ = k_pages.shape
+    n_pages = block_tables.shape[1]
+    positions = B * n_pages * ps
+    nbytes = (2 * positions * Kv * Dh * k_pages.element_size()
+              + 2 * q.numel() * q.element_size() + block_tables.numel() * 4
+              + B * 4 + (2 * B * n_pages * Kv * 4 if quant else 0))
+    kernel_work(4 * positions * H * Dh, nbytes)
+    return torch.empty_like(q)
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, lengths):
     """Paged decode attention; same contract as
     :func:`reference_paged_attention` within the registered tolerance
@@ -178,6 +195,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
     if q.device.type == "cpu":
         return reference_paged_attention(q, k_pages, v_pages, block_tables,
                                          lengths)
+    if is_fake(q):
+        return _counted(q, k_pages, block_tables, quant=False)
     out = _launch(q, k_pages, v_pages, None, None, block_tables, lengths,
                   quant=False)
     paged_attention.launches += 1
@@ -193,6 +212,8 @@ def paged_attention_int8(q, k_pages, v_pages, k_scale, v_scale,
     if q.device.type == "cpu":
         return reference_paged_attention_int8(q, k_pages, v_pages, k_scale,
                                               v_scale, block_tables, lengths)
+    if is_fake(q):
+        return _counted(q, k_pages, block_tables, quant=True)
     out = _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables,
                   lengths, quant=True)
     paged_attention_int8.launches += 1

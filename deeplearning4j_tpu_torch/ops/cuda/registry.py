@@ -16,7 +16,9 @@ kernels register with ``source="cuda"``; the incumbents ("gather",
 2. its best measured metric beats the incumbent's best by the >2% margin,
    where no incumbent evidence means no adoption (never adopt by void).
 
-Every dropped candidate lands in ``Pick.dropped`` with the reason.
+Every dropped candidate lands in ``Pick.dropped`` with the reason, and
+every pick is published as ``bench.autopick.<kind>.*`` gauges
+(``observability.kernels.publish_autopick``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from typing import Any, Callable, Iterable, Mapping
+
+from ...observability.kernels import publish_autopick
 
 #: kernel modules imported on first registry use (they register at import)
 _KERNEL_MODULES = (
@@ -189,10 +193,13 @@ def autopick(kind: str, rows: Iterable[Mapping], *, incumbent: str,
                             "reason": f"passed the gate but lost to "
                                       f"{winner.name} ({lost:.4g} vs "
                                       f"{best:.4g} {metric})"})
-        return Pick(kind, winner.name,
+        pick = Pick(kind, winner.name,
                     f"TUNE: {winner.name} {best:.4g} > {incumbent} "
                     f"{inc_best:.4g} {metric} (>2% margin), check passed",
                     dropped, len(rows))
-    return Pick(kind, incumbent,
-                f"default ({incumbent}: no TUNE evidence that a "
-                "candidate wins by >2%)", dropped, len(rows))
+    else:
+        pick = Pick(kind, incumbent,
+                    f"default ({incumbent}: no TUNE evidence that a "
+                    "candidate wins by >2%)", dropped, len(rows))
+    publish_autopick(pick)
+    return pick

@@ -35,9 +35,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
 from ...device import sm_count
+from ...observability.cost import kernel_work
 from . import build, registry
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -162,6 +164,13 @@ def xent_fwd(h, head, targets, weights):
     f32, both (N,)."""
     if h.device.type == "cpu":
         return reference_xent_rows(h, head, targets, weights)
+    if is_fake(h):
+        # a cost count (``observability.cost``): flops, bytes, no launch
+        (n, d), v = h.shape, head.shape[1]
+        kernel_work(2 * n * v * d, (n * d + d * v) * h.element_size()
+                    + n * 16)
+        wloss = h.new_empty((n,), dtype=torch.float32)
+        return wloss, torch.empty_like(wloss)
     out = _launch(h, head, targets, weights)
     blocked_cross_entropy.launches += 1
     return out

@@ -51,7 +51,7 @@ import torch
 
 from ..datasets.dataset import DataSet
 from ..device import resolve_device
-from ..observability import METRICS, NOOP_SPAN, enabled as _obs_enabled
+from ..observability import COSTS, METRICS, NOOP_SPAN, enabled as _obs_enabled
 from ..observability import sample_device_memory, sample_state_bytes, trace
 from ..optimize import transforms as tfm
 from ..resilience.faults import FAULTS, DeviceLossError, DivergenceError
@@ -196,6 +196,9 @@ class DataParallelTrainer:
         self._pending: list[tuple[LazyLoss, int, int]] = []
         self._window_t0: float | None = None
         self._nan_guard = False  # set per fit; checked at resolution
+        # flops and bytes of one step, counted at the first sight of a
+        # bucket (COSTS) — the live train.mfu/mbu gauges at every fence
+        self._step_cost = None
 
     # ------------------------------------------------------------------ state
     def init_state(self, params, key=None) -> TrainState:
@@ -302,6 +305,11 @@ class DataParallelTrainer:
             gen.manual_seed((int(sub[0]) << 32) | int(sub[1]))
             x = torch.as_tensor(x).to(self.device)
             y = torch.as_tensor(y).to(self.device)
+            if first and obs:
+                # counted on fake copies of the arguments: nothing runs
+                self._step_cost = COSTS.capture(
+                    f"train_step.b{bucket}", step_fn, state.params,
+                    state.tstate, x, y, gen, state.step, n_valid)
             params, tstate, loss = step_fn(state.params, state.tstate, x, y,
                                            gen, state.step, n_valid)
         lazy = LazyLoss(loss)
@@ -345,6 +353,11 @@ class DataParallelTrainer:
                 # amortized per-step execution time over the async window
                 METRICS.observe_many(
                     "train_step.execute", [window / len(entries)] * len(entries))
+                # live MFU/MBU: one step's counted work over the amortized
+                # per-step execution time
+                COSTS.publish_utilization(
+                    self._step_cost, window / len(entries),
+                    "train.mfu", "train.mbu")
         self._window_t0 = None
         if self._nan_guard:
             for (_lazy, _n, s), v in zip(entries, vals):

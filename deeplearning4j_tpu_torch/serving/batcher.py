@@ -9,7 +9,10 @@ and never occupies a decode slot.  When the engine is idle,
 :meth:`RequestQueue.take` holds the first arrival up to
 ``max_batch_delay_ms`` for companions, so the first batch after an idle
 period dispatches fuller.  Two priority tiers: interactive requests are
-claimed ahead of background ones, with aging against starvation.
+claimed ahead of background ones, with aging against starvation.  The
+queue publishes to the process-wide ``METRICS``, accounts rejections,
+queue waits and deadline drops per tenant (``TENANTS``), and notes each
+429 in the flight recorder's burst trigger.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import time
 from collections import deque
 from typing import Any
 
-from ..observability.metrics import MetricsRegistry
+from ..observability import FLIGHTREC, METRICS, TENANTS
+from ..resilience.faults import FAULTS
 
 
 class ServingRejected(RuntimeError):
@@ -52,9 +56,6 @@ class PagePoolExhausted(ServingRejected):
 
 _REQ_IDS = itertools.count(1)
 
-#: gauge of the live queued requests
-DEPTH_GAUGE = "serving.queue.depth"
-
 # priority tiers (GenerateRequest.priority / RequestQueue._tiers index)
 INTERACTIVE = 0
 BACKGROUND = 1
@@ -82,9 +83,15 @@ class GenerateRequest:
     deadline_s: float | None = None  # absolute time.monotonic() deadline
     id: int = dataclasses.field(default_factory=lambda: next(_REQ_IDS))
     submitted_s: float = 0.0        # stamped by RequestQueue.submit
-    tenant: str = ""                # opaque caller identity (carried; the
-    #                                 per-tenant accounting comes with the
-    #                                 observability registries)
+    # trace identity (stamped by InferenceEngine.submit while
+    # observability is on; empty strings otherwise)
+    trace_id: str = ""              # W3C trace id of the whole request
+    parent_span_id: str = ""        # the inbound traceparent's span
+    root_span_id: str = ""          # the serving.request span's own id
+    submitted_perf: float = 0.0     # perf_counter twin of submitted_s
+    # bounded tenant label (TenantLabels.label at submit, never the raw
+    # string; empty without a tenant or while observability is off)
+    tenant: str = ""
     priority: int = 0               # INTERACTIVE (0) or BACKGROUND (1)
 
 
@@ -165,12 +172,14 @@ class RequestQueue:
     ``serving.queue.depth`` counts live work only."""
 
     def __init__(self, max_depth: int = 64, max_batch_delay_ms: float = 2.0,
-                 aging_s: float = 2.0, *,
-                 metrics: MetricsRegistry | None = None):
+                 aging_s: float = 2.0,
+                 depth_gauge: str = "serving.queue.depth"):
         self.max_depth = max_depth
         self.max_batch_delay_ms = max_batch_delay_ms
         self.aging_s = aging_s
-        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # the depth gauge's name (per tier once the prefill/decode roles
+        # are ported: ``serving.queue.depth.prefill``)
+        self.depth_gauge = depth_gauge
         self._cv = threading.Condition()
         self._tiers: list[deque[PendingResult]] = [deque(), deque()]
         self._woken = False              # guarded-by: self._cv
@@ -193,12 +202,14 @@ class RequestQueue:
                     if p._fail(DeadlineExceeded(
                             f"request {p.request.id} expired after "
                             f"{now - p.request.submitted_s:.3f}s in queue")):
-                        self.metrics.increment("serving.deadline_dropped")
+                        METRICS.increment("serving.deadline_dropped")
+                        TENANTS.account("deadline_dropped",
+                                        getattr(p.request, "tenant", ""))
             tier.clear()
             tier.extend(live)
             swept = True
         if swept:
-            self.metrics.gauge(DEPTH_GAUGE, self._total_locked())
+            METRICS.gauge(self.depth_gauge, self._total_locked())
 
     def _pop_locked(self, now: float) -> PendingResult:
         """Next request: an aged background head, then interactive, then
@@ -213,18 +224,23 @@ class RequestQueue:
 
     def submit(self, request) -> PendingResult:
         """Enqueue or reject — never blocks the submitter."""
+        FAULTS.maybe_fire("serving.request")
         with self._cv:
             now = time.monotonic()
             self._expire_locked(now)
             if self._total_locked() >= self.max_depth:
-                self.metrics.increment("serving.rejected")
+                METRICS.increment("serving.rejected")
+                # a ScoreRequest has no tenant
+                TENANTS.account("rejected", getattr(request, "tenant", ""))
+                FLIGHTREC.note_429()
                 raise QueueFull(
                     f"request queue full ({self.max_depth} deep) — retry "
                     "with backoff")
             request.submitted_s = now
+            request.submitted_perf = time.perf_counter()
             pending = PendingResult(request)
             self._tiers[_tier(request)].append(pending)
-            self.metrics.gauge(DEPTH_GAUGE, self._total_locked())
+            METRICS.gauge(self.depth_gauge, self._total_locked())
             self._cv.notify()
         return pending
 
@@ -256,10 +272,13 @@ class RequestQueue:
             self._expire_locked(now)
             while self._total_locked() and len(out) < max_n:
                 p = self._pop_locked(now)
-                self.metrics.observe_time("serving.queue_wait",
-                                          now - p.request.submitted_s)
+                METRICS.observe_time("serving.queue_wait",
+                                     now - p.request.submitted_s)
+                TENANTS.account("queue_wait_s",
+                                getattr(p.request, "tenant", ""),
+                                now - p.request.submitted_s)
                 out.append(p)
-            self.metrics.gauge(DEPTH_GAUGE, self._total_locked())
+            METRICS.gauge(self.depth_gauge, self._total_locked())
         return out
 
     def claim(self, p: PendingResult) -> bool:
@@ -278,14 +297,16 @@ class RequestQueue:
                         f"request {p.request.id} expired after "
                         f"{now - p.request.submitted_s:.3f}s before "
                         f"admission")):
-                    self.metrics.increment("serving.deadline_dropped")
+                    METRICS.increment("serving.deadline_dropped")
+                    TENANTS.account("deadline_dropped",
+                                    getattr(p.request, "tenant", ""))
                 return False
             if (_tier(p.request) == BACKGROUND
                     and self._tiers[INTERACTIVE]
                     and now - p.request.submitted_s < self.aging_s):
                 self._tiers[BACKGROUND].appendleft(p)
-                self.metrics.increment("serving.preempted")
-                self.metrics.gauge(DEPTH_GAUGE, self._total_locked())
+                METRICS.increment("serving.preempted")
+                METRICS.gauge(self.depth_gauge, self._total_locked())
                 self._cv.notify()
                 return False
             return True
@@ -309,5 +330,5 @@ class RequestQueue:
                 + list(self._tiers[BACKGROUND])
             for tier in self._tiers:
                 tier.clear()
-            self.metrics.gauge(DEPTH_GAUGE, 0)
+            METRICS.gauge(self.depth_gauge, 0)
         return out

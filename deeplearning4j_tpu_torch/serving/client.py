@@ -4,7 +4,8 @@ Port of ``ServingClient`` from ``deeplearning4j_tpu/serving/client.py``.
 Rejections surface as :class:`ServingError` carrying the HTTP status, so
 callers can tell backpressure (429) from bad requests (400).  Idempotent
 GETs are retried once with a short backoff on a dead connection; POSTs
-are never retried (a generate whose connection died may have run).
+are never retried (a generate whose connection died may have run).  A
+POST made inside a span carries its W3C ``traceparent``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import json
 import time
 import urllib.error
 import urllib.request
+
+from ..observability import trace
 
 
 class ServingError(RuntimeError):
@@ -37,6 +40,11 @@ class ServingClient:
                  timeout_s: float | None = None) -> bytes:
         data = json.dumps(payload).encode() if payload is not None else None
         headers = {"Content-Type": "application/json"} if data else {}
+        # W3C trace propagation: inside a span (or a bound context) the
+        # server joins the caller's trace instead of minting one
+        tp = trace.current_traceparent()
+        if tp is not None and data is not None:
+            headers["traceparent"] = tp
         req = urllib.request.Request(
             self.base + path, data=data, method="POST" if data else "GET",
             headers=headers)

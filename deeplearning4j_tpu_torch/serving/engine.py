@@ -46,9 +46,21 @@ finish wholly under the old weights and queued ones decode wholly under
 the new, and every completion's ``generation``/``loaded_step`` stamp is
 exact.
 
-Not ported yet: ``role != "unified"`` (raises ``NotImplementedError``),
-fp8 KV pages, tracing, the flight recorder, cost capture, per-tenant
-accounting and the chaos sites.
+Observability, as the reference's: the engine and its queue publish to
+the process-wide ``METRICS``; every request carries a trace id (adopted
+from the caller's context, e.g. an HTTP ``traceparent``, else minted) and
+records ``serving.queue_wait``, ``serving.prefill``, one
+``serving.decode.segment`` per resolve fence, ``serving.emit`` and its
+root ``serving.request`` span; tenants are folded through ``TENANTS`` at
+submission and accounted at completion; warmup counts the decode step's
+and a prefill token's flops and bytes (``COSTS``, on fake tensors), and
+each fence publishes ``serving.decode_mfu`` / ``serving.decode_mbu`` from
+the step time it already measures (no host sync); a page-pool 429 notes
+the flight recorder's burst trigger.  Chaos sites: ``serving.request``,
+``serving.page_pool``, ``serving.decode`` and ``serving.draft``.
+
+Not ported yet: ``role != "unified"`` (raises ``NotImplementedError``)
+and fp8 KV pages.
 """
 
 from __future__ import annotations
@@ -70,10 +82,13 @@ from ..models.transformer import (cast_for_decode, decode_step,
                                   init_paged_cache, paged_flat_index,
                                   reset_cache_pages, reset_cache_slots,
                                   scatter_paged_layer, scatter_rows)
-from ..observability.metrics import MetricsRegistry
+from ..observability import COSTS, FLIGHTREC, METRICS, TENANTS, trace
+from ..observability.core import enabled as _obs_enabled
+from ..observability.cost import CostInfo
 from ..ops.cuda import build, kv_quant, registry
 from ..parallel.checkpoint import CheckpointManager
 from ..ops.cuda.matmul_int8 import quantize_params_for_decode
+from ..resilience.faults import FAULTS
 from .batcher import (Completion, GenerateRequest, PagePoolExhausted,
                       PendingResult, RequestQueue, ScoreRequest)
 from .paging import PagePool
@@ -152,18 +167,14 @@ class InferenceEngine:
     ``latest_valid_step()``; ``model.init`` shapes the restore template,
     so the checkpoint must match ``model.cfg``.  A speculative engine
     takes ``draft_model`` and ``draft_params`` (``models.zoo.draft_lm``),
-    sharing the target's vocabulary and ``max_len``.  ``registry`` is the
-    metrics registry the engine publishes to (a fresh one by default;
-    ``ModelServer`` serves it)."""
+    sharing the target's vocabulary and ``max_len``."""
 
     def __init__(self, model, params=None, checkpoint=None,
                  cfg: ServingConfig = ServingConfig(), draft_model=None,
-                 draft_params=None, *, device=None,
-                 registry: MetricsRegistry | None = None):
+                 draft_params=None, *, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
-        self.metrics = registry if registry is not None else MetricsRegistry()
         if cfg.role != "unified":
             raise NotImplementedError(
                 f"role={cfg.role!r}: the prefill/decode roles are not "
@@ -222,8 +233,7 @@ class InferenceEngine:
         self._pool = (PagePool(self._num_pages, cfg.page_size)
                       if cfg.paged else None)
         self._page_bytes = kv_page_bytes(mcfg, cfg.page_size, cfg.kv_quant)
-        self._queue = RequestQueue(cfg.max_queue, cfg.max_batch_delay_ms,
-                                   metrics=self.metrics)
+        self._queue = RequestQueue(cfg.max_queue, cfg.max_batch_delay_ms)
         self._attn_fn = self._paged_attn_fn() if cfg.paged else None
         # _lock guards the slot bookkeeping shared between the serve thread
         # and callers (stop/stats/HTTP handlers); _state is serve-thread-
@@ -246,6 +256,11 @@ class InferenceEngine:
                                      dtype=torch.int32)
         self._state = self._init_state()
         self._warmed = False
+        # counted at warmup (COSTS): one decode dispatch, for the live
+        # decode_mfu/mbu gauges, and one prompt token of a prefill, whose
+        # multiples are each prefill bucket's cost
+        self._decode_cost: CostInfo | None = None
+        self._prefill_token_cost: CostInfo | None = None
         self._spec_enabled = cfg.speculative         # guarded-by: self._lock
         self._max_new_cap: int | None = None         # guarded-by: self._lock
         self._admission_hook = None                  # guarded-by: self._lock
@@ -267,7 +282,7 @@ class InferenceEngine:
         (:func:`~..models.transformer.cast_for_decode`).  The draft's
         tree is cast, never quantized."""
         mcfg = self.model.cfg
-        with self.metrics.time("serving.quantize"), torch.no_grad():
+        with METRICS.time("serving.quantize"), torch.no_grad():
             if self.cfg.int8_decode:
                 params = quantize_params_for_decode(params, mcfg)
             return cast_for_decode(params, mcfg)
@@ -322,7 +337,7 @@ class InferenceEngine:
                 else "paged_attention")
         return registry.get(kind, IMPL_ALIASES.get(impl, impl)).fn
 
-    def _picks(self, logits, sampled) -> torch.Tensor:
+    def _picks(self, logits, sampled, st) -> torch.Tensor:
         """Token picks (S, W) int32 from the logits (S, W, V) of a step:
         the argmax, except for the ``sampled`` slots ``(slot,
         temperature)``, whose window position w reads the noise row of
@@ -330,7 +345,6 @@ class InferenceEngine:
         :meth:`_plan_step`): ``sample_token``'s arithmetic on its
         draw."""
         pick = torch.argmax(logits, dim=-1).to(torch.int32)
-        st = self._state
         W = logits.shape[1]
         for s, temp in sampled:
             g = (st["pos"][s] - st["gbase"][s]) + self._offsets[:W]
@@ -339,15 +353,15 @@ class InferenceEngine:
                                    dim=-1).to(torch.int32)
         return pick
 
-    def _step(self, params, sampled) -> torch.Tensor:
-        """Advance every occupied slot one token; returns the emitted ids
-        (S,) int32 on the device, -1 for rows that did not generate.
+    def _step(self, params, sampled, st) -> torch.Tensor:
+        """Advance every occupied slot of the device state ``st`` one
+        token; returns the emitted ids (S,) int32 on the device, -1 for
+        rows that did not generate.
 
         Inactive / exhausted rows still flow through the batched matmuls
         (masked no-ops), but their positions and token buffers are frozen.
         ``sampled`` lists the sampled slots (:meth:`_picks`)."""
         mcfg = self.model.cfg
-        st = self._state
         pos, active, limit, toks = (st["pos"], st["active"], st["limit"],
                                     st["toks"])
         rows = self._rows
@@ -357,7 +371,7 @@ class InferenceEngine:
                                           pos, mcfg, attn_fn=self._attn_fn)
         else:
             logits, _ = decode_step(params, st["cache"], cur, pos, mcfg)
-        pick = self._picks(logits[:, None], sampled)[:, 0]
+        pick = self._picks(logits[:, None], sampled, st)[:, 0]
         can = active & (pos < limit) & (pos + 1 < mcfg.max_len)
         emitted = torch.where(can, pick, torch.full_like(pick, -1))
         new_pos = torch.where(can, pos + 1, pos)
@@ -366,7 +380,8 @@ class InferenceEngine:
         pos.copy_(new_pos)
         return emitted
 
-    def _spec_step(self, params, sampled) -> torch.Tensor:
+    def _spec_step(self, params, sampled, st,
+                   garble: bool = False) -> torch.Tensor:
         """One speculative dispatch: the draft proposes ``spec_k`` greedy
         tokens, one verify window (``decode_window_paged`` or
         ``decode_window``) scores ``[cur, proposals]`` on the target, and
@@ -378,12 +393,12 @@ class InferenceEngine:
         (same draw for sampled slots, :meth:`_picks`); pick ``i`` emits
         only while every earlier proposal matched its pick (``cumprod`` of
         ``can & match``), and the position advances by the count m.  The
-        draft decides how many tokens emit, never which.  (The JAX
-        package's chaos term garbling proposals comes with
-        ``resilience/faults.py``; here it is always 0.)"""
+        draft decides how many tokens emit, never which: ``garble`` (the
+        ``serving.draft`` chaos site) shifts every proposal by one, which
+        shortens the accepted runs and leaves the emitted tokens as they
+        are."""
         mcfg = self.model.cfg
         T = mcfg.max_len
-        st = self._state
         pos, active, limit, toks = (st["pos"], st["active"], st["limit"],
                                     st["toks"])
         S, k = self.cfg.slots, self.cfg.spec_k
@@ -397,6 +412,8 @@ class InferenceEngine:
                                       inp, torch.clamp(pos + i, max=T - 1),
                                       self._draft_model.cfg)
             inp = torch.argmax(d_logits, dim=-1).to(torch.int32)
+            if garble:
+                inp = (inp + 1) % mcfg.vocab_size
             proposals.append(inp)
         d = torch.stack(proposals, dim=1)                       # (S, k)
         window = torch.cat([cur[:, None], d], dim=1)            # (S, W)
@@ -405,7 +422,7 @@ class InferenceEngine:
                                             window, pos, mcfg)
         else:
             logits, _ = decode_window(params, st["cache"], window, pos, mcfg)
-        picks = self._picks(logits, sampled)                    # (S, W)
+        picks = self._picks(logits, sampled, st)                # (S, W)
         p2 = pos[:, None] + self._offsets[None, :]
         can = active[:, None] & (p2 < limit[:, None]) & (p2 + 1 < T)
         match = torch.cat([torch.ones_like(can[:, :1]),
@@ -492,10 +509,10 @@ class InferenceEngine:
         """Validate + enqueue; returns a handle whose ``result()`` blocks.
         Raises ``ValueError`` on malformed requests (HTTP 400) and
         :class:`~.batcher.QueueFull` under backpressure (HTTP 429).
-        ``tenant`` is an opaque caller identity carried on the request
-        (per-tenant accounting needs the observability registries,
-        ROADMAP.md A7).  ``priority`` > 0 marks background work, claimed
-        only while no interactive request waits.  A brownout cap
+        ``tenant`` is an opaque caller identity, folded once here through
+        the bounded ``TENANTS`` labels; the label rides the request.
+        ``priority`` > 0 marks background work, claimed only while no
+        interactive request waits.  A brownout cap
         (:meth:`set_max_new_cap`) clamps ``max_new_tokens``, and an
         admission hook (:meth:`set_admission_hook`) may reject the
         validated request by raising."""
@@ -519,18 +536,28 @@ class InferenceEngine:
             # a shorter completion instead of a rejection: the tokens are
             # the prefix of the uncapped ones
             max_new_tokens = cap
-            self.metrics.increment("serving.max_new_clamped")
+            METRICS.increment("serving.max_new_clamped")
         req = GenerateRequest(
             prompt=prompt, max_new_tokens=int(max_new_tokens),
             temperature=float(temperature), seed=int(seed),
             eos_id=eos_id if eos_id is not None else self.cfg.default_eos_id,
             deadline_s=(time.monotonic() + deadline_ms / 1000.0
                         if deadline_ms else None),
-            tenant=str(tenant) if tenant else "",
+            tenant=TENANTS.label(str(tenant)) if tenant else "",
             priority=1 if int(priority) > 0 else 0)
         if hook is not None:
             hook(req)
-        self.metrics.increment("serving.requests")
+        if _obs_enabled():
+            # one trace id for the whole request: the caller's context
+            # (an HTTP traceparent bound by the server, or an enclosing
+            # span), else a fresh one
+            ctx = trace.current_trace_context()
+            if ctx is not None:
+                req.trace_id, req.parent_span_id = ctx
+            else:
+                req.trace_id = trace.new_trace_id()
+            req.root_span_id = trace.new_span_id()
+        METRICS.increment("serving.requests")
         return self._queue.submit(req)
 
     def generate(self, prompt, max_new_tokens: int, timeout: float = 60.0,
@@ -583,16 +610,46 @@ class InferenceEngine:
         """Build and load the CUDA kernels (on a GPU) and run one decode
         step over the all-inactive state (a speculative engine runs its
         plain step too, the brownout fallback), so the first request pays
-        no build or first-launch cost."""
-        with self.metrics.time("serving.warmup"), torch.no_grad():
+        no build or first-launch cost.  Before that, count the flops and
+        bytes of one decode dispatch and of one prompt token of a prefill
+        (``COSTS``, on fake copies of the state: nothing runs, nothing
+        changes)."""
+        with METRICS.time("serving.warmup"), torch.no_grad():
             if self.device.type == "cuda":
                 build.build_all()
             with self._lock:
                 params = self._params
+            if _obs_enabled():
+                self._capture_costs(params)
             if self.cfg.speculative:
-                self._spec_step(params, []).cpu()
-            self._step(params, []).cpu()
+                self._spec_step(params, [], self._state).cpu()
+            self._step(params, [], self._state).cpu()
         self._warmed = True
+
+    def _capture_costs(self, params) -> None:
+        mcfg = self.model.cfg
+        step = self._spec_step if self.cfg.speculative else self._step
+        self._decode_cost = COSTS.capture(
+            "serving.decode_step", lambda p, st: step(p, [], st), params,
+            self._state)
+        caches = [init_decode_cache(mcfg, 1, self.device)]
+        if self.cfg.speculative:
+            caches.append(init_decode_cache(self._draft_model.cfg, 1,
+                                            self.device))
+        tok = torch.zeros((1,), dtype=torch.long, device=self.device)
+        self._prefill_token_cost = COSTS.capture(
+            "serving.prefill_token", self._prefill_token, params, caches,
+            tok)
+
+    def _prefill_token(self, params, caches, tok) -> None:
+        """One prompt token of a prefill on batch-of-1 caches (the target's
+        and a speculative engine's draft's): the unit of the prefill cost
+        count.  A dense decode step attends over every position under a
+        mask, so each prompt token costs the same."""
+        decode_step(params, caches[0], tok, 0, self.model.cfg)
+        if self.cfg.speculative:
+            decode_step(self._draft_params, caches[1], tok, 0,
+                        self._draft_model.cfg)
 
     def _release_row(self, s: int, pages: list[int]) -> None:
         """Deactivate row ``s`` and release its K/V: paged engines decref
@@ -624,7 +681,7 @@ class InferenceEngine:
                 try:
                     self._serve_once()
                 except Exception as e:  # a wedged loop strands callers
-                    self.metrics.increment("serving.engine.errors")
+                    METRICS.increment("serving.engine.errors")
                     with self._lock:
                         self._last_error = traceback.format_exc()
                         dead = [self._slots.pop(s) for s in list(self._slots)]
@@ -665,32 +722,52 @@ class InferenceEngine:
             batch = self._queue.take(
                 n_free, block_s=self.cfg.idle_wait_s if idle else 0.0)
             if batch:
-                self._admit(batch)
+                with trace.span("serving.admit"):
+                    self._admit(batch)
         if not self._slots:
             return
-        self.metrics.observe_time("serving.batch_fill_ratio",
-                                  len(self._slots) / self.cfg.slots,
-                                  buckets=FILL_BUCKETS)
+        METRICS.observe_time("serving.batch_fill_ratio",
+                             len(self._slots) / self.cfg.slots,
+                             buckets=FILL_BUCKETS)
         t0 = time.perf_counter()
         pending = self._decode_segment()
-        self._resolve(pending, t0)
+        with trace.span("serving.resolve"):
+            self._resolve(pending, t0)
 
     def _admit(self, batch: list[PendingResult]) -> None:
         for p in batch:
             if not self._queue.claim(p):
                 continue
             req: GenerateRequest = p.request
+            if req.trace_id:
+                t_claim = time.perf_counter()
+                trace.record_span(
+                    "serving.queue_wait", req.submitted_perf,
+                    t_claim - req.submitted_perf, trace_id=req.trace_id,
+                    parent_id=req.root_span_id, request=req.id)
+            bucket = self._prompt_bucket(len(req.prompt))
             with self._lock:
                 slot = self._free.pop()
                 params = self._params
                 # the generation stamp is atomic with the params capture
                 gen_id, lstep = self._generation, self._loaded_step
-                self._buckets.add(self._prompt_bucket(len(req.prompt)))
+                new_bucket = bucket not in self._buckets
+                self._buckets.add(bucket)
+            if new_bucket and self._prefill_token_cost is not None:
+                # a bucket's prefill: bucket - 1 prompt tokens, counted
+                c = self._prefill_token_cost
+                COSTS.put(f"serving.prefill.b{bucket}", CostInfo(
+                    c.flops * (bucket - 1), c.bytes_accessed * (bucket - 1),
+                    c.source))
             acquired: list[int] = []
             try:
                 cached_len = 0
                 usable = len(req.prompt) - 1
                 if self.cfg.paged:
+                    if FAULTS.check("serving.page_pool") is not None:
+                        raise PagePoolExhausted(
+                            "injected page-pool exhaustion (chaos site "
+                            "serving.page_pool)")
                     if self.cfg.prefix_cache:
                         # alias the longest cached chain of the prompt's
                         # full pages (increffed for this slot); atomic with
@@ -715,8 +792,13 @@ class InferenceEngine:
                         row, dtype=torch.int32)
                 t_pre = time.perf_counter()
                 self._prefill(params, slot, req, cached_len)
-                self.metrics.observe_time("serving.prefill",
-                                          time.perf_counter() - t_pre)
+                t_done = time.perf_counter()
+                METRICS.observe_time("serving.prefill", t_done - t_pre)
+                if req.trace_id:
+                    trace.record_span(
+                        "serving.prefill", t_pre, t_done - t_pre,
+                        trace_id=req.trace_id, parent_id=req.root_span_id,
+                        request=req.id, bucket=bucket)
                 if self.cfg.prefix_cache:
                     # publish every full-page chain of this prompt; the
                     # entries pin their pages with their own refcounts.
@@ -727,20 +809,21 @@ class InferenceEngine:
                             self._pool.insert_prefix(req.prompt, acquired,
                                                      usable)
                     if cached_len:
-                        self.metrics.increment("serving.prefix_hits")
+                        METRICS.increment("serving.prefix_hits")
                         # prompt positions whose prefill the cache saved
-                        self.metrics.increment("serving.prefix_cached_tokens",
-                                               cached_len)
+                        METRICS.increment("serving.prefix_cached_tokens",
+                                          cached_len)
             except Exception as e:
                 # fail only THIS request; the slot and its pages go back
                 # (an aliased page keeps its other readers' references)
                 self._release_row(slot, acquired)
                 with self._lock:
                     self._free.append(slot)
-                self.metrics.increment(
-                    "serving.page_pool_exhausted"
-                    if isinstance(e, PagePoolExhausted)
-                    else "serving.engine.errors")
+                if isinstance(e, PagePoolExhausted):
+                    METRICS.increment("serving.page_pool_exhausted")
+                    FLIGHTREC.note_429()
+                else:
+                    METRICS.increment("serving.engine.errors")
                 p._fail(e)
                 continue
             gen = None
@@ -753,13 +836,13 @@ class InferenceEngine:
                                           loaded_step=lstep)
                 self._slot_pages[slot] = acquired
                 self._admitted += 1
-            self.metrics.increment("serving.admitted")
+            METRICS.increment("serving.admitted")
             self._publish_kv_gauges()
 
     def _publish_kv_gauges(self) -> None:
         """Device-KV footprint gauges at admission/eviction fences."""
         mcfg = self.model.cfg
-        m = self.metrics
+        m = METRICS
         m.gauge("serving.kv_quant_bits",
                 kv_quant.kv_itemsize(self.cfg.kv_quant, mcfg.dtype) * 8)
         if self._pool is None:
@@ -777,6 +860,7 @@ class InferenceEngine:
         m.gauge("serving.kv_pages_in_use", in_use)
         m.gauge("serving.kv_pages_total", self._num_pages)
         m.gauge("serving.kv_page_bytes", self._page_bytes)
+        m.gauge("serving.prefix_hit_rate", self._pool.hit_rate())
         m.gauge("serving.kv_bytes", in_use * self._page_bytes)
         m.gauge("serving.kv_bytes_per_slot",
                 len(slot_pages) * self._page_bytes / occupied
@@ -814,18 +898,28 @@ class InferenceEngine:
         """Launch ``resolve_every`` decode steps with NO host syncs — the
         emitted-token tensors stay on the device until ``_resolve``.  A
         speculative engine takes its spec step unless the brownout switch
-        (:meth:`set_speculative`) turned it off, read once a segment."""
+        (:meth:`set_speculative`) turned it off, read once a segment.  A
+        ``serving.decode`` fault skips one dispatch (the next retries it);
+        ``serving.draft`` garbles a dispatch's proposals."""
         with self._lock:
             params = self._params
             spec = self.cfg.speculative and self._spec_enabled
         out = []
+        st = self._state
         for j in range(self.cfg.resolve_every):
+            if FAULTS.check("serving.decode") is not None:
+                METRICS.increment("serving.decode.faults")
+                continue
             if spec:
+                garbled = FAULTS.check("serving.draft") is not None
+                if garbled:
+                    METRICS.increment("serving.draft.faults")
                 out.append(self._spec_step(
-                    params, self._plan_step(self._window, j)))
+                    params, self._plan_step(self._window, j), st, garbled))
             else:
-                out.append(self._step(params, self._plan_step(1, j))[:, None])
-        self.metrics.increment("serving.decode.dispatches", len(out))
+                out.append(self._step(params, self._plan_step(1, j),
+                                      st)[:, None])
+        METRICS.increment("serving.decode.dispatches", len(out))
         return out
 
     def _resolve(self, pending: list, t0: float) -> None:
@@ -837,13 +931,19 @@ class InferenceEngine:
         now = time.monotonic()
         seg_s = time.perf_counter() - t0
         n_steps = len(pending)
-        self.metrics.observe_many("serving.decode_step",
-                                  [seg_s / n_steps] * n_steps)
+        METRICS.observe_many("serving.decode_step",
+                             [seg_s / n_steps] * n_steps)
+        if self._decode_cost is not None:
+            # live utilization: one dispatch's counted work over the
+            # measured per-step time of this segment
+            COSTS.publish_utilization(
+                self._decode_cost, seg_s / n_steps,
+                "serving.decode_mfu", "serving.decode_mbu")
         if self.cfg.speculative:
             # tokens emitted per dispatch per live slot (clipped emissions
             # at the limit count too)
             counts = (em >= 0).sum(axis=2)
-            self.metrics.observe_many(
+            METRICS.observe_many(
                 "serving.spec_accept_len",
                 [float(c) for c in counts[counts > 0]],
                 buckets=tuple(float(i)
@@ -852,6 +952,13 @@ class InferenceEngine:
         for s in list(self._slots):
             sl = self._slots[s]
             req: GenerateRequest = sl.pending.request
+            if req.trace_id:
+                # one span per live slot per segment: the slots share the
+                # segment's wall clock
+                trace.record_span(
+                    "serving.decode.segment", t0, seg_s,
+                    trace_id=req.trace_id, parent_id=req.root_span_id,
+                    request=req.id, slot=s, steps=n_steps)
             finish = None
             for t in em[:, s].reshape(-1):
                 t = int(t)
@@ -860,8 +967,8 @@ class InferenceEngine:
                 delivered += 1
                 if sl.first_token_s is None:
                     sl.first_token_s = now  # fence granularity
-                    self.metrics.observe_time("serving.ttft",
-                                              now - req.submitted_s)
+                    METRICS.observe_time("serving.ttft",
+                                         now - req.submitted_s)
                 sl.delivered.append(t)
                 if req.eos_id is not None and t == req.eos_id:
                     finish = "eos"
@@ -872,13 +979,14 @@ class InferenceEngine:
             if finish is not None:
                 self._evict(s, finish, now)
         if delivered:
-            self.metrics.increment("serving.tokens", delivered)
+            METRICS.increment("serving.tokens", delivered)
             if seg_s > 0:
-                self.metrics.gauge("serving.tokens_per_sec",
-                                   delivered / seg_s)
+                METRICS.gauge("serving.tokens_per_sec", delivered / seg_s)
 
     def _evict(self, s: int, finish: str, now: float) -> None:
-        """Free slot ``s``: release its row, complete the caller."""
+        """Free slot ``s``: release its row, complete the caller, account
+        its tenant and record its emit and root spans."""
+        t_ev = time.perf_counter()
         with self._lock:
             sl = self._slots.pop(s)
             pages = self._slot_pages.pop(s, [])
@@ -888,15 +996,32 @@ class InferenceEngine:
         if self.cfg.paged:
             self._publish_kv_gauges()
         req = sl.pending.request
-        self.metrics.increment("serving.completed")
-        self.metrics.observe_time("serving.request_latency",
-                                  now - req.submitted_s)
+        METRICS.increment("serving.completed")
+        METRICS.observe_time("serving.request_latency", now - req.submitted_s)
+        if req.tenant:
+            TENANTS.account("prompt_tokens", req.tenant, len(req.prompt))
+            TENANTS.account("generated_tokens", req.tenant,
+                            len(sl.delivered))
         sl.pending._complete(Completion(
             tokens=list(sl.delivered), finish_reason=finish,
             latency_s=now - req.submitted_s,
             ttft_s=(sl.first_token_s - req.submitted_s
                     if sl.first_token_s is not None else None),
             generation=sl.generation, loaded_step=sl.loaded_step))
+        if req.trace_id:
+            t_done = time.perf_counter()
+            trace.record_span(
+                "serving.emit", t_ev, t_done - t_ev, trace_id=req.trace_id,
+                parent_id=req.root_span_id, request=req.id, finish=finish)
+            # the root span, submit to completion, parented to the
+            # inbound traceparent (if any)
+            trace.record_span(
+                "serving.request", req.submitted_perf,
+                t_done - req.submitted_perf, trace_id=req.trace_id,
+                parent_id=req.parent_span_id or None,
+                span_id=req.root_span_id, request=req.id,
+                tokens=len(sl.delivered), finish=finish,
+                tenant=req.tenant or None)
 
     # ------------------------------------------------------------ hot reload
     def reload(self, step: int | None = None) -> int:
@@ -928,13 +1053,13 @@ class InferenceEngine:
             if self._staged is not None and self._staged[2] == target:
                 return target  # same target already parked for the fence
             template = self._raw_params
-        with self.metrics.time("serving.reload"), torch.no_grad():
+        with METRICS.time("serving.reload"), torch.no_grad():
             restored = self._ckpt.restore(template, step=target)
             new_params = self._maybe_quantize(restored["params"])
         with self._lock:
             self._staged = (restored["params"], new_params, target)
             applied = self._try_apply_staged_locked()
-        self.metrics.increment("serving.reloads")
+        METRICS.increment("serving.reloads")
         if applied:
             self._publish_generation_gauges()
         return target
@@ -964,9 +1089,9 @@ class InferenceEngine:
     def _publish_generation_gauges(self) -> None:
         with self._lock:
             gen, step = self._generation, self._loaded_step
-        self.metrics.gauge("serving.generation", gen)
+        METRICS.gauge("serving.generation", gen)
         if step is not None:
-            self.metrics.gauge("serving.loaded_step", step)
+            METRICS.gauge("serving.loaded_step", step)
 
     # ------------------------------------------------------------ stats
     # ------------------------------------------------- brownout actuators
@@ -980,7 +1105,7 @@ class InferenceEngine:
         with self._lock:
             self._spec_enabled = bool(enabled)
             now = self._spec_enabled
-        self.metrics.gauge("serving.speculative_enabled", 1.0 if now else 0.0)
+        METRICS.gauge("serving.speculative_enabled", 1.0 if now else 0.0)
         return now
 
     def set_max_new_cap(self, cap: int | None) -> None:
@@ -991,7 +1116,7 @@ class InferenceEngine:
             raise ValueError(f"max_new cap must be >= 1, got {cap}")
         with self._lock:
             self._max_new_cap = int(cap) if cap is not None else None
-        self.metrics.gauge("serving.max_new_cap",
+        METRICS.gauge("serving.max_new_cap",
                            float(cap) if cap is not None else 0.0)
 
     def set_admission_hook(self, hook) -> None:
@@ -1047,15 +1172,13 @@ class BatchScorer:
     generation; the worker pads each batch up to a power-of-two bucket by
     repeating the first row (pad outputs are discarded), so ``fn`` sees at
     most ``log2(max_batch) + 1`` shapes.  ``fn``'s outputs come back to
-    the host once a batch.  Publishes to its own registry ``metrics``."""
+    the host once a batch.  Publishes to the process-wide ``METRICS``."""
 
     def __init__(self, fn: Callable, max_batch: int = 64,
                  max_queue: int = 256, max_batch_delay_ms: float = 2.0):
         self.fn = fn
         self.max_batch = max_batch
-        self.metrics = MetricsRegistry()
-        self._queue = RequestQueue(max_queue, max_batch_delay_ms,
-                                   metrics=self.metrics)
+        self._queue = RequestQueue(max_queue, max_batch_delay_ms)
         self._shape_lock = threading.Lock()
         self._row_shape: tuple | None = None  # guarded-by: self._shape_lock
         self._buckets: set[int] = set()       # serve-thread-owned
@@ -1121,7 +1244,7 @@ class BatchScorer:
             try:
                 self._run(batch)
             except Exception as e:  # fail this batch, keep serving
-                self.metrics.increment("serving.score.errors")
+                METRICS.increment("serving.score.errors")
                 for p in batch:
                     p._fail(e)
 
@@ -1134,14 +1257,14 @@ class BatchScorer:
                 [xs, np.broadcast_to(xs[:1], (bucket - n,) + xs.shape[1:])])
         if bucket not in self._buckets:
             self._buckets.add(bucket)
-            self.metrics.increment("serving.score.recompile")
-        with self.metrics.time("serving.score_batch"), torch.no_grad():
+            METRICS.increment("serving.score.recompile")
+        with METRICS.time("serving.score_batch"), torch.no_grad():
             ys = self.fn(xs)
             ys = (ys.detach().cpu().numpy() if torch.is_tensor(ys)
                   else np.asarray(ys))
-        self.metrics.observe_time("serving.score.batch_fill", n / bucket,
+        METRICS.observe_time("serving.score.batch_fill", n / bucket,
                                   buckets=FILL_BUCKETS)
-        self.metrics.increment("serving.score.rows", n)
+        METRICS.increment("serving.score.rows", n)
         for i, p in enumerate(batch):
             p._complete(ys[i])
 

@@ -18,7 +18,12 @@ Port of ``ModelServer`` from ``deeplearning4j_tpu/serving/server.py``
 Error contract: backpressure keeps its HTTP status (``QueueFull`` → 429,
 ``DeadlineExceeded`` → 504), malformed requests → 400, a route whose
 engine or scorer is not mounted → 400, a reload with nothing to load →
-409.  ``/v1/migrate`` comes with the disagg roles (ROADMAP.md A8).
+409, an injected transient fault → 503.  An inbound W3C ``traceparent``
+binds the handler thread's trace context, so the engine's request spans
+join the caller's trace.  ``capture`` (an object with ``append(dict)``)
+receives every completed generation: prompt, tokens, the caller's
+``feedback``, the raw tenant and the weight generation.  ``/v1/migrate``
+comes with the disagg roles.
 """
 
 from __future__ import annotations
@@ -29,27 +34,23 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from ..observability.metrics import MetricsRegistry
+from ..observability import METRICS, MetricsRegistry, trace
+from ..resilience.faults import InjectedFault
 from .batcher import ServingRejected
 
 
 class ModelServer:
     """REST endpoint over an :class:`~.engine.InferenceEngine` and/or a
-    :class:`~.engine.BatchScorer` (either may be None; its route 400s).
-    Serves the engine's metrics registry (else the scorer's) unless
-    ``registry`` names another."""
+    :class:`~.engine.BatchScorer` (either may be None; its route 400s)."""
 
     def __init__(self, engine=None, scorer=None,
-                 registry: MetricsRegistry | None = None,
+                 registry: MetricsRegistry = METRICS,
                  host: str = "127.0.0.1", port: int = 0,
-                 request_timeout_s: float = 60.0):
+                 request_timeout_s: float = 60.0, capture=None):
         self.engine = engine
         self.scorer = scorer
-        if registry is None:
-            registry = (engine.metrics if engine is not None
-                        else scorer.metrics if scorer is not None
-                        else MetricsRegistry())
         self.registry = registry
+        self.capture = capture
         self.request_timeout_s = request_timeout_s
         outer = self
 
@@ -92,11 +93,17 @@ class ModelServer:
                           "/v1/reload": outer._reload}
                 if self.path not in routes:
                     return self._json(404, {"error": f"no route {self.path}"})
+                # a valid inbound traceparent joins the caller's trace; an
+                # absent or malformed one leaves the engine to mint
+                ctx = trace.parse_traceparent(self.headers.get("traceparent"))
                 try:
-                    return self._json(200, routes[self.path](payload))
+                    with trace.bind(*ctx) if ctx else trace.bind(None):
+                        return self._json(200, routes[self.path](payload))
                 except ServingRejected as e:
-                    outer.registry.increment("serving.http.rejected")
+                    METRICS.increment("serving.http.rejected")
                     return self._json(e.status, {"error": str(e)})
+                except InjectedFault as e:
+                    return self._json(503, {"error": f"transient fault: {e}"})
                 except TimeoutError as e:
                     return self._json(504, {"error": str(e)})
                 except (TypeError, ValueError, KeyError) as e:
@@ -115,15 +122,28 @@ class ModelServer:
             raise ValueError("missing required field 'prompt'")
         eos = p.get("eos_id")
         dl = p.get("deadline_ms")
+        tenant = str(p.get("tenant") or "")
         comp = self.engine.generate(
             p["prompt"], int(p.get("max_new_tokens", 16)),
             temperature=float(p.get("temperature", 0.0)),
             seed=int(p.get("seed", 0)),
             eos_id=int(eos) if eos is not None else None,
             deadline_ms=float(dl) if dl is not None else None,
-            tenant=str(p.get("tenant") or ""),
+            tenant=tenant,
             priority=int(p.get("priority", 0)),
             timeout=self.request_timeout_s)
+        if self.capture is not None:
+            # completed requests only; the raw tenant rides the record
+            # (the bounded fold applies to metric names)
+            self.capture.append({
+                "prompt": list(p["prompt"]), "tokens": comp.tokens,
+                "finish_reason": comp.finish_reason,
+                "feedback": p.get("feedback"),
+                "tenant": tenant or None,
+                "generation": comp.generation,
+                "loaded_step": comp.loaded_step,
+                "seed": int(p.get("seed", 0)),
+                "temperature": float(p.get("temperature", 0.0))})
         return {"tokens": comp.tokens, "finish_reason": comp.finish_reason,
                 "latency_s": comp.latency_s, "ttft_s": comp.ttft_s,
                 "generation": comp.generation,
@@ -150,7 +170,11 @@ class ModelServer:
     def _health(self) -> dict:
         out = {"ok": True}
         if self.engine is not None:
-            out["engine"] = self.engine.stats()
+            stats = self.engine.stats()
+            out["engine"] = stats
+            # top-level twins of the fields a router's probe reads
+            out["role"] = stats.get("role", "unified")
+            out["warmed"] = bool(stats.get("warmed"))
         if self.scorer is not None:
             out["scorer"] = {"queue_depth": self.scorer._queue.depth()}
         return out

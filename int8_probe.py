@@ -299,9 +299,11 @@ def engines(torch, cs, root) -> dict:
     import numpy as np
     from deeplearning4j_tpu_torch.models import transformer as ttr
     from deeplearning4j_tpu_torch.ops.cuda import build
+    from deeplearning4j_tpu_torch.observability import METRICS
     from deeplearning4j_tpu_torch.serving import engine as eng
 
     build.build_all()
+    METRICS.reset()
     mcfg = ttr.TransformerConfig()
     model = ttr.TransformerLM(mcfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -326,8 +328,13 @@ def engines(torch, cs, root) -> dict:
         for h in [engine.submit(p, cs.NEW_TOKENS) for p in prompts]:
             h.result(timeout=600)
         wall = time.perf_counter() - t0
-        timers = engine.metrics.snapshot()["timers"]
+        # an older tree's engine has a registry of its own; a newer one
+        # publishes to the process-wide METRICS (reset before each engine)
+        registry = getattr(engine, "metrics", None) or METRICS
+        timers = registry.snapshot()["timers"]
         engine.stop()
+        if registry is METRICS:
+            METRICS.reset()
         out[label] = {"wall_s": wall,
                       "ttft_p50_s": timers["serving.ttft"]["p50_s"],
                       "prefill_p50_s": timers["serving.prefill"]["p50_s"],

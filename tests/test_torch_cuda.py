@@ -768,3 +768,71 @@ def test_cli_trains_and_evaluates_on_the_card(dev, tmp_path, monkeypatch,
                      "--batch", "600"]) == 0
     evaluated = capsys.readouterr().out
     assert evaluated.strip() in trained
+
+
+def test_capture_on_the_card_changes_no_state(dev):
+    """On the card the kernels' fake branches stand in for the launches:
+    counting an engine's decode step (``COSTS.capture`` at warmup) leaves
+    its state bitwise unchanged, launches nothing, and counts the FFN and
+    head products of every slot."""
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.serving import InferenceEngine, ServingConfig
+    from deeplearning4j_tpu_torch.utils.tree_math import tree_leaves
+
+    cfg = ttr.TransformerConfig(vocab_size=256, d_model=64, n_heads=2,
+                                n_layers=2, d_ff=256, max_len=64)
+    model = ttr.TransformerLM(cfg, device=dev)
+    params = model.init(torch.Generator().manual_seed(2))
+    engine = InferenceEngine(model, params, cfg=ServingConfig(
+        slots=2, paged=True, page_size=16, int8_decode=True,
+        paged_attention_impl="pallas"), device=dev)
+    before = [t.clone() for t in tree_leaves(engine._state)]
+    launches = (tmm.int8_matmul.launches, tpa.paged_attention.launches)
+    engine._capture_costs(engine._params)
+    torch.cuda.synchronize()
+    after = tree_leaves(engine._state)
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert (tmm.int8_matmul.launches, tpa.paged_attention.launches) == \
+        launches
+    cost = engine._decode_cost
+    assert cost is not None and cost.source == "counted"
+    assert cost.flops >= 2 * 2 * (cfg.n_layers * 2 * cfg.d_model * cfg.d_ff
+                                  + cfg.d_model * cfg.vocab_size)
+
+
+def test_process_replica_on_the_card(dev, tmp_path):
+    """A ``ProcessReplica`` child on the card builds the same weights from
+    a CPU generator and loads the kernels this process built: its greedy
+    tokens equal an in-process engine's, and after ``kill()`` the router
+    answers 503 at once."""
+    import time
+
+    from deeplearning4j_tpu_torch.ops.cuda import build
+    from deeplearning4j_tpu_torch.serving import (PrefixRouter,
+                                                  ProcessReplica,
+                                                  RouterConfig,
+                                                  ServingRejected)
+    from deeplearning4j_tpu_torch.serving.router.procserver import \
+        tiny_lm_factory
+
+    build.build_all()
+    kw = {"max_len": 64, "slots": 2, "paged": True, "page_size": 16,
+          "prefix_cache": True, "device": "cuda"}
+    prompt = [5, 9, 13, 2, 30, 41, 8, 19, 3, 7, 1, 4, 6, 8, 10, 12, 3]
+    with tiny_lm_factory(**kw) as local:
+        want = local.generate(prompt, 8).tokens
+    rep = ProcessReplica(
+        "p0", "deeplearning4j_tpu_torch.serving.router.procserver:"
+        "tiny_lm_factory", tmp_path, factory_kwargs=kw,
+        boot_timeout_s=300.0, client_timeout_s=60.0)
+    router = PrefixRouter([rep], RouterConfig(page_size=16,
+                                              fail_threshold=1))
+    try:
+        assert router.generate(prompt, 8)["tokens"] == want
+        rep.kill()
+        t0 = time.monotonic()
+        with pytest.raises(ServingRejected) as ei:
+            router.generate(prompt, 8)
+        assert ei.value.status == 503 and time.monotonic() - t0 < 15.0
+    finally:
+        router.close()

@@ -22,6 +22,7 @@ import torch
 from deeplearning4j_tpu.models import transformer as jtr
 from deeplearning4j_tpu.parallel import checkpoint as jck
 from deeplearning4j_tpu.serving import engine as jeng
+from deeplearning4j_tpu_torch import observability as tobs
 from deeplearning4j_tpu_torch.models import transformer as ttr
 from deeplearning4j_tpu_torch.models.convert import params_from_numpy
 from deeplearning4j_tpu_torch.optimize import transforms as TT
@@ -91,13 +92,13 @@ def test_engine_serves_and_reloads_a_reference_checkpoint(
         got = _serve(engine)
         assert [c.tokens for c in got] == want
         assert {(c.generation, c.loaded_step) for c in got} == {(1, 2)}
-    snap = engine.metrics.snapshot()
+    snap = tobs.METRICS.snapshot()
     assert snap["counters"]["serving.reloads"] == 1
     assert snap["gauges"]["serving.loaded_step"] == 2
     assert snap["gauges"]["serving.generation"] == 1
     assert "serving.reload" in snap["timers"]
     assert engine.reload() == 2                  # same step: no-op
-    assert engine.metrics.snapshot()["counters"]["serving.reloads"] == 1
+    assert tobs.METRICS.snapshot()["counters"]["serving.reloads"] == 1
 
 
 def test_staged_swap_waits_for_free_slots(tmp_path, models):

@@ -17,12 +17,14 @@ import pytest
 import torch
 
 from deeplearning4j_tpu.models import transformer as jtr
+from deeplearning4j_tpu_torch import observability as tobs
 from deeplearning4j_tpu_torch.models import transformer as ttr
 from deeplearning4j_tpu_torch.models.convert import params_from_numpy
 from deeplearning4j_tpu_torch.serving import (BatchScorer, InferenceEngine,
                                               ModelServer, QueueFull,
                                               ScoreRequest, ServingClient,
                                               ServingConfig, ServingError)
+from torch_port_obs import port_obs  # noqa: F401  (autouse)
 
 CPU = "cpu"
 KW = dict(vocab_size=97, d_model=64, n_heads=4, n_layers=2, d_ff=128,
@@ -44,7 +46,7 @@ def test_batch_scorer_coalesces_and_matches_direct():
         with pytest.raises(ValueError, match="row shape"):
             sc.submit(np.zeros((5,), np.float32))
     assert calls and all(c & (c - 1) == 0 for c in calls)  # pow2 buckets only
-    counters = sc.metrics.snapshot()["counters"]
+    counters = tobs.METRICS.snapshot()["counters"]
     assert counters["serving.score.rows"] == 7
     assert counters["serving.score.recompile"] == len(set(calls))
 
@@ -80,7 +82,7 @@ def test_batch_scorer_coalesces_concurrent_callers():
     for i in range(1, 5):
         np.testing.assert_array_equal(out[i], np.full((3, 2), 2.0 * i))
     assert max(seen) <= 4 and all(c & (c - 1) == 0 for c in seen)
-    assert sc.metrics.snapshot()["counters"]["serving.score.errors"] == 1
+    assert tobs.METRICS.snapshot()["counters"]["serving.score.errors"] == 1
 
 
 def test_score_request_queues_and_bounds():

@@ -19,6 +19,7 @@ import torch
 
 from deeplearning4j_tpu.models import transformer as jtr
 from deeplearning4j_tpu.serving import engine as jeng
+from deeplearning4j_tpu_torch import observability as tobs
 from deeplearning4j_tpu_torch.models import transformer as ttr
 from deeplearning4j_tpu_torch.models.convert import params_from_numpy
 from deeplearning4j_tpu_torch.serving import (InferenceEngine, ModelServer,
@@ -27,6 +28,7 @@ from deeplearning4j_tpu_torch.serving import (InferenceEngine, ModelServer,
                                               ServingClient, ServingConfig,
                                               ServingError, kv_page_bytes)
 from deeplearning4j_tpu_torch.serving.batcher import GenerateRequest
+from torch_port_obs import port_obs  # noqa: F401  (autouse)
 
 CPU = "cpu"
 KW = dict(vocab_size=61, d_model=32, n_heads=4, n_layers=2, d_ff=64,
@@ -159,7 +161,7 @@ def test_page_pool_and_engine_backpressure(models):
         with pytest.raises(PagePoolExhausted):
             big.result(timeout=60)
         assert len(ok.result(timeout=60).tokens) == 3
-    assert engine.metrics.snapshot()["counters"][
+    assert tobs.METRICS.snapshot()["counters"][
         "serving.page_pool_exhausted"] == 1
     mcfg = tmodel.cfg
     assert kv_page_bytes(mcfg, 4, "int8") == (4 * 4 * 8 * 2 + 2 * 4 * 4) * 2
@@ -189,7 +191,7 @@ def test_request_queue_bounds_deadlines_and_tiers():
     assert q.take(3) == [fg, live, bg]
     dead = q.submit(GenerateRequest([5], 1, deadline_s=time.monotonic() - 1))
     assert q.depth() == 0 and dead.done()
-    assert q.metrics.snapshot()["counters"]["serving.deadline_dropped"] == 1
+    assert tobs.METRICS.snapshot()["counters"]["serving.deadline_dropped"] == 1
     # an interactive arrival preempts a background claim
     q.submit(GenerateRequest([6], 1))
     assert not q.claim(bg) and q.depth() == 2

@@ -1,8 +1,11 @@
 """The port's public signatures against the JAX package's.
 
-A caller of the JAX package's serving layer, transformer, int8 matmul,
-trainer, checkpoints, resilience and observability modules should run
-against the port as it is.  For every public function and class (its
+A caller of the JAX package's serving layer (the router included),
+transformer, int8 matmul, trainer, checkpoints, resilience, observability
+and control modules should run against the port as it is.  The cost model
+keeps the reference's signatures: where the reference reads XLA's cost
+analysis of a jitted function, ``CostModel.capture`` counts the same
+function on fake tensors, through the same parameters.  For every public function and class (its
 ``__init__`` and public methods) that the port's modules in
 :data:`MODULES` share with their reference counterparts, the
 parameters must agree in name, order, kind and default, apart from the
@@ -89,6 +92,16 @@ MODULES = [
      "deeplearning4j_tpu.evaluation.evaluation"),
     ("deeplearning4j_tpu_torch.models.zoo", "deeplearning4j_tpu.models.zoo"),
     ("deeplearning4j_tpu_torch.__main__", "deeplearning4j_tpu.__main__"),
+    *[(f"deeplearning4j_tpu_torch.observability.{m}",
+       f"deeplearning4j_tpu.observability.{m}")
+      for m in ("cost", "slo", "timeseries", "fleet", "server", "kernels")],
+    *[(f"deeplearning4j_tpu_torch.serving.router.{m}",
+       f"deeplearning4j_tpu.serving.router.{m}")
+      for m in ("ring", "replicas", "router", "server", "procserver")],
+    ("deeplearning4j_tpu_torch.control.overload",
+     "deeplearning4j_tpu.control.overload"),
+    ("deeplearning4j_tpu_torch.control.autoscaler",
+     "deeplearning4j_tpu.control.autoscaler"),
 ]
 
 _SEED = ("the port draws from a torch.Generator or an int seed: torch "
@@ -101,31 +114,14 @@ _KERNELS = ("the port's hook to run the same function through its plain "
 
 #: "module:qualname" -> {parameter: reason (-> ROADMAP.md item)}
 ALLOWED = {
-    "serving.batcher:GenerateRequest.__init__": {
-        "trace_id": "the engine's tracing (-> A6, A7)",
-        "parent_span_id": "the engine's tracing (-> A6, A7)",
-        "root_span_id": "the engine's tracing (-> A6, A7)",
-        "submitted_perf": "the engine's tracing (-> A6, A7)",
-    },
-    "serving.batcher:RequestQueue.__init__": {
-        "depth_gauge": "per-tier queue gauges come with the prefill/decode "
-                       "roles (-> A6)",
-        "metrics": "the port's queue publishes to its engine's registry, "
-                   "the reference's to the process-wide one; keyword-only "
-                   "(kept until A7 ports the global registry)",
-    },
     "serving.engine:InferenceEngine.__init__": {
         "compile_cache_dir": "no compile cache: PyTorch runs eagerly; CUDA "
                              "graphs of the step come with B2 item 4 (-> A6)",
         "device": _DEVICE + "; keyword-only",
-        "registry": "the engine's own metrics registry, where the reference "
-                    "publishes to the process-wide one; keyword-only "
-                    "(kept until A7)",
     },
-    "serving.server:ModelServer.__init__": {
-        "registry": "default: the engine's registry, where the reference "
-                    "serves the process-wide one (kept until A7)",
-        "capture": "online capture (-> A8)",
+    "serving.router.procserver:tiny_lm_factory": {
+        "device": _DEVICE + " (the tests pass 'cpu'; a child process on "
+                  "the card builds the same weights from a CPU generator)",
     },
     "models.transformer:TransformerLM.__init__": {
         "device": _DEVICE + "; keyword-only",
@@ -291,7 +287,15 @@ def test_the_comparison_covers_the_ported_surface():
                  "serving.server:ModelServer.__init__",
                  "models.transformer:TransformerLM.sample",
                  "models.transformer:decode_step_paged",
-                 "ops.cuda.matmul_int8:int8_matmul"):
+                 "ops.cuda.matmul_int8:int8_matmul",
+                 "observability.cost:CostModel.capture",
+                 "observability.slo:SLOEvaluator.__init__",
+                 "observability.fleet:FleetScraper.__init__",
+                 "serving.router.router:PrefixRouter.generate",
+                 "serving.router.replicas:ProcessReplica.__init__",
+                 "serving.batcher:RequestQueue.__init__",
+                 "control.autoscaler:Autoscaler.__init__",
+                 "control.overload:BrownoutController.__init__"):
         assert must in keys
     assert len(PAIRS) >= 50
     assert set(ALLOWED) <= keys, set(ALLOWED) - keys
