@@ -1,21 +1,24 @@
-// Paged single-query decode attention, float or int8 pages.
+// Paged single-query decode attention, float, int8 or fp8 (e4m3) pages.
 //
 // Replaces deeplearning4j_tpu/ops/pallas/paged_attention.py::paged_attention
 // (pl.pallas_call at paged_attention.py:197) and ::paged_attention_int8
-// (paged_attention.py:258); both Pallas kernels share _accumulate_page, so
-// here they are one kernel template with a QUANT flag.
+// (paged_attention.py:258, over int8 or float8_e4m3fn pages); both Pallas
+// kernels share _accumulate_page, so here they are one kernel template
+// with a QUANT flag and the page type KT.
 //
 // out (B,H,Dh) = softmax(q . K^T / sqrt(Dh)) V over each row's first
 // lengths[b] positions, where K/V live in (P, ps, Kv, Dh) page pools and
 // row b's logical position t sits at page bt[b, t / ps], slot t % ps.
-// Kv < H is GQA: query head h reads kv head h / (H / Kv).  int8 pages
-// carry a per-(page, kv-head) f32 scale and are dequantized in the kernel
-// (in f32, from shared memory) by one multiply.
+// Kv < H is GQA: query head h reads kv head h / (H / Kv).  int8 and e4m3
+// pages carry a per-(page, kv-head) f32 scale and are dequantized in the
+// kernel (in f32, from shared memory) by one multiply; an e4m3 element
+// converts to f32 exactly, and a 1-byte page type sizes its stages as
+// int8 does.
 //
 // What bounds it: each K/V byte of a valid position is read once and used
 // for 2 flops per query head of its group, far below the card's ~295
 // flops a byte, so the K+V bytes of the rows' valid positions bound it
-// (3,072 bytes a position at 12 kv heads, Dh 64, bf16; half in int8).
+// (3,072 bytes a position at 12 kv heads, Dh 64, bf16; half in int8 or e4m3).
 // To reach that bound a decode batch, whose rows may hold 1 or 2048
 // positions, has to keep every SM streaming about the same number of
 // bytes, with tens of KB in flight on each; at the engines' short rows
@@ -28,9 +31,12 @@
 //   CUDA-graph capture stays valid).  Every block reads `lengths` and
 //   takes a prefix sum of each row's tiles (runs of T tokens of one page,
 //   T dividing ps, T Kv Dh K+V elements at most 48 KB): W tiles in all.
-//   Block i owns tiles [i W / n, (i+1) W / n) of that sequence, so a row
-//   of 2048 positions is spread over many SMs and a row of 1 costs one
-//   tile; no block touches the table's padding past a row's length.
+//   A row's tiles group into chunks of whole pages, ceil(pages /
+//   max_chunks) pages each, so a row has at most max_chunks chunks (32;
+//   one page a chunk up to 32 pages).  Block i owns the chunks that start
+//   in tiles [i W / n, (i+1) W / n), so a row of 2048 positions is spread
+//   over many SMs and a row of 1 costs one tile; no block touches the
+//   table's padding past a row's length.
 // - Stream tiles with the asynchronous copy engine.  A page is one
 //   contiguous (ps, Kv, Dh) run of bytes, and T of its tokens are T Kv Dh
 //   contiguous elements: one 1-D bulk copy (cp.async.bulk, no tensor map)
@@ -39,8 +45,8 @@
 //   0 keeps a ring of up to 8 stages in flight (4 of 48 KB at the
 //   flagship's shape, 8 of 24 KB for its int8 pages); for int8 pages it
 //   also copies the page's 2 Kv scales with 4-byte cp.async, which arrive
-//   on the same barrier.  A row's q rides with the first tile of the row
-//   that a block sees.
+//   on the same barrier.  A row's q rides with the first tile of each of
+//   its chunks.
 // - Scores without a shuffle chain.  Sixteen consumer warps take a tile at
 //   a time from shared memory.  One thread computes a whole (query head,
 //   token) dot, neighbouring lanes on neighbouring tokens of one head,
@@ -51,14 +57,19 @@
 //   running max and sum once per tile, and P V runs one thread per (head,
 //   2 columns) over the tile's tokens, the accumulator in shared memory.
 //   f32 throughout; int8 K scales the score and int8 V the tile's sum.
-// - One launch, deterministic.  A row wholly inside one block's tiles is
-//   written by that block.  A row split over blocks f..l leaves one (m, l,
-//   acc) partial per block in scratch (see part_slot; blocks with no tile
-//   are skipped).  Each block bumps the row's ticket after writing, and
-//   the block that bumps it last merges the partials in block order (8 in
-//   flight per thread, the running max rescaled as it grows), writes the
-//   row and resets the ticket to 0 for the next call.  The merge order is
-//   fixed, so two calls on the same inputs agree bitwise.
+// - One launch, deterministic and batch-invariant.  Each chunk runs its
+//   own softmax state over its tiles in order.  A row of one chunk is
+//   written by the block that holds it.  A row of several leaves one (m,
+//   l, acc) partial per chunk in scratch (row b's chunk j in slot b
+//   max_chunks + j); the block of each chunk bumps the row's ticket after
+//   writing, and the block that bumps it last merges the partials in
+//   chunk order (8 in flight per thread, the running max rescaled as it
+//   grows), writes the row and resets the ticket to 0 for the next call.
+//   Where a row splits, and in what order its sums run, depends on the
+//   row's own length only, never on the other rows of the batch: a row's
+//   output is bitwise the same in any batch (a request decodes to the
+//   same tokens whatever else is served beside it), and two calls on the
+//   same inputs agree bitwise.
 // Positions >= lengths[b] are never read, so they contribute exactly 0.
 #include "hopper.cuh"
 
@@ -99,9 +110,11 @@ __device__ __forceinline__ int row_of(const int* cum, int B, int u) {
   return lo;
 }
 
-// the block whose tile range [i W / n, (i + 1) W / n) holds tile u
-__device__ __forceinline__ int block_of(int u, int W, int n) {
-  return static_cast<int>((static_cast<long long>(u + 1) * n - 1) / W);
+// tiles in each chunk of a row of `len` positions: whole pages (tpp tiles
+// a page), ceil(pages / max_chunks) of them
+__device__ __forceinline__ int chunk_tiles(int len, int ps, int tpp, int max_chunks) {
+  const int pages = (len + ps - 1) / ps;
+  return max(1, (pages + max_chunks - 1) / max_chunks) * tpp;
 }
 
 // floats of one partial (acc (H, DH), then m and l (H) each), padded so
@@ -110,16 +123,10 @@ __host__ __device__ __forceinline__ size_t part_stride(int H, int DH) {
   return static_cast<size_t>(H) * DH + (2 * H + 3) / 4 * 4;
 }
 
-// the slot of block x's partial of a row whose first block is f: a block
-// has at most one row that starts before it (slot 2x) and one that runs
-// past it (slot 2x + 1; the row's first block)
-__device__ __forceinline__ size_t part_slot(int x, int f) {
-  return 2 * static_cast<size_t>(x) + (x == f ? 1 : 0);
-}
-
 // Shared-memory layout, fixed on the host (all offsets in bytes).
 struct Plan {
   int B, H, Kv, ps, n_pages;
+  int max_chunks;   // chunks a row at most; partial slots a row
   int tile;         // most tokens a stage holds; divides ps
   int stages;
   int stage_bytes;  // stride of the ring
@@ -179,14 +186,23 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
       if (b < B) cum[b + 1] = carry + x;
       carry += __shfl_sync(0xffffffffu, x, 31);
     }
-    const bool narrow = carry <= 0x7fffffff / nblk;  // x W fits 32 bits
-    for (int x = lane; x <= nblk; x += 32)
-      bstart[x] = narrow ? x * carry / nblk
-                         : static_cast<int>(static_cast<long long>(x) * carry / nblk);
     if (lane == 0) cum[0] = 0;
+    __syncwarp();
+    // block x starts at the first chunk starting at or after tile x W / n
+    const bool narrow = carry <= 0x7fffffff / nblk;  // x W fits 32 bits
+    for (int x = lane; x <= nblk; x += 32) {
+      const int t = narrow ? x * carry / nblk
+                           : static_cast<int>(static_cast<long long>(x) * carry / nblk);
+      int st = t;
+      if (t < carry) {
+        const int r = row_of(cum, B, t);
+        const int ct = chunk_tiles(lens[r], ps, ps / T, p.max_chunks);
+        st = min(cum[r] + (t - cum[r] + ct - 1) / ct * ct, cum[r + 1]);
+      }
+      bstart[x] = st;
+    }
   }
   __syncthreads();
-  const int W = cum[B];
   // rows with no position (length 0) get zeros, one block each
   for (int b = blk; b < B; b += nblk) {
     if (lens[b] > 0) continue;
@@ -218,7 +234,9 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
           const int uu = c0 + j;
           const int tok0 = (uu - cum[ub]) * T;
           const int n = min(T, lens[ub] - tok0);
-          const bool first = uu == cum[ub] || uu == start;
+          // q rides with each chunk's first tile (a block starts on one)
+          const bool first =
+              (uu - cum[ub]) % chunk_tiles(lens[ub], ps, ps / T, p.max_chunks) == 0;
           const uint32_t kv_bytes = static_cast<uint32_t>(n * tok_elems * sizeof(KT));
           const uint32_t q_bytes = first ? static_cast<uint32_t>(H * DH * sizeof(QT)) : 0u;
           const uint32_t full = bars + 8 * s;
@@ -245,12 +263,15 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
     return;
   }
 
-  // ---- consumers: one segment (a row's run of this block's tiles) at a time
+  // ---- consumers: one segment (a chunk: a run of a row's tiles) at a time
   int it = 0;
   for (int u = start; u < end;) {
     const int b = row_of(cum, B, u);
     const int seg0 = u;
-    const int seg1 = min(cum[b + 1], end);
+    const int ct = chunk_tiles(lens[b], ps, ps / T, p.max_chunks);
+    const int chunk = (seg0 - cum[b]) / ct;
+    const int n_chunks = (cum[b + 1] - cum[b] + ct - 1) / ct;
+    const int seg1 = min(cum[b] + (chunk + 1) * ct, cum[b + 1]);
     for (; u < seg1; ++u, ++it) {
       const int s = it % p.stages;
       const unsigned char* st = smem + static_cast<size_t>(s) * p.stage_bytes;
@@ -259,7 +280,7 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
       const float* scl = reinterpret_cast<const float*>(st + p.sc_off);
       const int n = min(T, lens[b] - (u - cum[b]) * T);
       hopper::mbar_wait(bars + 8 * s, (it / p.stages) & 1);
-      if (u == seg0) {  // a new row: its q, scaled, and a fresh softmax state
+      if (u == seg0) {  // a new chunk: its row's q, scaled, and a fresh softmax state
         const QT* qt = reinterpret_cast<const QT*>(st + p.q_off);
         for (int i = tid; i < H * DH; i += kConsumers) {
           qs[i] = to_f32(qt[i]) * p.q_scale;
@@ -349,15 +370,15 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
       if (tid == 0) hopper::mbar_arrive(bars + 8 * (kMaxStages + s));  // stage free
     }
 
-    // ---- the segment's end: write the row, or a partial and maybe merge
-    const bool before = cum[b] < start, after = cum[b + 1] > end;
+    // ---- the chunk's end: write the row, or a partial and maybe merge
     QT* orow = out + static_cast<size_t>(b) * H * DH;
-    if (!before && !after) {
+    if (n_chunks == 1) {
       for (int i = tid; i < H * DH; i += kConsumers)
         orow[i] = from_f32<QT>(acc[i] / l_s[i / DH]);
     } else {
       const size_t stride = part_stride(H, DH);
-      float* mine = part + (2 * static_cast<size_t>(blk) + (before ? 0 : 1)) * stride;
+      const size_t slot0 = static_cast<size_t>(b) * p.max_chunks;
+      float* mine = part + (slot0 + chunk) * stride;
       for (int i = tid; i < H * DH; i += kConsumers) mine[i] = acc[i];
       for (int h = tid; h < H; h += kConsumers) {
         mine[H * DH + h] = m_s[h];
@@ -365,35 +386,32 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
       }
       __threadfence();
       hopper::named_sync(1, kConsumers);
-      const int f = block_of(cum[b], W, nblk), l = block_of(cum[b + 1] - 1, W, nblk);
       if (tid == 0) {
-        int parts = 0;  // the blocks in f..l that hold some of the row
-        for (int x = f; x <= l; ++x) parts += bstart[x] < bstart[x + 1];
         const int t = atomicAdd(tickets + b, 1);
-        const bool last = t == parts - 1;
+        const bool last = t == n_chunks - 1;
         if (last) tickets[b] = 0;  // ready for the next call
         __threadfence();
         *merge = last;
       }
       hopper::named_sync(1, kConsumers);
       if (*merge) {
-        // every partial is in: merge in block order, one thread 4 columns;
+        // every partial is in: merge in chunk order, one thread 4 columns;
         // each round loads 8 partials' (m, l, acc) at once and folds them
         // into a running (M, L, A), rescaled when M grows
         for (int i = tid * 4; i < H * DH; i += kConsumers * 4) {
           const int h = i / DH;
           float M = kNegInf, L = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int x0 = f; x0 <= l; x0 += 8) {
+          for (int j0 = 0; j0 < n_chunks; j0 += 8) {
             float mx[8], lx[8];
             float4 v[8];
 #pragma unroll
             for (int k = 0; k < 8; ++k) {
-              const int x = x0 + k;
-              mx[k] = kNegInf;  // past l or an idle block: weight 0
+              const int j = j0 + k;
+              mx[k] = kNegInf;  // past the last chunk: weight 0
               lx[k] = 0.f;
               v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-              if (x <= l && bstart[x] < bstart[x + 1]) {
-                const float* px = part + part_slot(x, f) * stride;
+              if (j < n_chunks) {
+                const float* px = part + (slot0 + j) * stride;
                 mx[k] = __ldcg(px + H * DH + h);
                 lx[k] = __ldcg(px + H * DH + H + h);
                 v[k] = __ldcg(reinterpret_cast<const float4*>(px + i));
@@ -429,8 +447,10 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
 
 // the shared-memory plan for these shapes; false if it does not fit
 template <typename QT, typename KT>
-bool make_plan(Plan& p, int B, int H, int Kv, int Dh, int ps, int n_pages, int n_blocks) {
+bool make_plan(Plan& p, int B, int H, int Kv, int Dh, int ps, int n_pages, int n_blocks,
+               int max_chunks) {
   p.B = B;
+  p.max_chunks = max_chunks;
   p.H = H;
   p.Kv = Kv;
   p.ps = ps;
@@ -482,7 +502,7 @@ template <typename QT, typename KT, bool QUANT, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const void* bt, const void* lengths, void* out,
                    void* part, void* tickets, int B, int H, int Kv, int ps, int n_pages,
-                   int n_blocks, cudaStream_t stream) {
+                   int n_blocks, int max_chunks, cudaStream_t stream) {
   auto kernel = paged_attention_kernel<QT, KT, QUANT, DH>;
   static bool attr_set = false;  // set once, before any graph capture
   if (!attr_set) {
@@ -492,7 +512,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
     attr_set = true;
   }
   Plan p;
-  if (!make_plan<QT, KT>(p, B, H, Kv, DH, ps, n_pages, n_blocks)) return cudaErrorInvalidValue;
+  if (!make_plan<QT, KT>(p, B, H, Kv, DH, ps, n_pages, n_blocks, max_chunks)) return cudaErrorInvalidValue;
   kernel<<<n_blocks, kThreads, smem_bytes(p), stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(bt),
@@ -501,27 +521,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
   return cudaGetLastError();
 }
 
+// page-type codes (ops/cuda/paged_attention.py: _PAGE_CODES)
+enum PageType : int { kPagesModel = 0, kPagesInt8 = 1, kPagesE4M3 = 2 };
+
 template <typename QT, int DH>
 cudaError_t dispatch_quant(int quant, const void* q, const void* k, const void* v,
                            const void* ks, const void* vs, const void* bt, const void* lengths,
                            void* out, void* part, void* tickets, int B, int H, int Kv, int ps,
-                           int n_pages, int n_blocks, cudaStream_t s) {
-  if (quant)
-    return launch<QT, int8_t, true, DH>(q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H,
-                                        Kv, ps, n_pages, n_blocks, s);
-  return launch<QT, QT, false, DH>(q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv,
-                                   ps, n_pages, n_blocks, s);
+                           int n_pages, int n_blocks, int max_chunks, cudaStream_t s) {
+  switch (quant) {
+    case kPagesModel:
+      return launch<QT, QT, false, DH>(q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H,
+                                       Kv, ps, n_pages, n_blocks, max_chunks, s);
+    case kPagesInt8:
+      return launch<QT, int8_t, true, DH>(q, k, v, ks, vs, bt, lengths, out, part, tickets, B,
+                                          H, Kv, ps, n_pages, n_blocks, max_chunks, s);
+    case kPagesE4M3:
+      return launch<QT, __nv_fp8_e4m3, true, DH>(q, k, v, ks, vs, bt, lengths, out, part,
+                                                 tickets, B, H, Kv, ps, n_pages, n_blocks, max_chunks, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename QT>
 cudaError_t dispatch_dh(int Dh, int quant, const void* q, const void* k, const void* v,
                         const void* ks, const void* vs, const void* bt, const void* lengths,
                         void* out, void* part, void* tickets, int B, int H, int Kv, int ps,
-                        int n_pages, int n_blocks, cudaStream_t s) {
+                        int n_pages, int n_blocks, int max_chunks, cudaStream_t s) {
   switch (Dh) {
-    case 32: return dispatch_quant<QT, 32>(quant, q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
-    case 64: return dispatch_quant<QT, 64>(quant, q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
-    case 128: return dispatch_quant<QT, 128>(quant, q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
+    case 32: return dispatch_quant<QT, 32>(quant, q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, max_chunks, s);
+    case 64: return dispatch_quant<QT, 64>(quant, q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, max_chunks, s);
+    case 128: return dispatch_quant<QT, 128>(quant, q, k, v, ks, vs, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, max_chunks, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -530,33 +561,37 @@ cudaError_t dispatch_dh(int Dh, int quant, const void* q, const void* k, const v
 
 DL4J_EXPORT_ERROR_STRING
 
-// q (B,H,Dh) and out in `dtype`; k/v pools (P,ps,Kv,Dh) in `dtype`
-// (quant == 0) or int8 with (P,Kv) f32 k_scale/v_scale (quant == 1);
+// q (B,H,Dh) and out in `dtype`; k/v pools (P,ps,Kv,Dh) of the page type
+// `quant`: in `dtype` (0), or int8 (1) or e4m3 (2) with (P,Kv) f32
+// k_scale/v_scale;
 // bt (B,n_pages) and lengths (B,) int32; Dh in {32, 64, 128}; H a
-// multiple of Kv with H / Kv <= 16.  q, k and v 16-byte aligned.  part is
-// f32 scratch of n_blocks * 2 * (H * Dh + round_up(2 H, 4)); tickets is B int32 that are
-// 0 on entry and are left 0 (the wrapper keeps one zeroed buffer per
-// stream).  All contiguous on one device.  Returns cudaGetLastError()
+// multiple of Kv with H / Kv <= 16.  q, k and v 16-byte aligned.  A row
+// splits into at most max_chunks chunks (ceil(pages / max_chunks) pages
+// each); part is f32 scratch of B * max_chunks * (H * Dh + round_up(2 H,
+// 4)); tickets is B int32 that are 0 on entry and are left 0 (the wrapper
+// keeps one zeroed buffer per stream).  All contiguous on one device.  Returns cudaGetLastError()
 // after the one launch.
 extern "C" int dl4j_paged_attention(const void* q, const void* k, const void* v,
                                     const void* k_scale, const void* v_scale, const void* bt,
                                     const void* lengths, void* out, void* part, void* tickets,
                                     int B, int H, int Kv, int Dh, int ps, int n_pages,
-                                    int n_blocks, int dtype, int quant, void* stream) {
+                                    int n_blocks, int max_chunks, int dtype, int quant,
+                                    void* stream) {
   if (B <= 0) return 0;
-  if (Kv <= 0 || H % Kv != 0 || H / Kv > 16 || n_blocks < 1 || n_pages < 1 || ps < 1)
+  if (Kv <= 0 || H % Kv != 0 || H / Kv > 16 || n_blocks < 1 || n_pages < 1 || ps < 1 ||
+      max_chunks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {
     case kF32:
-      e = dispatch_dh<float>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
+      e = dispatch_dh<float>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, max_chunks, s);
       break;
     case kBF16:
-      e = dispatch_dh<__nv_bfloat16>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
+      e = dispatch_dh<__nv_bfloat16>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, max_chunks, s);
       break;
     case kF16:
-      e = dispatch_dh<__half>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, s);
+      e = dispatch_dh<__half>(Dh, quant, q, k, v, k_scale, v_scale, bt, lengths, out, part, tickets, B, H, Kv, ps, n_pages, n_blocks, max_chunks, s);
       break;
     default:
       e = cudaErrorInvalidValue;

@@ -537,11 +537,14 @@ def init_paged_cache(cfg: TransformerConfig, num_pages: int, page_size: int,
 
 def reset_cache_pages(pages, page_mask) -> list:
     """Zero, IN PLACE, the physical pages named by ``page_mask`` (P,)
-    bool; a quantized pool also resets those pages' scales to neutral."""
+    bool; a quantized pool also resets those pages' scales to neutral.
+    The pools are zeroed through their bytes (all-zero bits are 0 in
+    every storage dtype): ``masked_fill_`` has no float8 kernel on the
+    CPU."""
     m = page_mask[:, None, None, None]
     for c in pages:
-        c["k"].masked_fill_(m, 0)
-        c["v"].masked_fill_(m, 0)
+        c["k"].view(torch.uint8).masked_fill_(m, 0)
+        c["v"].view(torch.uint8).masked_fill_(m, 0)
         if "k_scale" in c:
             s0 = kv_quant.neutral_scale(c["k"].dtype)
             c["k_scale"].masked_fill_(page_mask[:, None], s0)

@@ -190,14 +190,19 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, block_k: int = 128):
+def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
+                    block_k: int = 128, interpret: bool | None = None):
     """Flash attention on (B, T, H, Dh) tensors, every key block streamed
     and masked; differentiable.  Same contract as
-    :func:`reference_attention` within the registered tolerance."""
+    :func:`reference_attention` within the registered tolerance.
+    ``block_q`` and ``interpret`` are the reference's Pallas knobs,
+    accepted and ignored: the CUDA kernel's query tile is fixed, and a
+    CPU tensor takes the plain version."""
     return _Attention.apply(q, k, v, causal, False, block_k)
 
 
-def fused_attention(q, k, v, *, causal: bool = True, block_k: int = 128):
+def fused_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
+                    block_k: int = 128, interpret: bool | None = None):
     """As :func:`flash_attention`, but under ``causal`` each query tile's
     key loop stops at the causal frontier."""
     return _Attention.apply(q, k, v, causal, True, block_k)

@@ -128,10 +128,14 @@ class _ResidualLayerNorm(torch.autograd.Function):
 
 
 def fused_residual_layernorm(x, r, scale, bias, *, mask=None,
-                             eps: float = 1e-5):
+                             eps: float = 1e-5, block_rows: int = 256,
+                             interpret: bool | None = None):
     """Fused ``y = x + r*mask; h = LN(y)`` on (..., D) activations; returns
     ``(y, h)`` in x's dtype.  ``mask`` (broadcastable to x's row shape) is
-    a pre-scaled dropout keep-mask; None means no masking."""
+    a pre-scaled dropout keep-mask; None means no masking.
+    ``block_rows`` and ``interpret`` are the reference's Pallas knobs,
+    accepted and ignored (the kernel picks its rows a block from the
+    width; a CPU tensor takes the plain version)."""
     d = x.shape[-1]
     n = x.numel() // d
     x2, r2 = x.reshape(n, d), r.reshape(n, d)

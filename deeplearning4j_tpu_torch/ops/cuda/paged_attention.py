@@ -12,16 +12,21 @@ page_size, Kv, Dh)`` pools and addresses each sequence through a
   truth the kernels are held to.
 - :func:`paged_attention` / :func:`paged_attention_int8` are the kernel
   wrappers (``csrc/paged_attention.cu``, one template with a dequantize
-  flag), registered as ``cuda`` / ``cuda_int8``.  On CUDA tensors they
+  flag and the page type), registered as ``cuda`` / ``cuda_int8``; the
+  quantized kind takes int8 or fp8 (``float8_e4m3fn``) pages, as the
+  reference's does.  On CUDA tensors they
   launch the kernel and count the launch in ``<wrapper>.launches``; on
   CPU tensors they compute the plain version.  No fallback from the
   kernel to the plain version.
 
 The kernel is one launch of one block per SM that splits the batch's
 valid pages evenly over the blocks on the device (from ``lengths``, with
-no host sync) and merges a row split over blocks in the last block to
-finish it.  That merge counts arrivals in an int32 ticket per row, which
-the kernel leaves at 0: :func:`_tickets` keeps one zeroed buffer per
+no host sync).  A row splits into chunks of whole pages that depend on
+its own length only (at most :data:`MAX_CHUNKS`), each chunk a partial
+softmax state, merged in chunk order by the block that finishes the row
+last: a row's output is bitwise the same whatever else the batch holds.
+That merge counts arrivals in an int32 ticket per row, which the kernel
+leaves at 0: :func:`_tickets` keeps one zeroed buffer per
 (device, stream), made on the first call outside a CUDA-graph capture
 and never freed, so a captured call replays against the same buffer.
 
@@ -40,11 +45,16 @@ from ...observability.cost import kernel_work
 from . import build, kv_quant, registry
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the kernel's page-type codes of the quantized pools (0: the model dtype)
+_PAGE_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: dl4j_paged_attention(q, k, v, k_scale, v_scale, bt, lengths, out,
-#: part, tickets, B, H, Kv, Dh, ps, n_pages, n_blocks, dtype, quant,
-#: stream)
-_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+#: part, tickets, B, H, Kv, Dh, ps, n_pages, n_blocks, max_chunks, dtype,
+#: page type, stream)
+_ARGTYPES = [_P] * 10 + [_I] * 10 + [_P]
+#: the most chunks (partial softmax states) a row splits into: a row of
+#: ``pages`` pages splits into chunks of ceil(pages / MAX_CHUNKS) pages
+MAX_CHUNKS = 32
 
 
 def reference_paged_attention(q, k_pages, v_pages, block_tables, lengths,
@@ -126,10 +136,17 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
                          f"q heads/width {H}/{Dh} (H/Kv at most 16)")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what}: q dtype {q.dtype} not supported")
-    pool_dtype = torch.int8 if quant else q.dtype
-    if k_pages.dtype != pool_dtype or v_pages.dtype != pool_dtype:
-        raise TypeError(f"{what}: pools must be {pool_dtype}, got "
-                        f"{k_pages.dtype}/{v_pages.dtype}")
+    if quant:
+        if k_pages.dtype not in _PAGE_CODES or v_pages.dtype != k_pages.dtype:
+            raise TypeError(f"{what}: pools must both be int8 or "
+                            f"float8_e4m3fn, got {k_pages.dtype}/"
+                            f"{v_pages.dtype}")
+        page_code = _PAGE_CODES[k_pages.dtype]
+    else:
+        if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+            raise TypeError(f"{what}: pools must be {q.dtype}, got "
+                            f"{k_pages.dtype}/{v_pages.dtype}")
+        page_code = 0
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError(f"{what}: block_tables and lengths must be int32")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
@@ -156,9 +173,12 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
                              "aligned")
     n_pages = block_tables.shape[1]
     n_blocks = _blocks(q.device, B, n_pages, ps)
+    # the same chunks as MAX_CHUNKS itself (a row has at most n_pages
+    # pages), and as few partial slots as the table needs
+    max_chunks = min(MAX_CHUNKS, n_pages)
     out = torch.empty_like(q)
-    # per block two (m, l, acc) partials, each padded to 16 bytes
-    part = torch.empty((n_blocks * 2, H * Dh + -(-2 * H // 4) * 4),
+    # per row max_chunks (m, l, acc) partials, each padded to 16 bytes
+    part = torch.empty((B * max_chunks, H * Dh + -(-2 * H // 4) * 4),
                        dtype=torch.float32, device=q.device)
     tickets = _tickets(q.device, B)
     fn = build.function("paged_attention", "dl4j_paged_attention", _ARGTYPES)
@@ -167,7 +187,7 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths,
             v_scale.data_ptr() if quant else None,
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             part.data_ptr(), tickets.data_ptr(), B, H, Kv, Dh, ps,
-            n_pages, n_blocks, _DTYPE_CODES[q.dtype], int(quant),
+            n_pages, n_blocks, max_chunks, _DTYPE_CODES[q.dtype], page_code,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check("paged_attention", rc, what)
     return out
@@ -188,10 +208,13 @@ def _counted(q, k_pages, block_tables, quant: bool) -> torch.Tensor:
     return torch.empty_like(q)
 
 
-def paged_attention(q, k_pages, v_pages, block_tables, lengths):
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                    interpret: bool | None = None):
     """Paged decode attention; same contract as
     :func:`reference_paged_attention` within the registered tolerance
-    (the running softmax reassociates the reduction, so not bitwise)."""
+    (the running softmax reassociates the reduction, so not bitwise).
+    ``interpret``, the reference's Pallas mode, is accepted and ignored:
+    a CPU tensor takes the plain version."""
     if q.device.type == "cpu":
         return reference_paged_attention(q, k_pages, v_pages, block_tables,
                                          lengths)
@@ -204,9 +227,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
 
 
 def paged_attention_int8(q, k_pages, v_pages, k_scale, v_scale,
-                         block_tables, lengths):
-    """Paged decode attention over int8 pages with per-(page, kv_head) f32
-    scales, dequantized inside the kernel; same contract as
+                         block_tables, lengths, *,
+                         interpret: bool | None = None):
+    """Paged decode attention over int8 or fp8 (``float8_e4m3fn``) pages
+    with per-(page, kv_head) f32 scales, dequantized inside the kernel;
+    same contract as
     :func:`reference_paged_attention_int8` within the registered
     tolerance."""
     if q.device.type == "cpu":

@@ -64,6 +64,7 @@ class Pick:
 
 
 _REGISTRY: dict[tuple[str, str], KernelCandidate] = {}
+_IMPORT_ERRORS: dict[str, str] = {}
 _LOADED = False
 
 
@@ -84,7 +85,19 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     for mod in _KERNEL_MODULES:
-        importlib.import_module(mod)
+        try:
+            importlib.import_module(mod)
+        except Exception as e:  # its candidates stay absent, recorded
+            _IMPORT_ERRORS[mod] = repr(e)[:200]
+
+
+def import_errors() -> dict:
+    """Kernel modules that failed to import, by module name (empty on a
+    healthy install).  ``chip_smoke.py`` fails on a non-empty answer, and
+    an engine on CUDA raises when the candidate it names is absent: a
+    missing kernel never turns into the plain version quietly."""
+    _ensure_loaded()
+    return dict(_IMPORT_ERRORS)
 
 
 def kinds() -> list[str]:

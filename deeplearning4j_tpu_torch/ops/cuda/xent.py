@@ -222,11 +222,14 @@ class _BlockedXent(torch.autograd.Function):
 
 
 def blocked_cross_entropy(h, head, targets, weights=None, *,
-                          block_t: int = 256):
+                          block_t: int = 256, block_v: int = 512,
+                          interpret: bool | None = None):
     """Weighted token cross-entropy SUM of (N, D) hiddens against a (D, V)
     head, streamed so the (N, V) logits never exist (the caller divides
     by the token count).  ``block_t`` is the backward's token tile; the
-    CUDA kernels' tiles are fixed (128 tokens x 128 columns)."""
+    CUDA kernels' tiles are fixed (128 tokens x 128 columns), so
+    ``block_v`` and ``interpret``, the reference's Pallas knobs, are
+    accepted and ignored."""
     n = h.shape[0]
     t2 = targets.to(torch.int32).contiguous()
     w2 = (torch.ones((n,), dtype=torch.float32, device=h.device)

@@ -34,8 +34,8 @@ site                   effect when armed
 =====================  =====================================================
 
 The serving, scaleout, router, capture, online, control and disagg sites
-of the reference keep their exception mapping here and are wired when
-their tiers are ported.
+of the reference keep their exception mapping here; the scaleout sites
+are wired when the multi-device tier is ported.
 
 Arming:
 

@@ -332,3 +332,15 @@ class RequestQueue:
                 tier.clear()
             METRICS.gauge(self.depth_gauge, 0)
         return out
+
+    def unclaim(self, p: PendingResult) -> None:
+        """Push a previously taken request back to the HEAD of its tier
+        (a disaggregated prefill worker died: the scheduler requeues the
+        request rather than failing it, and the head position keeps
+        arrival order)."""
+        with self._cv:
+            if p.done():
+                return               # already failed (expiry/shutdown)
+            self._tiers[_tier(p.request)].appendleft(p)
+            METRICS.gauge(self.depth_gauge, self._total_locked())
+            self._cv.notify()

@@ -96,6 +96,20 @@ class ServingClient:
         return self._json("/v1/score", {"inputs": [list(map(float, r))
                                                    for r in inputs]})["outputs"]
 
+    def migrate_probe(self, prompt, timeout_s: float | None = None) -> dict:
+        """Ask the decode side which prompt positions are resident
+        already (``{"cached_len", "page_size"}``): the export ships those
+        pages as hash-only claims, with no bytes."""
+        return self._json("/v1/migrate", {"probe": {"prompt": list(prompt)}},
+                          timeout_s=timeout_s)
+
+    def migrate(self, payload: dict, timeout_s: float | None = None) -> dict:
+        """Submit a ``KVMigrator.export_payload`` migration and block until
+        decode completes (answers as :meth:`generate`).  A 409 means the
+        probed prefix was evicted between probe and import: export again
+        with full bytes and resubmit."""
+        return self._json("/v1/migrate", payload, timeout_s=timeout_s)
+
     def reload(self, step: int | None = None) -> int:
         """Hot swap the served weights (``/v1/reload``); returns the target
         step.  409 (a :class:`ServingError`) when nothing verifies."""

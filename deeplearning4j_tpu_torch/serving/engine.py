@@ -46,6 +46,15 @@ finish wholly under the old weights and queued ones decode wholly under
 the new, and every completion's ``generation``/``loaded_step`` stamp is
 exact.
 
+The disaggregated tier's roles (``role="prefill"``: no serve thread,
+:meth:`InferenceEngine.prefill` fills a request's KV pages and hands them
+off as a :class:`PrefillRecord`; ``role="decode"``: a unified engine
+that admits migrated requests through :meth:`admit_from_pages` between
+decode segments).  A migrated request enters its slot with the pages
+the migrator uploaded (byte for byte what the prefill engine's pool
+stores: float, int8 or fp8 pages and their scales) and the same host
+state a local admission writes, so it decodes token-identically.
+
 Observability, as the reference's: the engine and its queue publish to
 the process-wide ``METRICS``; every request carries a trace id (adopted
 from the caller's context, e.g. an HTTP ``traceparent``, else minted) and
@@ -58,9 +67,6 @@ each fence publishes ``serving.decode_mfu`` / ``serving.decode_mbu`` from
 the step time it already measures (no host sync); a page-pool 429 notes
 the flight recorder's burst trigger.  Chaos sites: ``serving.request``,
 ``serving.page_pool``, ``serving.decode`` and ``serving.draft``.
-
-Not ported yet: ``role != "unified"`` (raises ``NotImplementedError``)
-and fp8 KV pages.
 """
 
 from __future__ import annotations
@@ -90,7 +96,7 @@ from ..parallel.checkpoint import CheckpointManager
 from ..ops.cuda.matmul_int8 import quantize_params_for_decode
 from ..resilience.faults import FAULTS
 from .batcher import (Completion, GenerateRequest, PagePoolExhausted,
-                      PendingResult, RequestQueue, ScoreRequest)
+                      PendingResult, QueueFull, RequestQueue, ScoreRequest)
 from .paging import PagePool
 
 #: unit-interval buckets for fill-ratio histograms
@@ -122,10 +128,16 @@ class ServingConfig:
     #                                 registry candidate: "cuda" /
     #                                 "cuda_int8" (aliases "pallas" /
     #                                 "pallas_int8")
-    kv_quant: str | None = None     # None = model dtype, "int8" = per-page
-    #                                 per-head absmax int8 (needs paged)
-    role: str = "unified"           # only "unified" is ported (the
-    #                                 prefill/decode roles: ROADMAP.md A8)
+    kv_quant: str | None = None     # None = model dtype, "int8" / "fp8" =
+    #                                 per-page per-head absmax int8 or
+    #                                 float8_e4m3fn storage (needs paged)
+    role: str = "unified"           # "unified", "prefill" (prefill only:
+    #                                 no serve thread, work arrives through
+    #                                 prefill() and leaves as KV pages;
+    #                                 needs paged) or "decode" (a unified
+    #                                 engine publishing the decode tier's
+    #                                 queue gauge, the admit_from_pages
+    #                                 target)
 
 
 def kv_page_bytes(mcfg, page_size: int, kv_quant: str | None = None) -> int:
@@ -139,6 +151,82 @@ def kv_page_bytes(mcfg, page_size: int, kv_quant: str | None = None) -> int:
     if kv_quant is not None:
         per_layer += 2 * kvh * 4   # k_scale + v_scale rows, f32
     return per_layer * mcfg.n_layers
+
+
+class MigrationRejected(RuntimeError):
+    """A migrated request could not be admitted into the decode batch
+    (the weight generation moved between claim and admission, or the
+    engine stopped).  Nothing was corrupted: the decode side released
+    its references, and the request can be requeued and migrated again
+    (:class:`~.disagg.DisaggScheduler` does so)."""
+
+
+@dataclasses.dataclass
+class PrefillRecord:
+    """The migration handoff unit :meth:`InferenceEngine.prefill` returns:
+    the request's filled KV pages (block-table order, one reference per
+    page owned by this record) and what the decode side needs to continue
+    the request token-identically.  Exactly one of
+    :meth:`InferenceEngine.release_prefill` or the migrator's export
+    consumes it."""
+
+    prompt: list[int]
+    max_new_tokens: int
+    temperature: float
+    seed: int
+    eos_id: int | None
+    pages: list[int]        # block-table order; record owns one ref each
+    cached_len: int         # positions aliased from the prefill-side cache
+    generation: int         # prefill-engine weight generation of the pages
+
+
+class MigrationTicket:
+    """Accept/reject signal for one :meth:`InferenceEngine.admit_from_pages`
+    handoff, resolved by the serve thread at its drain fence: accepted
+    means the engine owns the pages and the request will decode (its
+    completion arrives through the pending handle); rejected means the
+    references were released and the caller should requeue."""
+
+    def __init__(self):
+        self._ev = threading.Event()
+        self._accepted = False          # write-once before _ev.set()
+        self._reason: str | None = None
+
+    def _resolve(self, accepted: bool, reason: str | None = None) -> None:
+        self._accepted = accepted
+        self._reason = reason
+        self._ev.set()
+
+    def wait(self, timeout: float | None = None) -> bool:
+        """True = admitted, False = rejected (see :attr:`reason`)."""
+        if not self._ev.wait(timeout):
+            raise TimeoutError("migration ticket unresolved — is the "
+                               "decode engine's serve loop running?")
+        return self._accepted
+
+    @property
+    def reason(self) -> str | None:
+        return self._reason
+
+
+@dataclasses.dataclass
+class _MigratedIn:
+    """One migrated request parked for the serve thread's drain fence.
+    ``pages`` arrive with one reference each on THIS engine's pool (the
+    migrator claimed and allocated them); the engine owns them from the
+    moment the record enters ``_migrated_in``."""
+
+    pending: PendingResult
+    pages: list[int]                  # block-table order, decode-side ids
+    uploads: list                     # [(page_id, [{name: tensor}, ...])]
+    generation: int | None            # decode generation the claim assumed
+    ticket: MigrationTicket
+
+
+def _byte_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``arr[idx]`` along axis 0, gathered through the bytes (every dtype
+    of a page pool, fp8 included, moves as the same uint8 rows)."""
+    return arr.view(torch.uint8)[idx].view(arr.dtype)
 
 
 @dataclasses.dataclass
@@ -175,13 +263,15 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
-        if cfg.role != "unified":
-            raise NotImplementedError(
-                f"role={cfg.role!r}: the prefill/decode roles are not "
-                "ported to deeplearning4j_tpu_torch yet (ROADMAP.md A8)")
         if cfg.prefix_cache and not cfg.paged:
             raise ValueError("prefix_cache requires paged=True (sharing is "
                              "block-table aliasing)")
+        if cfg.role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"role must be unified/prefill/decode, "
+                             f"got {cfg.role!r}")
+        if cfg.role == "prefill" and not cfg.paged:
+            raise ValueError("role='prefill' requires paged=True — the "
+                             "migration unit is a KV page")
         if cfg.kv_quant is not None:
             if not cfg.paged:
                 raise ValueError("kv_quant requires paged=True (scales live "
@@ -233,7 +323,13 @@ class InferenceEngine:
         self._pool = (PagePool(self._num_pages, cfg.page_size)
                       if cfg.paged else None)
         self._page_bytes = kv_page_bytes(mcfg, cfg.page_size, cfg.kv_quant)
-        self._queue = RequestQueue(cfg.max_queue, cfg.max_batch_delay_ms)
+        # per-tier queue depth: prefill pressure and decode pressure under
+        # their own gauge names; unified keeps the classic one
+        self._queue = RequestQueue(
+            cfg.max_queue, cfg.max_batch_delay_ms,
+            depth_gauge={"prefill": "serving.queue.depth.prefill",
+                         "decode": "serving.queue.depth.decode"}.get(
+                             cfg.role, "serving.queue.depth"))
         self._attn_fn = self._paged_attn_fn() if cfg.paged else None
         # _lock guards the slot bookkeeping shared between the serve thread
         # and callers (stop/stats/HTTP handlers); _state is serve-thread-
@@ -251,6 +347,12 @@ class InferenceEngine:
         # pages quarantined by reload's clear_prefix: the serve thread
         # wipes them at its next fence, then requeues them
         self._pending_wipe: list[int] = []           # guarded-by: self._lock
+        # serializes prefill()/release_prefill()/read_pages(): on a
+        # prefill-role engine (no serve thread) _state is owned by
+        # whichever worker holds this lock
+        self._prefill_lock = threading.Lock()
+        # migrated requests parked for the serve thread's drain fence
+        self._migrated_in: list[_MigratedIn] = []    # guarded-by: self._lock
         self._rows = torch.arange(cfg.slots, device=self.device)
         self._offsets = torch.arange(self._window, device=self.device,
                                      dtype=torch.int32)
@@ -329,13 +431,22 @@ class InferenceEngine:
 
     def _paged_attn_fn(self):
         """The paged-attention read of the step: None selects the plain
-        gather path; any other name resolves a registry candidate."""
+        gather path; any other name resolves a registry candidate (the
+        quantized kind for int8 and fp8 pages alike).  A candidate whose
+        kernel module failed to import raises, naming the import error:
+        the engine never takes the plain version in its place."""
         impl = self.cfg.paged_attention_impl
         if impl == "gather":
             return None
         kind = ("paged_attention_int8" if self.cfg.kv_quant is not None
                 else "paged_attention")
-        return registry.get(kind, IMPL_ALIASES.get(impl, impl)).fn
+        try:
+            return registry.get(kind, IMPL_ALIASES.get(impl, impl)).fn
+        except KeyError as e:
+            raise RuntimeError(
+                f"paged_attention_impl={impl!r}: {e.args[0]}; kernel "
+                "modules that failed to import: "
+                f"{registry.import_errors() or 'none'}") from None
 
     def _picks(self, logits, sampled, st) -> torch.Tensor:
         """Token picks (S, W) int32 from the logits (S, W, V) of a step:
@@ -455,9 +566,9 @@ class InferenceEngine:
         block-table row, so positions below ``cached_len`` (aliased
         prefix pages) are already there and skipped; the write back
         rewrites shared pages with the values they hold (the same bytes
-        for int8 pages: their scales are monotone).  A speculative
-        engine prefills the draft's dense row beside the target, always
-        from position 0 (the prefix cache holds target pages only)."""
+        for int8 and fp8 pages: their scales are monotone).  A
+        speculative engine prefills the draft's dense row beside the
+        target (:meth:`_arm_slot`)."""
         mcfg = self.model.cfg
         st = self._state
         p_len = len(req.prompt)
@@ -470,16 +581,8 @@ class InferenceEngine:
                 c, bt_row, mcfg.max_len, mcfg.dtype))) for c in st["pages"]]
         else:
             cache1 = init_decode_cache(mcfg, 1, self.device)
-        spec = self.cfg.speculative
-        if spec:
-            dcfg = self._draft_model.cfg
-            dcache1 = init_decode_cache(dcfg, 1, self.device)
-        for i in range(p_len - 1):
-            if i >= cached_len:
-                decode_step(params, cache1, prompt[i:i + 1], i, mcfg)
-            if spec:
-                decode_step(self._draft_params, dcache1, prompt[i:i + 1], i,
-                            dcfg)
+        for i in range(cached_len, p_len - 1):
+            decode_step(params, cache1, prompt[i:i + 1], i, mcfg)
         if self.cfg.paged:
             t = torch.arange(mcfg.max_len, device=self.device)[None, :]
             flat = paged_flat_index(bt_row, t, self._page_size)[0]
@@ -489,7 +592,23 @@ class InferenceEngine:
             for c, c1 in zip(st["cache"], cache1):
                 c["k"][slot] = c1["k"][0]
                 c["v"][slot] = c1["v"][0]
-        if spec:
+        self._arm_slot(slot, req, prompt)
+
+    def _arm_slot(self, slot: int, req: GenerateRequest,
+                  prompt: torch.Tensor) -> None:
+        """The rest of an admission once the slot's K/V holds
+        ``prompt[:-1]``: a speculative engine's draft row, the token
+        buffer and the row's positions."""
+        st = self._state
+        p_len = len(req.prompt)
+        if self.cfg.speculative:
+            # the draft's dense row, always from position 0 (prefix
+            # aliasing and migration carry target pages only)
+            dcfg = self._draft_model.cfg
+            dcache1 = init_decode_cache(dcfg, 1, self.device)
+            for i in range(p_len - 1):
+                decode_step(self._draft_params, dcache1, prompt[i:i + 1], i,
+                            dcfg)
             for c, c1 in zip(st["draft_cache"], dcache1):
                 c["k"][slot] = c1["k"][0]
                 c["v"][slot] = c1["v"][0]
@@ -571,6 +690,11 @@ class InferenceEngine:
             return self
         if warmup:
             self.warmup()
+        if self.cfg.role == "prefill":
+            # no decode loop: work arrives through prefill() on the
+            # scheduler's workers, and _state stays owned by whoever
+            # holds _prefill_lock
+            return self
         self._stop.clear()
         self._thread = threading.Thread(target=self._serve_loop, daemon=True,
                                         name="serving-engine")
@@ -588,15 +712,28 @@ class InferenceEngine:
             pages = {s: self._slot_pages.pop(s, [])
                      for s in list(self._slot_pages)}
             self._free = list(range(self.cfg.slots))
+            pending, self._pending_wipe = self._pending_wipe, []
+            migrated, self._migrated_in = self._migrated_in, []
         for sl in dead.values():
             sl.pending._fail(
                 RuntimeError("engine stopped with request in flight"))
+        for rec in migrated:
+            # reject, never corrupt: the pages are released below and the
+            # scheduler requeues on MigrationRejected
+            rec.ticket._resolve(False, "engine stopped")
+            rec.pending._fail(MigrationRejected(
+                "engine stopped before migrated request was admitted"))
         # the serve thread is joined, so _state is safe to touch: reset the
-        # dead rows the way _evict would have
-        if dead:
-            with torch.no_grad():
-                for s in dead:
-                    self._release_row(s, pages.get(s, []))
+        # dead rows the way _evict would have, and wipe what the pending
+        # lists held before their pages become allocatable
+        with torch.no_grad():
+            for s in dead:
+                self._release_row(s, pages.get(s, []))
+            for rec in migrated:
+                self._wipe_pages(self._pool.decref(rec.pages))
+            if pending:
+                self._wipe_pages(pending)
+                self._pool.requeue(pending)
         for p in self._queue.drain():
             p._fail(RuntimeError("engine stopped before request was admitted"))
 
@@ -619,6 +756,10 @@ class InferenceEngine:
                 build.build_all()
             with self._lock:
                 params = self._params
+            if self.cfg.role == "prefill":
+                # a prefill-role engine never runs the decode step
+                self._warmed = True
+                return
             if _obs_enabled():
                 self._capture_costs(params)
             if self.cfg.speculative:
@@ -687,8 +828,14 @@ class InferenceEngine:
                         dead = [self._slots.pop(s) for s in list(self._slots)]
                         self._slot_pages.clear()
                         self._free = list(range(self.cfg.slots))
+                        migrated, self._migrated_in = self._migrated_in, []
                     for sl in dead:
                         sl.pending._fail(e)
+                    for rec in migrated:
+                        # pool.reset() below reclaims their pages
+                        rec.ticket._resolve(False, "serve loop crashed")
+                        rec.pending._fail(MigrationRejected(
+                            "serve loop crashed before admission"))
                     if self._pool is not None:
                         self._pool.reset()
                         with self._lock:
@@ -713,6 +860,10 @@ class InferenceEngine:
             staged = self._staged is not None
         if applied:
             self._publish_generation_gauges()
+        if not staged:
+            # migrated requests enter the continuous batch here, between
+            # decode segments
+            self._drain_migrated()
         idle = not self._slots
         n_free = len(self._free)
         if n_free and not staged:
@@ -1023,6 +1174,266 @@ class InferenceEngine:
                 tokens=len(sl.delivered), finish=finish,
                 tenant=req.tenant or None)
 
+    # ------------------------------------------------ disaggregated tier
+    @property
+    def page_pool(self) -> PagePool | None:
+        """The host-side page pool (None on dense engines).  The decode
+        half of a migration claims and allocates against it, through the
+        migrator's export and import seams only."""
+        return self._pool
+
+    def prefill(self, prompt, max_new_tokens: int, temperature: float = 0.0,
+                seed: int = 0, eos_id: int | None = None) -> PrefillRecord:
+        """Prefill only, the prefill tier's whole job: fill the request's
+        KV pages through the same :meth:`_prefill` a local admission runs
+        (the numerics cannot diverge), then release the slot without
+        decoding a token.  Returns a :class:`PrefillRecord` owning one
+        reference per page.
+
+        Needs a paged engine with no serve thread (a ``role='prefill'``
+        engine never starts one): ``_state`` belongs to whichever worker
+        holds ``_prefill_lock``."""
+        if not self.cfg.paged:
+            raise ValueError("prefill-only requires paged=True — the "
+                             "migration unit is a KV page")
+        if self._thread is not None:
+            raise RuntimeError("prefill() needs exclusive ownership of the "
+                               "device state — stop the serve loop first "
+                               "(role='prefill' engines never start one)")
+        mcfg = self.model.cfg
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("empty prompt")
+        if any(not 0 <= t < mcfg.vocab_size for t in prompt):
+            raise ValueError(
+                f"prompt token out of range [0, {mcfg.vocab_size})")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if len(prompt) + max_new_tokens > mcfg.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_len ({mcfg.max_len})")
+        req = GenerateRequest(prompt=prompt,
+                              max_new_tokens=int(max_new_tokens),
+                              temperature=float(temperature), seed=int(seed),
+                              eos_id=(eos_id if eos_id is not None
+                                      else self.cfg.default_eos_id))
+        with self._prefill_lock, torch.no_grad(), \
+                METRICS.time("serving.prefill_only"):
+            with self._lock:
+                # no serve loop reaches an all-slots-free fence here:
+                # prefill entry is that fence
+                applied = self._try_apply_staged_locked()
+            if applied:
+                self._publish_generation_gauges()
+            self._drain_pending_wipe()
+            with self._lock:
+                if not self._free:
+                    raise QueueFull("no free slot for prefill")
+                slot = self._free.pop()
+                params = self._params
+                gen = self._generation
+            acquired: list[int] = []
+            try:
+                cached_len = 0
+                usable = len(prompt) - 1
+                if self.cfg.prefix_cache:
+                    # atomic with a params re-capture, as in _admit
+                    with self._lock:
+                        params = self._params
+                        gen = self._generation
+                        shared, cached_len = self._pool.lookup_prefix(
+                            prompt, usable)
+                    acquired.extend(shared)
+                need = -(-(len(prompt) + max_new_tokens) // self._page_size)
+                acquired.extend(self._pool.alloc(need - len(acquired)))
+                self._state["bt"][slot] = torch.tensor(
+                    acquired + [self._num_pages] * (
+                        self._pages_per_slot - len(acquired)),
+                    dtype=torch.int32)
+                self._prefill(params, slot, req, cached_len)
+                if self.cfg.prefix_cache:
+                    with self._lock:
+                        if self._params is params:
+                            self._pool.insert_prefix(prompt, acquired,
+                                                     usable)
+                    if cached_len:
+                        METRICS.increment("serving.prefix_hits")
+            except Exception:
+                self._release_row(slot, acquired)
+                with self._lock:
+                    self._free.append(slot)
+                raise
+            # release the slot without decoding: the pages stay pinned by
+            # the record's references, and the record is what migrates
+            self._state["active"][slot] = False
+            self._state["bt"][slot] = self._num_pages
+            with self._lock:
+                self._free.append(slot)
+            METRICS.increment("serving.prefills")
+            return PrefillRecord(
+                prompt=prompt, max_new_tokens=req.max_new_tokens,
+                temperature=req.temperature, seed=req.seed,
+                eos_id=req.eos_id, pages=acquired, cached_len=cached_len,
+                generation=gen)
+
+    def release_prefill(self, record: PrefillRecord) -> None:
+        """Consume a :class:`PrefillRecord` without migrating it (abort,
+        a killed worker): release its pages and wipe those that died.
+        Safe only where :meth:`prefill` is (no serve thread)."""
+        if not record.pages:
+            return
+        with self._prefill_lock, torch.no_grad():
+            pages, record.pages = record.pages, []
+            self._wipe_pages(self._pool.decref(pages))
+
+    def read_pages(self, ids) -> list[dict]:
+        """Host copies of the given physical pages: one dict a layer from
+        the pool's names (``k``/``v``, and ``k_scale``/``v_scale`` under
+        kv_quant) to an ``(n, ...)`` CPU tensor of the pool's dtype.  The
+        rows move as bytes, so whatever the pool stores (float, int8 or
+        fp8 pages, GQA layouts) is what a migration moves."""
+        if not self.cfg.paged:
+            raise ValueError("read_pages needs a paged engine")
+        with self._prefill_lock, torch.no_grad():
+            idx = torch.tensor(list(ids), dtype=torch.long,
+                               device=self.device)
+            return [{name: _byte_rows(arr, idx).cpu()
+                     for name, arr in layer.items()}
+                    for layer in self._state["pages"]]
+
+    def queue_wipe(self, pages: list[int]) -> None:
+        """Hand quarantined pages (no references left, off the free list)
+        to the serve thread, which wipes them before they are allocatable
+        again: the migrator never touches device state it does not own."""
+        if not pages:
+            return
+        with self._lock:
+            self._pending_wipe.extend(pages)
+        self._queue.wake()
+
+    def admit_from_pages(self, pending: PendingResult, *, pages: list[int],
+                         uploads: list,
+                         generation: int | None = None) -> MigrationTicket:
+        """Queue a migrated request for admission into the continuous
+        batch; the serve thread installs it between decode segments
+        (:meth:`_drain_migrated`).
+
+        ``pages`` (block-table order) hold one reference each on THIS
+        engine's pool, and the engine owns them from here on: whatever
+        happens next (admission, a generation-mismatch reject, stop, a
+        crash) it releases them exactly once.  ``uploads`` carries bytes
+        only for the pages that moved; claimed pages are resident.
+        Returns a :class:`MigrationTicket` resolved at the drain fence."""
+        if not self.cfg.paged:
+            raise ValueError("admit_from_pages needs a paged engine")
+        if self.cfg.role == "prefill":
+            raise ValueError("a prefill-role engine cannot decode")
+        req: GenerateRequest = pending.request
+        need = -(-(len(req.prompt) + req.max_new_tokens) // self._page_size)
+        if len(pages) != need or need > self._pages_per_slot:
+            raise ValueError(
+                f"page count {len(pages)} does not cover prompt+budget "
+                f"(need {need}, pages_per_slot {self._pages_per_slot})")
+        ticket = MigrationTicket()
+        with self._lock:
+            self._migrated_in.append(_MigratedIn(
+                pending=pending, pages=list(pages), uploads=list(uploads),
+                generation=generation, ticket=ticket))
+        self._queue.wake()   # break the serve loop's idle wait
+        return ticket
+
+    def _drain_migrated(self) -> None:
+        """Serve-thread drain of :meth:`admit_from_pages` records, one free
+        slot each.  A record whose claim generation no longer matches (a
+        reload applied since the migrator planned it) is rejected, its
+        pages released: its claimed pages hold old-weight K/V, and the
+        scheduler migrates it again under the new weights."""
+        while True:
+            with self._lock:
+                if not self._migrated_in or not self._free \
+                        or self._staged is not None:
+                    return
+                rec = self._migrated_in.pop(0)
+                slot = self._free.pop()
+                gen_id, lstep = self._generation, self._loaded_step
+            with trace.span("serving.admit_migrated"):
+                ok = (rec.generation is None or rec.generation == gen_id) \
+                    and not rec.pending.done()
+                if not ok:
+                    # reject, do not fail: the handle stays open for the
+                    # migrator to hand the same request back
+                    self._wipe_pages(self._pool.decref(rec.pages))
+                    with self._lock:
+                        self._free.append(slot)
+                    rec.ticket._resolve(
+                        False, "request done" if rec.pending.done()
+                        else "weight generation moved since migration plan")
+                    continue
+                try:
+                    self._admit_migrated(rec, slot)
+                except Exception as e:
+                    self._release_row(slot, rec.pages)
+                    with self._lock:
+                        self._free.append(slot)
+                    rec.ticket._resolve(False, str(e))
+                    rec.pending._fail(e)
+                    METRICS.increment("serving.engine.errors")
+                    continue
+                req: GenerateRequest = rec.pending.request
+                gen = None
+                if req.temperature > 0:
+                    gen = torch.Generator(
+                        device=self.device).manual_seed(req.seed)
+                with self._lock:
+                    self._slots[slot] = _Slot(
+                        pending=rec.pending, admitted_s=time.monotonic(),
+                        gen=gen, generation=gen_id, loaded_step=lstep)
+                    self._slot_pages[slot] = rec.pages
+                    self._admitted += 1
+                rec.ticket._resolve(True)
+                METRICS.increment("serving.admitted")
+                self._publish_kv_gauges()
+
+    def _admit_migrated(self, rec: _MigratedIn, slot: int) -> None:
+        """Install a migrated request into ``slot``: write the moved page
+        bytes (claimed pages are resident already), point the block-table
+        row at the pages and arm the row as a local admission would, with
+        no prefill of the target (skipping it is migration's gain).  A
+        speculative engine rebuilds the row's draft cache, at the draft's
+        cost (:meth:`_arm_slot`); the draft decides how many tokens emit,
+        never which."""
+        req: GenerateRequest = rec.pending.request
+        st = self._state
+        if rec.uploads:
+            ids = torch.tensor([pid for pid, _ in rec.uploads],
+                               dtype=torch.long, device=self.device)
+            for li, layer in enumerate(st["pages"]):
+                for name, arr in layer.items():
+                    vals = torch.stack([u[1][li][name] for u in rec.uploads])
+                    if vals.shape[1:] != arr.shape[1:]:
+                        raise ValueError(
+                            f"migrated {name} pages {tuple(vals.shape[1:])}"
+                            f" do not fit the pool's {tuple(arr.shape[1:])}")
+                    # byte for byte: the pool stores what the exporter's
+                    # pool stored (float, int8 or fp8 and its scales)
+                    arr.view(torch.uint8)[ids] = vals.to(arr.dtype).view(
+                        torch.uint8).to(self.device)
+        st["bt"][slot] = torch.tensor(
+            rec.pages + [self._num_pages] * (
+                self._pages_per_slot - len(rec.pages)), dtype=torch.int32)
+        prompt = torch.tensor(req.prompt, dtype=torch.long,
+                              device=self.device)
+        self._arm_slot(slot, req, prompt)
+        if self.cfg.prefix_cache:
+            # publish the migrated prompt's chains on THIS pool: the next
+            # migration of the prefix is a hash-only claim.  The
+            # generation matched at the drain fence, and no swap applies
+            # while this slot is out of _free
+            with self._lock:
+                self._pool.insert_prefix(req.prompt, rec.pages,
+                                         len(req.prompt) - 1)
+
     # ------------------------------------------------------------ hot reload
     def reload(self, step: int | None = None) -> int:
         """Hot swap to ``latest_valid_step()`` (or an explicit ``step``)
@@ -1270,4 +1681,5 @@ class BatchScorer:
 
 
 __all__ = ["BatchScorer", "FILL_BUCKETS", "IMPL_ALIASES", "InferenceEngine",
+           "MigrationRejected", "MigrationTicket", "PrefillRecord",
            "ServingConfig", "kv_page_bytes"]

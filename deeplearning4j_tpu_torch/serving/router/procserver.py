@@ -36,25 +36,23 @@ def tiny_lm_factory(seed: int = 7, vocab_size: int = 64, d_model: int = 32,
     """The test-battery engine: a fixed-seed tiny f32 transformer,
     identical for identical kwargs in any process.  The parameters are
     drawn from ``seed`` on a CPU ``torch.Generator`` and then placed on
-    ``device``, so every process builds the same weights.  ``role`` other
-    than ``"unified"`` raises: the prefill/decode roles come with the
-    disaggregated tier (``ROADMAP.md`` A8)."""
+    ``device``, so every process builds the same weights.
+    ``role="prefill"`` builds a prefill-tier worker (paged forced on, the
+    migration unit being a KV page; no serve thread, so a router's probe
+    refuses it as a decode target)."""
     import torch
 
     from ...models.transformer import TransformerConfig, TransformerLM
     from ..engine import InferenceEngine, ServingConfig
 
-    if role != "unified":
-        raise NotImplementedError(
-            f"role={role!r}: the prefill/decode roles are not ported to "
-            "deeplearning4j_tpu_torch yet (ROADMAP.md A8, disaggregated "
-            "serving)")
     cfg = TransformerConfig(vocab_size=vocab_size, d_model=d_model,
                             n_heads=n_heads, n_layers=n_layers, d_ff=d_ff,
                             max_len=max_len, dtype=torch.float32, remat=False,
                             xent_chunk=0)
     model = TransformerLM(cfg, device=device)
     params = model.init(torch.Generator().manual_seed(seed))
+    if role == "prefill":
+        paged = True
     return InferenceEngine(
         model, params=params,
         cfg=ServingConfig(slots=slots, resolve_every=resolve_every,

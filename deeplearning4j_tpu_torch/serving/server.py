@@ -11,7 +11,14 @@ Port of ``ModelServer`` from ``deeplearning4j_tpu/serving/server.py``
   ``{"inputs": [[...], ...]}`` → ``{"outputs": [[...], ...]}``
 - ``POST /v1/reload``   — hot swap to ``latest_valid_step()`` (or an
   explicit ``{"step": N}``) → ``{"step": N}``
-- ``GET /healthz``      — liveness + engine slot/queue stats
+- ``POST /v1/migrate``  — disaggregated KV-page import: ``{"probe":
+  {"prompt": [ids]}}`` → ``{"cached_len", "page_size"}`` (the positions
+  already resident need no bytes); a full payload
+  (``KVMigrator.export_payload``) installs the pages and blocks until
+  decode completes, answering as ``/v1/generate``; a payload whose
+  probed prefix was evicted since → 409 (re-export with full bytes)
+- ``GET /healthz``      — liveness + engine slot/queue stats, and the
+  top-level ``role``/``warmed`` a router's probe reads
 - ``GET /metrics``      — JSON registry snapshot
 - ``GET /metrics.prom`` — Prometheus text exposition
 
@@ -22,8 +29,7 @@ engine or scorer is not mounted → 400, a reload with nothing to load →
 binds the handler thread's trace context, so the engine's request spans
 join the caller's trace.  ``capture`` (an object with ``append(dict)``)
 receives every completed generation: prompt, tokens, the caller's
-``feedback``, the raw tenant and the weight generation.  ``/v1/migrate``
-comes with the disagg roles.
+``feedback``, the raw tenant and the weight generation.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ class ModelServer:
         self.registry = registry
         self.capture = capture
         self.request_timeout_s = request_timeout_s
+        self._migrator = None   # built at the first /v1/migrate import
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -90,7 +97,8 @@ class ModelServer:
                     return self._json(400, {"error": f"bad request body: {e}"})
                 routes = {"/v1/generate": outer._generate,
                           "/v1/score": outer._score,
-                          "/v1/reload": outer._reload}
+                          "/v1/reload": outer._reload,
+                          "/v1/migrate": outer._migrate}
                 if self.path not in routes:
                     return self._json(404, {"error": f"no route {self.path}"})
                 # a valid inbound traceparent joins the caller's trace; an
@@ -166,6 +174,40 @@ class ModelServer:
         step = (p or {}).get("step")
         return {"step": self.engine.reload(
             step=int(step) if step is not None else None)}
+
+    def _migrate(self, p: dict) -> dict:
+        """Disaggregated KV-page import.  The probe answers how many prompt
+        positions the decode pool holds already (their pages need no
+        bytes); an import installs the pages through the migrator and
+        blocks until decode completes, the wire twin of
+        ``/v1/generate``."""
+        if self.engine is None:
+            raise ValueError("no InferenceEngine mounted on this server")
+        # a DisaggScheduler fronts its decode engine; a plain engine is
+        # its own migration target
+        target = getattr(self.engine, "decode", self.engine)
+        if getattr(target, "page_pool", None) is None:
+            raise ValueError("migration needs a paged engine "
+                             "(the migration unit is a KV page)")
+        probe = p.get("probe")
+        if probe is not None:
+            prompt = [int(t) for t in probe["prompt"]]
+            if not prompt:
+                raise ValueError("empty prompt")
+            return {"cached_len": target.page_pool.peek_prefix(
+                        prompt, len(prompt) - 1),
+                    "page_size": target.page_pool.page_size}
+        if "request" not in p:
+            raise ValueError("missing required field 'request'")
+        if self._migrator is None:
+            from .disagg.migrate import KVMigrator
+            self._migrator = KVMigrator(target)
+        pending = self._migrator.import_payload(p)
+        comp = pending.result(self.request_timeout_s)
+        return {"tokens": comp.tokens, "finish_reason": comp.finish_reason,
+                "latency_s": comp.latency_s, "ttft_s": comp.ttft_s,
+                "generation": comp.generation,
+                "loaded_step": comp.loaded_step}
 
     def _health(self) -> dict:
         out = {"ok": True}

@@ -110,6 +110,52 @@ def test_scatter_paged_layer_drops_out_of_range(quant, case):
             np.testing.assert_array_equal(out[key].numpy(), before[0][key])
 
 
+def test_scatter_paged_fp8_keeps_untouched_pages_byte_identical():
+    """The write into an fp8 pool (dequantize the pool, scatter,
+    requantize against monotone scales) leaves every page it does not
+    touch byte-identical, and writes the bytes the JAX package writes;
+    through the dropping scatter and through the paged step's own."""
+    jcfg, _ = _cfgs()
+    P, ps, K, Dh = 9, 4, jcfg.kv_heads, jcfg.head_dim
+    rng = np.random.default_rng(4)
+    fp8 = torch.float8_e4m3fn
+    s0 = torch.full((P, K), tkvq.neutral_scale(fp8))
+    layer = {}
+    for key in ("k", "v"):
+        f = torch.from_numpy(rng.standard_normal((P, ps, K, Dh))
+                             .astype(np.float32))
+        layer[key], layer[key + "_scale"] = tkvq.requantize_pool(f, s0, fp8)
+    flat = np.asarray([5, 6, 29], np.int64)         # pages 1 and 7
+    kv = [rng.standard_normal((3, K, Dh)).astype(np.float32) * 3
+          for _ in range(2)]
+
+    def u8(t):
+        return t.contiguous().view(torch.uint8).numpy().copy()
+
+    before = {key: u8(t) for key, t in layer.items()}
+    jlayer = {key: jnp.asarray(before[key].view(jnp.float8_e4m3fn))
+              if key in ("k", "v") else jnp.asarray(t.numpy())
+              for key, t in layer.items()}
+    want = jtr.scatter_paged_layer(jlayer, jnp.asarray(flat),
+                                   *map(jnp.asarray, kv))
+    touched = np.zeros(P, bool)
+    touched[flat // ps] = True
+    for put in (ttr.scatter_rows, ttr._put_rows):
+        c = {key: t.clone() for key, t in layer.items()}
+        ttr._scatter_paged(c, torch.from_numpy(flat),
+                           *map(torch.from_numpy, kv), put)
+        for key in ("k", "v"):
+            got = u8(c[key])
+            assert c[key].dtype == fp8
+            np.testing.assert_array_equal(
+                got, np.asarray(want[key]).view(np.uint8))
+            np.testing.assert_array_equal(got[~touched],
+                                          before[key][~touched])
+            assert (got[touched] != before[key][touched]).any()
+            np.testing.assert_array_equal(c[key + "_scale"].numpy(),
+                                          np.asarray(want[key + "_scale"]))
+
+
 def test_scatter_rows_drop_needs_no_host_sync(monkeypatch):
     """The drop stays on the device: no ``nonzero``, ``item`` (also the
     one ATen makes of a 0-d tensor index) or copy to the host (the

@@ -155,9 +155,15 @@ def test_kv_quant_requantize_dequantize_neutral_bitwise():
 
 
 def test_kv_quant_modes_and_itemsize():
+    assert tkvq.KV_QUANT_MODES == jkvq.KV_QUANT_MODES == ("int8", "fp8")
     assert tkvq.storage_dtype("int8") == torch.int8
-    with pytest.raises(ValueError):
-        tkvq.storage_dtype("fp8")
+    # fp8 pages, as the reference's: e4m3, qmax 448, one byte
+    assert tkvq.storage_dtype("fp8") == torch.float8_e4m3fn
+    assert jkvq.storage_dtype("fp8") == jnp.float8_e4m3fn
+    fp8 = torch.float8_e4m3fn
+    assert tkvq.qmax(fp8) == jkvq.qmax(jnp.float8_e4m3fn) == 448.0
+    assert tkvq.neutral_scale(fp8) == jkvq.neutral_scale(jnp.float8_e4m3fn)
+    assert tkvq.kv_itemsize("fp8", torch.bfloat16) == 1
     with pytest.raises(ValueError):
         tkvq.storage_dtype("int4")
     assert tkvq.kv_itemsize("int8", torch.bfloat16) == 1
@@ -212,6 +218,85 @@ def test_paged_attention_plain_matches_jax(H, Kv, lengths):
                                atol=TOL, rtol=0)
     np.testing.assert_allclose(
         out, np.asarray(jpa.reference_paged_attention(*args)),
+        atol=TOL, rtol=0)
+    assert np.isfinite(out).all()
+
+
+def _u8(t: torch.Tensor) -> np.ndarray:
+    """The bytes of a torch tensor (fp8 has no numpy dtype of its own)."""
+    return t.contiguous().view(torch.uint8).numpy()
+
+
+def _jfp8(t: torch.Tensor):
+    """A torch float8_e4m3fn tensor as a jnp float8_e4m3fn array."""
+    return jnp.asarray(_u8(t).view(jnp.float8_e4m3fn))
+
+
+def test_kv_quant_fp8_cast_bitwise():
+    """``cast_to`` fp8: the clamp to ±448 and the round-to-nearest-even
+    cast, byte for byte the reference's, over edge values (the finite
+    max, values past it, subnormals, signed zeros) and random ones."""
+    rng = np.random.default_rng(11)
+    edge = np.array([448, -448, 464, -464, 500, -500, 1e6, -1e6, 0.0, -0.0,
+                     2 ** -9, -2 ** -9, 2 ** -10, 3 * 2 ** -10, 2 ** -6,
+                     0.1, 1.0625, 1.1875, 240, 232, 480, 447.9],
+                    np.float32)
+    x = np.concatenate([edge, (rng.standard_normal(4096) * 100)
+                        .astype(np.float32),
+                        (rng.standard_normal(4096) * 0.01)
+                        .astype(np.float32)])
+    got = _u8(tkvq.cast_to(_t(x), torch.float8_e4m3fn))
+    want = np.asarray(jkvq.cast_to(jnp.asarray(x), jnp.float8_e4m3fn)) \
+        .view(np.uint8)
+    np.testing.assert_array_equal(got, want)
+    assert not torch.isnan(tkvq.cast_to(_t(x), torch.float8_e4m3fn)
+                           .float()).any()
+
+
+def test_kv_quant_fp8_requantize_dequantize_bitwise():
+    """fp8 pools: requantize and dequantize bitwise the reference's (the
+    storage compared through its bytes), monotone scales kept, and an
+    unchanged pool requantizes to the same bytes."""
+    rng = np.random.default_rng(12)
+    f = _pool(rng, scale=3.0)
+    f[2] = 0.0                                  # a wiped page
+    fp8, jfp8 = torch.float8_e4m3fn, jnp.float8_e4m3fn
+    s0 = np.full((6, 2), jkvq.neutral_scale(jfp8), np.float32)
+    s0[1] = 0.5                                 # a monotone scale to keep
+    jq, js = jkvq.requantize_pool(jnp.asarray(f), jnp.asarray(s0), jfp8)
+    tq, ts = tkvq.requantize_pool(_t(f), _t(s0), fp8)
+    assert tq.dtype == fp8
+    np.testing.assert_array_equal(_u8(tq), np.asarray(jq).view(np.uint8))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    for dt_j, dt_t in ((jnp.float32, torch.float32),
+                       (jnp.bfloat16, torch.bfloat16)):
+        jd = np.asarray(jkvq.dequantize_pool(jq, js, dt_j).astype(jnp.float32))
+        td = tkvq.dequantize_pool(tq, ts, dt_t).float().numpy()
+        np.testing.assert_array_equal(td, jd)
+    tq2, ts2 = tkvq.requantize_pool(tkvq.dequantize_pool(tq, ts), ts, fp8)
+    np.testing.assert_array_equal(_u8(tq2), _u8(tq))
+    np.testing.assert_array_equal(ts2.numpy(), ts.numpy())
+
+
+@pytest.mark.parametrize("H,Kv,lengths", CASES)
+def test_paged_attention_fp8_plain_matches_jax(H, Kv, lengths):
+    """#7's plain version over e4m3 pages against the reference kernel in
+    interpret mode and its plain version: within TOL (the same values,
+    the same f32 arithmetic; the registry's band is 0.05)."""
+    q, k, v, bt, lens = _paged_case(H * 10 + Kv + 2, H, Kv, lengths)
+    fp8 = torch.float8_e4m3fn
+    s0 = np.full((k.shape[0], Kv), tkvq.neutral_scale(fp8), np.float32)
+    kq, ks = tkvq.requantize_pool(_t(k), _t(s0), fp8)
+    vq, vs = tkvq.requantize_pool(_t(v), _t(s0), fp8)
+    out = tpa.paged_attention_int8(_t(q), kq, vq, ks, vs, _t(bt),
+                                   _t(lens)).numpy()
+    args = (jnp.asarray(q), _jfp8(kq), _jfp8(vq), jnp.asarray(ks.numpy()),
+            jnp.asarray(vs.numpy()), jnp.asarray(bt), jnp.asarray(lens))
+    np.testing.assert_allclose(
+        out, np.asarray(jpa.paged_attention_int8(*args, interpret=True)),
+        atol=TOL, rtol=0)
+    np.testing.assert_allclose(
+        out, np.asarray(jpa.reference_paged_attention_int8(*args)),
         atol=TOL, rtol=0)
     assert np.isfinite(out).all()
 
@@ -311,3 +396,41 @@ def test_registry_surface():
     with pytest.raises(ValueError):
         treg.register(treg.KernelCandidate(
             kind="paged_attention", name="cuda", fn=lambda *a: None))
+
+
+def test_registry_records_a_failed_kernel_import(monkeypatch):
+    """A kernel module that fails to import is recorded in
+    ``import_errors()``, and the other candidates still load (the
+    reference's ``_ensure_loaded``); a healthy install records none."""
+    assert treg.import_errors() == jreg.import_errors() == {}
+    bad = "deeplearning4j_tpu_torch.ops.cuda.no_such_kernel"
+    monkeypatch.setattr(treg, "_KERNEL_MODULES",
+                        (bad,) + treg._KERNEL_MODULES)
+    monkeypatch.setattr(treg, "_IMPORT_ERRORS", {})
+    monkeypatch.setattr(treg, "_LOADED", False)
+    assert treg.kinds() == jreg.kinds()
+    errors = treg.import_errors()
+    assert list(errors) == [bad] and "no_such_kernel" in errors[bad]
+
+
+def test_engine_raises_when_its_kernel_candidate_is_absent(monkeypatch):
+    """An engine whose ``paged_attention_impl`` names a candidate that did
+    not load raises, naming the import errors; it never serves through
+    the plain version in the kernel's place."""
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  ServingConfig)
+
+    cfg = ttr.TransformerConfig(vocab_size=32, d_model=16, n_heads=2,
+                                n_layers=1, d_ff=32, max_len=16)
+    model = ttr.TransformerLM(cfg, device="cpu")
+    registry = {k: v for k, v in treg._REGISTRY.items()
+                if k != ("paged_attention_int8", "cuda_int8")}
+    monkeypatch.setattr(treg, "_REGISTRY", registry)
+    monkeypatch.setattr(treg, "_IMPORT_ERRORS", {
+        "deeplearning4j_tpu_torch.ops.cuda.paged_attention": "OSError()"})
+    for impl in ("cuda_int8", "pallas_int8"):
+        with pytest.raises(RuntimeError, match="failed to import.*OSError"):
+            InferenceEngine(model, model.init(), cfg=ServingConfig(
+                paged=True, kv_quant="fp8", paged_attention_impl=impl),
+                device="cpu")

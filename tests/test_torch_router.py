@@ -39,7 +39,7 @@ from deeplearning4j_tpu_torch.serving import (EngineReplica, HashRing,
                                               prefix_chain_keys)
 from deeplearning4j_tpu_torch.serving.router.procserver import \
     tiny_lm_factory
-from deeplearning4j_tpu_torch.serving.router.replicas import Replica
+from deeplearning4j_tpu_torch.serving.router.replicas import Replica, ReplicaPool
 from torch_port_obs import port_obs  # noqa: F401  (autouse)
 
 CPU = "cpu"
@@ -467,8 +467,18 @@ def test_process_replica_parity_and_fail_fast(tmp_path):
 
 
 def test_tiny_lm_factory_refuses_the_disagg_roles():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tiny_lm_factory(role="prefill", device=CPU)
+    """The factory builds a prefill-tier engine (paged forced on, no serve
+    thread), as the reference's does; the pool's prober refuses it as a
+    decode target, beside a unified engine it keeps."""
+    pf = tiny_lm_factory(role="prefill", device=CPU)
+    assert pf.cfg.paged and pf.stats()["role"] == "prefill"
+    pf.start(warmup=False)
+    assert not pf.stats()["running"]
+    uni = tiny_lm_factory(device=CPU)
+    pool = ReplicaPool([EngineReplica("pf", pf), EngineReplica("uni", uni)],
+                       fail_threshold=1)
+    pool.probe_once()
+    assert not pool.is_active("pf") and pool.is_active("uni")
 
 
 # --------------------------------------------------------- client transport

@@ -55,7 +55,8 @@ def _serve(engine):
 
 
 @pytest.mark.parametrize("kv_quant,impl", [(None, "pallas"),
-                                           ("int8", "pallas_int8")])
+                                           ("int8", "pallas_int8"),
+                                           ("fp8", "pallas_int8")])
 def test_served_greedy_tokens_identical_to_jax_engine(models, kv_quant, impl):
     jmodel, jp, tmodel, tp = models
     common = dict(slots=4, paged=True, page_size=4, int8_decode=True,
@@ -168,13 +169,15 @@ def test_page_pool_and_engine_backpressure(models):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(role="decode"), NotImplementedError),         # A8
-    (dict(kv_quant="fp8"), ValueError),               # paged only, A6
-    (dict(role="prefill"), NotImplementedError),
+    (dict(role="bogus"), ValueError),                 # not a role
+    (dict(kv_quant="fp8"), ValueError),               # needs paged pages
+    (dict(role="prefill"), ValueError),               # needs paged pages
     (dict(kv_quant="int8"), ValueError),              # needs paged pages
-    (dict(paged=True, kv_quant="fp8"), ValueError),   # not ported
+    (dict(paged=True, kv_quant="int4"), ValueError),  # not a mode
 ])
 def test_engine_refuses_what_is_not_ported(models, kw, exc):
+    """The configurations the reference refuses, refused alike (fp8 pages
+    are served: test_served_greedy_tokens_identical_to_jax_engine)."""
     _, _, tmodel, tp = models
     with pytest.raises(exc):
         InferenceEngine(tmodel, tp, cfg=ServingConfig(**kw), device=CPU)

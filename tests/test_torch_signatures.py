@@ -36,6 +36,22 @@ MODULES = [
      "deeplearning4j_tpu.models.transformer"),
     ("deeplearning4j_tpu_torch.ops.cuda.matmul_int8",
      "deeplearning4j_tpu.ops.pallas.matmul_int8"),
+    ("deeplearning4j_tpu_torch.ops.cuda.attention",
+     "deeplearning4j_tpu.ops.flash_attention"),
+    ("deeplearning4j_tpu_torch.ops.cuda.attention",
+     "deeplearning4j_tpu.ops.pallas.attention"),
+    *[(f"deeplearning4j_tpu_torch.ops.cuda.{m}",
+       f"deeplearning4j_tpu.ops.pallas.{m}")
+      for m in ("layernorm", "xent", "paged_attention", "kv_quant",
+                "registry")],
+    ("deeplearning4j_tpu_torch.serving.disagg.migrate",
+     "deeplearning4j_tpu.serving.disagg.migrate"),
+    ("deeplearning4j_tpu_torch.serving.disagg.scheduler",
+     "deeplearning4j_tpu.serving.disagg.scheduler"),
+    ("deeplearning4j_tpu_torch.online.capture",
+     "deeplearning4j_tpu.online.capture"),
+    ("deeplearning4j_tpu_torch.online.loop",
+     "deeplearning4j_tpu.online.loop"),
     ("deeplearning4j_tpu_torch.observability.core",
      "deeplearning4j_tpu.observability.core"),
     ("deeplearning4j_tpu_torch.observability.metrics",
@@ -116,7 +132,7 @@ _KERNELS = ("the port's hook to run the same function through its plain "
 ALLOWED = {
     "serving.engine:InferenceEngine.__init__": {
         "compile_cache_dir": "no compile cache: PyTorch runs eagerly; CUDA "
-                             "graphs of the step come with B2 item 4 (-> A6)",
+                             "graphs of the step come with B2 item 4 (-> B2)",
         "device": _DEVICE + "; keyword-only",
     },
     "serving.router.procserver:tiny_lm_factory": {
@@ -169,6 +185,12 @@ ALLOWED = {
                    "tiles from the shape (kept)",
         "interpret": "Pallas interpret mode; a CPU tensor takes the plain "
                      "version (kept)",
+    },
+    "ops.cuda.kv_quant:init_quantized_paged_cache": {"device": _DEVICE},
+    "ops.cuda.registry:KernelCandidate.__init__": {
+        "source": "a candidate is a hand-written CUDA kernel (\"cuda\") or "
+                  "a plain torch incumbent, where the reference's is a "
+                  "Pallas kernel (\"pallas\") or a jnp one (kept)",
     },
     "ops.cuda.matmul_int8:reference_int8_matmul": {
         "_": "takes and ignores the kernel's keywords, so the registry can "

@@ -196,7 +196,7 @@ def test_speculative_greedy_tokens_equal_the_reference(models, paged):
         assert bad.stats()["kv_pages_in_use"] == 0
 
 
-@pytest.mark.parametrize("kv_quant", [None, "int8"])
+@pytest.mark.parametrize("kv_quant", [None, "int8", "fp8"])
 def test_prefix_cache_greedy_tokens_equal_the_reference(models, kv_quant):
     """Requests sharing a 3-page system prompt: the same tokens as the
     JAX package's prefix-cache engine and as the port without the cache,
@@ -297,8 +297,8 @@ def test_brownout_setters_keep_tokens(models):
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(speculative=True), ValueError, "draft_model"),
     (dict(prefix_cache=True), ValueError, "paged"),
-    (dict(role="prefill", paged=True), NotImplementedError, "A8"),
-    (dict(paged=True, kv_quant="fp8"), ValueError, "fp8"),
+    (dict(role="prefill"), ValueError, "paged"),
+    (dict(paged=True, kv_quant="int4"), ValueError, "kv_quant mode"),
 ])
 def test_engine_checks_its_config(models, kw, exc, match):
     with pytest.raises(exc, match=match):
