@@ -134,7 +134,37 @@ paths through the entry points a user calls:
    version; ``zoo.mlp(784, 10)`` (50 iterations), ``zoo.lenet(10)`` (10)
    and Hessian-free (3, its CG solves under
    ``torch.cuda.set_sync_debug_mode("error")``) on the card against the
-   CPU from the same parameters, within ``TOL_DL4J``;
+   CPU from the same parameters, within ``TOL_DL4J`` (the two AdaGrad
+   fits through their float32 loss and gradients at the start, the
+   whole fit in float64 and the float32 output at the CPU fit's
+   parameters: see the comment above ``TOL_DL4J``);
+15b. ResNet-50 training (``run_resnet``; bf16, s2d stem, 1000 classes):
+   the JAX package's benchmark leg — ``value_and_grad(cross_entropy)``
+   and ``chain(momentum(0.9), sgd_lr(1e-2))`` at batch 256 x 224^2 from
+   a seeded numpy generator, one warm-up and 10 steps on a fixed batch
+   timed on CUDA events (p50 step, images/s, MFU against
+   ``flops_per_image(224)``, peak memory; the loss finite and falling)
+   and one profiled step (device time by class: cuDNN convolutions,
+   layout transposes, BN statistics, the elementwise rest); ResNet-18
+   (width 8, f32, 32^2) forward and one ``train_step`` on the card
+   against the CPU within ``TOL_RESNET_CARD``; ResNet-50's bf16 loss
+   within ``TOL_RESNET_BF16`` of its f32 loss on 32 images;
+15c. the LSTM sequence model (``run_lstm``), ``examples/05``'s flow:
+   20 epochs on the card and the CPU from the same parameters (losses
+   within ``TOL_LSTM``, ``predict_next``, beams and samples equal),
+   then to 150 epochs on the card, beam search continuing "abc" with
+   "defg", and 200 sampled tokens (tokens/s);
+15d. the text pipeline (``run_text``): the native host library must
+   load; a seeded ~1M-token, ~10k-word Zipfian topic corpus; Word2Vec
+   at the reference's defaults but subsampling 1e-3 (without it both
+   packages diverge there) with hierarchical softmax and with 5
+   negatives, GloVe on a fifth of it and ParagraphVectors on 4000
+   sentences (pairs/s, entries/s, the host's share of each fit;
+   within-topic similarity above cross-topic); a small HS fit on the
+   card against the CPU within ``TOL_W2V_CARD``; ``examples/08``'s
+   svmlight flow (native parse equal to Python's, byte-range splits,
+   ``zoo.mlp`` fit from the file on the card against the CPU).  No
+   kernel of the port lies on 15b-15d: their launch counts must stay 0;
 16. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
    0 just before it runs, read just after; #7 has a row per page type,
    ``paged_attention_int8`` and ``paged_attention_fp8``), then the card's
@@ -254,27 +284,33 @@ DL4J_FINETUNE_IT = 30
 # card against CPU on the deterministic paths: max over the parameter
 # leaves of max |card - cpu| / max |cpu|, and the relative error of the
 # final parameters' loss, both sides scored in float64 on the CPU.  The
-# same runs on the CPU with the batch rows permuted (another summation
-# order, nothing else) moved the parameters by: mlp 50 iterations
-# 8.8e-6, LeNet 10 iterations 1.2e-5 on raw pixel intensities,
-# Hessian-free 3 iterations 1.3e-7.  (LeNet on binarized pixels is no
-# test of the card: its 2x2 max pools meet exact ties that rounding
-# breaks either way, 3.6e-2 under the same permutation.)  The loss the
-# fit last read in float32 is reported, not held: near a confident fit
-# it is a mean of -log(p) with p within a few ulps of 1, where the card's
-# and the CPU's exp and log round differently (the mlp's read 2.3e-4
-# apart on an H100 with its parameters 1.4e-5 apart).
+# loss the fit last read in float32 is reported, not held: near a
+# confident fit it is a mean of -log(p) with p within a few ulps of 1,
+# where the card's and the CPU's exp and log round differently (the
+# mlp's read 2.3e-4 apart on an H100 with its parameters 1.4e-5 apart).
+#
+# The AdaGrad fits (mlp 50 iterations, LeNet 10) are not held
+# free-running in float32: there the CPU side is no fixed reference.
+# AdaGrad's first step is lr * g / sqrt(g^2 + 1e-6), which multiplies
+# the rounding of a gradient that cancels to near 0 by up to
+# lr / 1e-3 = 100, and later steps carry it on.  ``dl4j_cpu_spread.py``
+# runs the same fits on the CPU at other thread counts: on an 8-core
+# Xeon (AVX-512) LeNet's fit moves 4.4e-4 at 2 or 4 threads instead of
+# 8, the mlp's up to 1.1e-5; and two H100 machines' runs of this
+# script, one card type and one code, read the mlp's float32 fits
+# 1.4e-5 and 3.55e-4 apart (the float64 losses 7.2e-5 and 8.0e-4).  So
+# each such fit is held where it is well conditioned
+# (``first_order_card_vs_cpu``): the float32 loss and every gradient
+# leaf at the starting parameters (each leaf against its own largest
+# |gradient|: up to 1.8e-5 between the CPU's own runs), the whole fit
+# through ``fit`` in float64 on both sides (0 between the CPU's runs at
+# any thread count), and the float32 output at the CPU fit's final
+# parameters, each within TOL_DL4J; the float32 fit itself is reported.
+# The Hessian-free fit (3 iterations) is held free-running in float32:
+# the same runs with the batch rows permuted moved it 1.3e-7.  (LeNet
+# on binarized pixels is no test of the card: its 2x2 max pools meet
+# exact ties that rounding breaks either way.)
 TOL_DL4J = 1e-4
-# LeNet's parameters after 10 AdaGrad steps.  AdaGrad divides a gradient
-# by sqrt(sum g^2 + 1e-6): where |g| sits under 1e-3 (39% of the dense
-# layer's gradients at the first step) it multiplies the gradient's
-# rounding by up to lr / 1e-3 = 50 a step, and cuDNN's float32
-# convolution algorithms (full float32, TF32 off in the forward and the
-# backward) round otherwise than the CPU's by ~1e-6 of the largest
-# gradient.  Measured 2.2e-4 on an H100 (700 W), the loss 2.6e-6 apart;
-# the CPU's own runs with the inputs moved by one ulp: 4.7e-5.  The loss
-# is held to TOL_DL4J.
-TOL_DL4J_LENET = 1e-3
 # losses.score("blocked_mcxent", y, (h, head)) through kernel #4 against
 # its plain version: the xent registry entry's max_err
 TOL_DL4J_XENT = 1e-3
@@ -959,11 +995,12 @@ def kernel_class(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
-def profile_step(torch, step, params, opt, batch):
+def profile_step(torch, step, params, opt, batch, classify=None):
     """One train step under ``torch.profiler``: device time by kernel name
-    and by class (:func:`kernel_class`), and the device's busy share of
-    the step's wall time (one stream, so kernel times add up without
-    overlap)."""
+    and by class (``classify``, by default :func:`kernel_class`), and the
+    device's busy share of the step's wall time (one stream, so kernel
+    times add up without overlap)."""
+    classify = classify or kernel_class
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -985,7 +1022,7 @@ def profile_step(torch, step, params, opt, batch):
         return {"wall_ms": wall * 1e3, "busy_ms": None}
     by_class: Counter = Counter()
     for n, us in by_name.items():
-        by_class[kernel_class(n)] += us / 1e3
+        by_class[classify(n)] += us / 1e3
     top = [{"name": n[:120], "ms": us / 1e3} for n, us in
            by_name.most_common(15)]
     out = {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
@@ -2974,36 +3011,92 @@ def score64(torch, net, ds) -> float:
         dtypes.set_policy(old.param_dtype, old.compute_dtype)
 
 
-def card_vs_cpu(torch, build, ds, label, hooks=None, tol=TOL_DL4J):
+def card_vs_cpu(torch, build, ds, label, hooks=None, tol=TOL_DL4J,
+                hold=True, keep=None, dev="cuda"):
     """``build(device)`` fit on the CPU and on the card from the same
     starting parameters (a CPU generator seeded 0): the parameters must
     agree within ``tol`` and the float64 loss of each side's final
-    parameters within ``TOL_DL4J``.  ``hooks`` wraps the card's fit."""
+    parameters within ``TOL_DL4J``.  ``hooks`` wraps the card's fit;
+    ``hold=False`` reports the comparison without holding it; ``keep``,
+    a dict, receives the two fitted networks by device."""
     nets = {}
-    for dev in ("cpu", "cuda"):
-        net = build(dev)
+    for d in ("cpu", dev):
+        net = build(d)
         net.init(0)
-        nets[dev] = net
+        nets[d] = net
     nets["cpu"].fit(ds)
     t0 = time.perf_counter()
     with (hooks() if hooks else contextlib.nullcontext()):
-        nets["cuda"].fit(ds)
+        nets[dev].fit(ds)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    err, norm_err = params_err(torch, nets["cuda"].params,
+    err, norm_err = params_err(torch, nets[dev].params,
                                nets["cpu"].params)
-    s_card, s_cpu = (score64(torch, nets[d], ds) for d in ("cuda", "cpu"))
+    s_card, s_cpu = (score64(torch, nets[d], ds) for d in (dev, "cpu"))
     serr = abs(s_card - s_cpu) / abs(s_cpu)
-    f32 = {d: nets[d].score() for d in ("cuda", "cpu")}
+    f32 = {d: nets[d].score() for d in (dev, "cpu")}
     rep = {"params_rel_err": err, "params_norm_rel_err": norm_err,
-           "tol": tol, "score64_rel_err": serr,
+           "tol": tol if hold else None, "score64_rel_err": serr,
            "score64": s_cpu, "score_f32": f32,
-           "score_f32_rel_err": abs(f32["cuda"] - f32["cpu"])
+           "score_f32_rel_err": abs(f32[dev] - f32["cpu"])
            / abs(f32["cpu"]), "card_fit_s": card_s}
     print(f"dl4j {label}: card vs CPU {json.dumps(rep)}", flush=True)
-    if not (err < tol and serr < TOL_DL4J):
+    if keep is not None:
+        keep.update(nets)
+    if not all(torch_isfinite(v) for n in nets.values() for p in n.params
+               for v in p.values()):
+        fail(f"dl4j {label}: a fit's parameters are not finite")
+    if hold and not (err < tol and serr < TOL_DL4J):
         fail(f"dl4j {label}: card vs CPU params {err:.3g} (tol {tol}), "
              f"score {serr:.3g} (tol {TOL_DL4J})")
+    return rep
+
+
+def first_order_card_vs_cpu(torch, build, ds, label, dev="cuda"):
+    """A first-order AdaGrad fit on the card against the CPU, held as
+    the comment above ``TOL_DL4J`` sets out: the float32 loss and every
+    gradient leaf at the fit's starting parameters, the whole fit in
+    float64 (``card_vs_cpu``), and the float32 fit (reported) with the
+    card's output at the CPU's final parameters, each within
+    ``TOL_DL4J``."""
+    from deeplearning4j_tpu_torch.ops import dtypes
+    from deeplearning4j_tpu_torch.utils import tree_math as tm
+    from deeplearning4j_tpu_torch.utils.autodiff import value_and_grad
+
+    nets = {d: build(d) for d in ("cpu", dev)}
+    got = {}
+    for d, net in nets.items():
+        net.init(0)
+        got[d] = value_and_grad(net.supervised_loss)(
+            net.params, net._tensor(ds.features), net._tensor(ds.labels))
+    loss_err = abs(got[dev][0].item() - got["cpu"][0].item()) \
+        / abs(got["cpu"][0].item())
+    grad_err = params_err(torch, got[dev][1], got["cpu"][1])[0]
+    rep = {"float32_start": {"loss_rel_err": loss_err,
+                             "grads_rel_err": grad_err, "tol": TOL_DL4J}}
+    print(f"dl4j {label}: float32 loss and gradients at the start, card vs "
+          f"CPU {json.dumps(rep['float32_start'])}", flush=True)
+    if not (loss_err < TOL_DL4J and grad_err < TOL_DL4J):
+        fail(f"dl4j {label}: float32 loss {loss_err:.3g} or gradients "
+             f"{grad_err:.3g} differ card vs CPU (tol {TOL_DL4J})")
+    old = dtypes.get_policy()
+    dtypes.set_policy(torch.float64, torch.float64)
+    try:
+        rep["float64_fit"] = card_vs_cpu(torch, build, ds,
+                                         f"{label} float64", dev=dev)
+    finally:
+        dtypes.set_policy(old.param_dtype, old.compute_dtype)
+    rep["float32_fit"] = card_vs_cpu(torch, build, ds, label, hold=False,
+                                     keep=nets, dev=dev)
+    nets[dev].params = tm.tree_map(lambda a: a.to(dev), nets["cpu"].params)
+    out, want = nets[dev].output(ds.features), nets["cpu"].output(ds.features)
+    out_err = ((out.cpu() - want).abs().max() / want.abs().max()).item()
+    rep["float32_fit"]["output_at_cpu_params_rel_err"] = out_err
+    print(f"dl4j {label}: float32 output at the CPU fit's parameters, card "
+          f"vs CPU {out_err:.3g} (tol {TOL_DL4J})", flush=True)
+    if not out_err < TOL_DL4J:
+        fail(f"dl4j {label}: the float32 output at the CPU fit's parameters "
+             f"differs card vs CPU by {out_err:.3g} (tol {TOL_DL4J})")
     return rep
 
 
@@ -3209,11 +3302,11 @@ def run_dl4j(torch, txe, wrappers, rates, cases, card: str):
             solvers.StochasticHessianFree._cg_solve = orig
 
     rep["card_vs_cpu"] = {
-        "mlp_784_256_10_50it": card_vs_cpu(
+        "mlp_784_256_10_50it": first_order_card_vs_cpu(
             torch, mlp, DataSet(ds.features[:2048], ds.labels[:2048]),
             "mlp"),
-        "lenet_10it": card_vs_cpu(torch, lenet, images, "lenet",
-                                  tol=TOL_DL4J_LENET),
+        "lenet_10it": first_order_card_vs_cpu(torch, lenet, images,
+                                              "lenet"),
         "hessian_free_784_64_10_3it": card_vs_cpu(
             torch, hf, DataSet(ds.features[:1024], ds.labels[:1024]),
             "hessian_free", hooks=no_sync_cg)}
@@ -3223,6 +3316,518 @@ def run_dl4j(torch, txe, wrappers, rates, cases, card: str):
     print("dl4j: " + json.dumps(rep), flush=True)
     leg = {"batch": N, "seq": 1, "causal": None, "launches": counts}
     return rep, leg
+
+
+# ------------------------------------------------------------------ ResNet, LSTM, text
+
+RESNET_BATCH = 256
+RESNET_IMAGE = 224
+RESNET_STEPS = 10
+# ResNet-18 (width 8, f32, 32x32, batch 32) on the card against the CPU:
+# the logits, and the parameters and running stats after one
+# ``ResNet.train_step``, each within this share of the leaf's largest
+# |value| (at least 1); the loss within it absolutely
+TOL_RESNET_CARD = 1e-4
+# ResNet-50's loss in bf16 against the f32 model on the same weights and
+# batch, relative
+TOL_RESNET_BF16 = 0.02
+# the LSTM's losses over the CPU-comparison epochs, card against CPU
+TOL_LSTM = 1e-4
+# a small Word2Vec HS fit, card against CPU, every table entry
+TOL_W2V_CARD = 1e-4
+LSTM_TEXT = "abcdefg " * 60
+LSTM_EPOCHS = 150
+LSTM_CMP_EPOCHS = 20
+# word2vec's subsampling of frequent words: with none (the reference's
+# default, 0) both packages' batched updates diverge to NaN on a Zipfian
+# topic corpus (the most frequent word is the center of a few hundred
+# pairs a batch, their updates summed; tests/test_torch_text.py pins it);
+# 1e-3 is the original word2vec's setting
+WORD2VEC_SAMPLE = 1e-3
+TEXT_TOKENS = 1_000_000
+TEXT_VOCAB = 10_000
+TEXT_TOPICS = 20
+
+
+def resnet_kernel_class(name: str) -> str:
+    """The layer a device kernel of the ResNet step belongs to."""
+    low = name.lower()
+    if any(s in low for s in ("nchwtonhwc", "nhwctonchw", "transpose")):
+        return "layout transposes"
+    if any(s in low for s in ("conv", "xmma", "cudnn", "implicit",
+                              "fprop", "dgrad", "wgrad", "cutlass")):
+        return "convolutions (cuDNN)"
+    if "gemm" in low or low.startswith("nvjet"):
+        return "GEMM (head)"
+    if any(s in low for s in ("reduce", "welford", "var_mean", "norm")):
+        return "BN statistics (reductions)"
+    return "BN normalize, ReLU, pool, casts, optimizer (elementwise)"
+
+
+def _launch_free(wrappers, label):
+    """The kernels' counts after a phase that launches none of them."""
+    counts = {w.__name__: w.launches for w in wrappers}
+    if any(counts.values()):
+        fail(f"{label}: a port kernel was launched on a path without one: "
+             f"{counts}")
+    return counts
+
+
+def _rel_err(torch, got, want) -> float:
+    """max |got - want| over max(max |want|, 1), over matching leaves."""
+    from deeplearning4j_tpu_torch.utils.tree_math import tree_leaves
+
+    err = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        err = max(err, ((a - b).abs().max()
+                        / max(b.abs().max().item(), 1.0)).item())
+    return err
+
+
+def run_resnet(torch, TT, wrappers, rates, card, dev="cuda",
+               batch=RESNET_BATCH, size=RESNET_IMAGE, steps=RESNET_STEPS,
+               classes=1000):
+    """ResNet-50 (bf16, s2d stem, ``bn_fold=False``) trained as the JAX
+    package's benchmark leg trains it: ``value_and_grad(cross_entropy)``
+    and ``chain(momentum(0.9), sgd_lr(1e-2))`` at ``batch`` images of
+    ``size``^2 from a seeded numpy generator with one-hot labels; one
+    warm-up step, ``steps`` timed on CUDA events (p50 step, images/s,
+    MFU, peak memory) on one fixed batch, whose loss must stay finite
+    and fall; one profiled step (device time by class).  Then ResNet-18
+    (width 8, f32, 32^2) forward and one ``train_step`` on the card
+    against the CPU, and ResNet-50's bf16 loss against its f32 loss on
+    the card over the same weights and 32 images."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import resnet as trn
+    from deeplearning4j_tpu_torch.optimize.transforms import apply_updates
+    from deeplearning4j_tpu_torch.utils.autodiff import value_and_grad
+
+    t_phase = time.perf_counter()
+    cfg = trn.ResNetConfig.resnet50(num_classes=classes)
+    params = trn.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+    tx = TT.chain(TT.momentum(0.9), TT.sgd_lr(1e-2))
+    grad = value_and_grad(trn.cross_entropy)
+
+    def step(params, opt, images, labels):
+        count, st = opt
+        loss, g = grad(params, images, labels, cfg)
+        updates, st = tx.update(g, st, params, count)
+        return apply_updates(params, updates), (count + 1, st), loss
+
+    rng = np.random.default_rng(1)
+    images = torch.as_tensor(rng.standard_normal(
+        (batch, size, size, 3), dtype=np.float32), device=dev)
+    labels = torch.as_tensor(np.eye(classes, dtype=np.float32)[
+        rng.integers(0, classes, batch)], device=dev)
+    opt = (0, tx.init(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    params, opt, loss = step(params, opt, images, labels)     # warm-up
+    losses = [loss]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    marks[0].record()
+    for i in range(steps):
+        params, opt, loss = step(params, opt, images, labels)
+        marks[i + 1].record()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = _launch_free(wrappers, "resnet")
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+    losses = [x.item() for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"resnet: non-finite loss in {losses}")
+    if not losses[-1] < losses[1]:
+        fail(f"resnet: the loss did not fall over {steps} steps on a fixed "
+             f"batch: {losses}")
+    p50 = sorted(times)[len(times) // 2]
+    fpi = cfg.flops_per_image(size)
+    rep = {"card": card, "config": str(cfg), "batch": batch, "image": size,
+           "steps": steps, "warmup_s": warm_s, "step_s": times,
+           "p50_step_s": p50, "images_per_s": batch / p50,
+           "flops_per_image": fpi, "mfu": fpi * batch / p50 / rates[1],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": losses, "launches": counts}
+    rep["profile"] = profile_step(torch, step, params, opt, (images, labels),
+                                  classify=resnet_kernel_class)
+    print(f"resnet50: {card} | batch {batch}x{size}^2 bf16 p50_step_ms="
+          f"{p50 * 1e3:.2f} images_per_s={rep['images_per_s']:.1f} mfu="
+          f"{rep['mfu']:.4f} peak_mem_gb={rep['peak_mem_gb']:.2f} losses="
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    del params, opt, images, labels
+    torch.cuda.empty_cache()
+
+    # ---- ResNet-50 in bf16 against f32 on the same weights and batch
+    p50w = trn.init_params(torch.Generator(device=dev).manual_seed(2), cfg,
+                           dev)
+    x = torch.as_tensor(rng.standard_normal((32, size, size, 3),
+                                            dtype=np.float32), device=dev)
+    y = torch.as_tensor(np.eye(classes, dtype=np.float32)[
+        rng.integers(0, classes, 32)], device=dev)
+    with torch.no_grad():
+        l16 = trn.cross_entropy(p50w, x, y, cfg).item()
+        l32 = trn.cross_entropy(p50w, x, y, dataclasses.replace(
+            cfg, dtype=torch.float32)).item()
+    rep["bf16_vs_f32"] = {"loss_bf16": l16, "loss_f32": l32,
+                          "rel_err": abs(l16 - l32) / abs(l32),
+                          "tol": TOL_RESNET_BF16}
+    if not rep["bf16_vs_f32"]["rel_err"] < TOL_RESNET_BF16:
+        fail(f"resnet50: bf16 loss {l16} vs f32 {l32} (tol "
+             f"{TOL_RESNET_BF16})")
+    del p50w, x, y
+    torch.cuda.empty_cache()
+
+    # ---- ResNet-18 on the card against the CPU
+    small = trn.ResNetConfig.resnet18(num_classes=5, width=8,
+                                      dtype=torch.float32)
+    xs = rng.standard_normal((32, 32, 32, 3), dtype=np.float32)
+    ys = np.eye(5, dtype=np.float32)[rng.integers(0, 5, 32)]
+    out = {}
+    for d in ("cpu", dev):
+        model = trn.ResNet(small, device=d)
+        model.init()                           # a CPU generator, seed 0
+        logits = model.predict_logits(torch.as_tensor(xs))
+        stx = TT.chain(TT.momentum(0.9), TT.sgd_lr(1e-2))
+        p, st, _, loss = model.train_step(stx)(
+            model.params, model.batch_stats, (0, stx.init(model.params)),
+            torch.as_tensor(xs, device=d), torch.as_tensor(ys, device=d))
+        out[d] = (logits, p, st, loss.item())
+    errs = {"logits": _rel_err(torch, out[dev][0], out["cpu"][0]),
+            "params": _rel_err(torch, out[dev][1], out["cpu"][1]),
+            "running_stats": _rel_err(torch, out[dev][2], out["cpu"][2]),
+            "loss": abs(out[dev][3] - out["cpu"][3])}
+    rep["card_vs_cpu_resnet18"] = dict(errs, tol=TOL_RESNET_CARD)
+    if not all(e < TOL_RESNET_CARD for e in errs.values()):
+        fail(f"resnet18: card vs CPU {errs} (tol {TOL_RESNET_CARD})")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"resnet: {card} | bf16_vs_f32={rep['bf16_vs_f32']} "
+          f"card_vs_cpu_resnet18={rep['card_vs_cpu_resnet18']} "
+          f"phase_s={rep['phase_s']:.1f} launches={counts}", flush=True)
+    return rep
+
+
+def run_lstm(torch, wrappers, card, dev="cuda", epochs=LSTM_EPOCHS,
+             cmp_epochs=LSTM_CMP_EPOCHS):
+    """``examples/05_lstm_textgen.py``'s flow on the card: an
+    ``LSTMSequenceModel`` (hidden 48) fit on a repetitive character
+    stream, ``predict_next``, ``beam_search`` (which must continue
+    "abc" with "defg") and ``sample``.  The card and the CPU fit
+    ``cmp_epochs`` epochs from the same parameters (losses within
+    ``TOL_LSTM``; their ``predict_next``, beams and samples equal); the
+    card then fits on to ``epochs`` (timed) and samples 200 tokens
+    (tokens/s)."""
+    from deeplearning4j_tpu_torch.models.lstm import LSTMSequenceModel
+
+    t_phase = time.perf_counter()
+    import numpy as np
+
+    chars = sorted(set(LSTM_TEXT))
+    idx = {c: i for i, c in enumerate(chars)}
+    tokens = np.array([idx[c] for c in LSTM_TEXT], dtype=np.int32)
+    prime = [idx[c] for c in "abc"]
+    models = {}
+    for d in ("cpu", dev):
+        m = LSTMSequenceModel(vocab_size=len(chars), hidden_size=48, seed=0,
+                              device=d)
+        m.init()                               # a CPU generator, seed 0
+        models[d] = m
+    reset_counts(wrappers)
+    losses = {d: m.fit_sequence(tokens, epochs=cmp_epochs)
+              for d, m in models.items()}
+    err = max(abs(a - b) for a, b in zip(losses[dev], losses["cpu"]))
+    decoded = {d: (m.predict_next(prime), m.beam_search(prime, 12, 4)[0],
+                   m.sample(prime, 12, temperature=0.5, seed=1))
+               for d, m in models.items()}
+    if not err < TOL_LSTM:
+        fail(f"lstm: card vs CPU losses differ by {err} (tol {TOL_LSTM})")
+    if decoded[dev] != decoded["cpu"]:
+        fail(f"lstm: card decodes {decoded[dev]}, CPU {decoded['cpu']}")
+    card_m = models[dev]
+    t0 = time.perf_counter()
+    more = card_m.fit_sequence(tokens, epochs=epochs - cmp_epochs)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    beam, score = card_m.beam_search(prime, 12, 4)
+    text = "".join(chars[i] for i in beam[len(prime):])
+    if not text.startswith("defg"):
+        fail(f"lstm: beam search after 'abc' gives {text!r}")
+    t0 = time.perf_counter()
+    sampled = card_m.sample(prime, 200, temperature=0.5, seed=0)
+    sample_s = time.perf_counter() - t0
+    counts = _launch_free(wrappers, "lstm")
+    steps = len(tokens) - 1
+    rep = {"card": card, "hidden": 48, "vocab": len(chars),
+           "seq_steps": steps, "epochs": epochs,
+           "cmp_epochs": cmp_epochs, "card_vs_cpu_loss_err": err,
+           "tol": TOL_LSTM, "decoded_equal": True,
+           "loss_first_last": [losses[dev][0], more[-1]],
+           "fit_s": fit_s, "epoch_ms": fit_s * 1e3 / (epochs - cmp_epochs),
+           "train_steps_per_s": steps * (epochs - cmp_epochs) / fit_s,
+           "beam": text, "beam_logp": score,
+           "sample_tokens_per_s": 200 / sample_s,
+           "sampled": "".join(chars[i] for i in sampled[len(prime):][:24]),
+           "launches": counts,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"lstm: {card} | " + json.dumps(rep), flush=True)
+    return rep
+
+
+def topic_corpus(np, n_tokens=TEXT_TOKENS, vocab=TEXT_VOCAB,
+                 topics=TEXT_TOPICS, seed=0, sent_len=20):
+    """A seeded synthetic corpus: sentences of ``sent_len`` words, each
+    sentence about one topic.  A fifth of the vocabulary is shared
+    (function words, Zipf-distributed over the whole corpus); the rest
+    splits evenly among the topics, each topic's words Zipf-distributed
+    within it; 60% of a sentence's words are its topic's.  Returns the
+    sentences, their topics and each topic's word lists."""
+    rng = np.random.default_rng(seed)
+    n_shared = vocab // 5
+    per_topic = (vocab - n_shared) // topics
+
+    def zipf(n):
+        p = 1.0 / np.arange(1, n + 1)
+        return p / p.sum()
+
+    n_sent = n_tokens // sent_len
+    topic_of = rng.integers(0, topics, n_sent)
+    own = rng.random((n_sent, sent_len)) < 0.6
+    shared_w = rng.choice(n_shared, (n_sent, sent_len), p=zipf(n_shared))
+    topic_w = (n_shared + topic_of[:, None] * per_topic
+               + rng.choice(per_topic, (n_sent, sent_len), p=zipf(per_topic)))
+    words = np.where(own, topic_w, shared_w)
+    names = np.array([f"w{i}" for i in range(vocab)])
+    sentences = [" ".join(row) for row in names[words]]
+    topic_words = [[f"w{n_shared + t * per_topic + i}" for i in range(10)]
+                   for t in range(topics)]
+    return sentences, topic_of, topic_words
+
+
+def topic_similarity(model, topic_words) -> tuple[float, float]:
+    """Mean cosine similarity of word pairs within a topic and across
+    topics (each topic against the next), over each topic's ten most
+    frequent words; one host copy of the table."""
+    import numpy as np
+
+    table = model.syn0.detach().cpu().numpy()
+    idx = [[model.vocab.index_of(w) for w in ws] for ws in topic_words]
+    if min(min(ix) for ix in idx) < 0:
+        fail("text: a topic word is missing from the vocabulary")
+    unit = table / np.maximum(np.linalg.norm(table, axis=1, keepdims=True),
+                              1e-12)
+    within, across = [], []
+    for t, ix in enumerate(idx):
+        sims = unit[ix] @ unit[ix].T
+        within.extend(sims[np.triu_indices(len(ix), 1)])
+        across.extend((unit[ix] @ unit[idx[(t + 1) % len(idx)]].T).ravel())
+    return float(np.mean(within)), float(np.mean(across))
+
+
+def _timed_fit(torch, model, build_first=True):
+    """(fit wall s, vocab s, the TRACER spans of the fit by name)."""
+    from deeplearning4j_tpu_torch.observability import TRACER
+
+    spans = []
+    listening = [True]
+    TRACER.add_listener(lambda ev: listening[0] and spans.append(ev))
+    try:
+        t0 = time.perf_counter()
+        if build_first:
+            model.build_vocab()
+        vocab_s = time.perf_counter() - t0
+        model.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        listening[0] = False
+    by = {}
+    for sp in spans:
+        by.setdefault(sp["name"], []).append(sp)
+    return wall, vocab_s, by
+
+
+def run_text(torch, wrappers, card, dev="cuda"):
+    """The text pipeline on the card.  The native host library must load
+    (a missing one fails here rather than passing on the Python
+    parsers).  A seeded topic corpus of ~1M tokens over a ~10k-word
+    Zipfian vocabulary (``topic_corpus``); Word2Vec at the reference's
+    defaults (layer 100, window 5, batch 4096) but for subsampling
+    (``WORD2VEC_SAMPLE``) with hierarchical softmax, then with 5
+    negatives; GloVe and ParagraphVectors on slices of it;
+    pairs/s, entries/s and the host's share of each fit; within-topic
+    similarity above cross-topic for each model; a small HS fit on the
+    card against the CPU within ``TOL_W2V_CARD``; then
+    ``examples/08_svmlight_records.py``'s flow: a seeded svmlight file
+    parsed natively (equal to the Python parser), split by byte ranges,
+    and ``zoo.mlp`` fit from it on the card against the CPU."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import svmlight
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.native import runtime as native_rt
+    from deeplearning4j_tpu_torch.text import Glove, ParagraphVectors, Word2Vec
+
+    t_phase = time.perf_counter()
+    if native_rt.lib() is None:
+        fail("text: the native host library did not build or load "
+             "(g++ is needed beside nvcc)")
+    t0 = time.perf_counter()
+    sents, topic_of, topic_words = topic_corpus(np)
+    corpus_s = time.perf_counter() - t0
+    n_tok = sum(s.count(" ") + 1 for s in sents)
+    rep: dict = {"card": card, "corpus": {
+        "tokens": n_tok, "sentences": len(sents), "vocab": TEXT_VOCAB,
+        "topics": TEXT_TOPICS, "build_s": corpus_s}}
+    reset_counts(wrappers)
+
+    # ---- Word2Vec: hierarchical softmax, then negative sampling
+    for label, kw in (("word2vec_hs", {}),
+                      ("word2vec_ns", dict(negative=5,
+                                           use_hierarchic_softmax=False))):
+        model = Word2Vec(sents, seed=1, sample=WORD2VEC_SAMPLE, device=dev,
+                         **kw)
+        wall, vocab_s, spans = _timed_fit(torch, model)
+        pairs_s = sum(sp["dur"] for sp in spans["word2vec.pairs"]) / 1e6
+        n_pairs = sum(sp["args"]["pairs"] for sp in spans["word2vec.epoch"])
+        steps_s = wall - vocab_s - pairs_s
+        if not bool(torch.isfinite(model.syn0).all()):
+            fail(f"text {label}: non-finite embeddings")
+        within, across = topic_similarity(model, topic_words)
+        if not within > across:
+            fail(f"text {label}: within-topic similarity {within} is not "
+                 f"above cross-topic {across}")
+        rep[label] = {"vocab": len(model.vocab), "pairs": n_pairs,
+                      "fit_s": wall, "vocab_s": vocab_s,
+                      "pairs_host_s": pairs_s, "device_steps_s": steps_s,
+                      "pairs_per_s": n_pairs / steps_s,
+                      "host_share": (vocab_s + pairs_s) / wall,
+                      "within_topic_sim": within, "cross_topic_sim": across}
+        print(f"text {label}: {card} | " + json.dumps(rep[label]),
+              flush=True)
+        del model
+    # ---- GloVe on a fifth of the corpus
+    part = sents[:len(sents) // 5]
+    glove = Glove(part, seed=1, device=dev)
+    wall, _, spans = _timed_fit(torch, glove, build_first=False)
+    co_s = sum(sp["dur"] for sp in spans["glove.cooccurrence"]) / 1e6
+    entries = spans["glove.epoch"][0]["args"]["entries"]
+    n_it = len(spans["glove.epoch"])
+    within, across = topic_similarity(glove, topic_words)
+    if not (within > across and glove.losses[-1] < glove.losses[0]):
+        fail(f"text glove: similarity {within} vs {across}, losses "
+             f"{glove.losses}")
+    rep["glove"] = {"tokens": n_tok // 5, "entries": entries,
+                    "iterations": n_it, "fit_s": wall,
+                    "cooccurrence_host_s": co_s,
+                    "device_steps_s": wall - co_s,
+                    "entries_per_s": entries * n_it / (wall - co_s),
+                    "host_share": co_s / wall, "losses": glove.losses,
+                    "within_topic_sim": within, "cross_topic_sim": across}
+    print(f"text glove: {card} | " + json.dumps(rep["glove"]), flush=True)
+    del glove
+    # ---- ParagraphVectors (HS) on 4000 sentences
+    docs = sents[:4000]
+    labels = [f"DOC_{i}" for i in range(len(docs))]
+    pv = ParagraphVectors(docs, labels, seed=1, device=dev)
+    t0 = time.perf_counter()
+    pv.fit()
+    torch.cuda.synchronize()
+    pv_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(pv.doc_vectors).all()):
+        fail("text paragraph_vectors: non-finite doc vectors")
+    same = [i for i in range(1, 200) if topic_of[i] == topic_of[0]]
+    diff = [i for i in range(1, 200) if topic_of[i] != topic_of[0]]
+    sim_same = float(np.mean([pv.doc_similarity("DOC_0", f"DOC_{i}")
+                              for i in same]))
+    sim_diff = float(np.mean([pv.doc_similarity("DOC_0", f"DOC_{i}")
+                              for i in diff]))
+    if not sim_same > sim_diff:
+        fail(f"text paragraph_vectors: same-topic doc similarity {sim_same}"
+             f" is not above other-topic {sim_diff}")
+    rep["paragraph_vectors"] = {"docs": len(docs), "fit_s": pv_s,
+                                "same_topic_sim": sim_same,
+                                "other_topic_sim": sim_diff}
+    del pv
+    # ---- a small HS fit: card against CPU
+    small = {}
+    for d in ("cpu", dev):
+        m = Word2Vec(sents[:2000], layer_size=32, window=3, seed=3,
+                     device=d).fit()
+        small[d] = (m.syn0.cpu(), m.syn1.cpu())
+    w2v_err = max((small[dev][i] - small["cpu"][i]).abs().max().item()
+                  for i in (0, 1))
+    rep["word2vec_card_vs_cpu"] = {"max_abs_err": w2v_err,
+                                   "tol": TOL_W2V_CARD}
+    if not w2v_err < TOL_W2V_CARD:
+        fail(f"text: a small HS fit differs card vs CPU by {w2v_err}")
+    # ---- examples/08: svmlight records -> zoo.mlp on the card
+    rng = np.random.default_rng(0)
+    n, d = 400, 12
+    ylab = rng.integers(0, 2, n)
+    feats = rng.standard_normal((n, d)).astype(np.float32)
+    feats = np.where(rng.random((n, d)) < 0.5, 0.0, feats)
+    feats += 2.0 * ylab[:, None] * np.eye(d, dtype=np.float32)[0]
+    with tempfile.TemporaryDirectory(prefix="svmlight_smoke_") as tmp:
+        path = Path(tmp) / "corpus.svmlight"
+        svmlight.save_svmlight(path, feats, ylab)
+        size = path.stat().st_size
+        raw = path.read_bytes()
+        t0 = time.perf_counter()
+        parsed = native_rt.parse_svmlight(raw, d)
+        native_s = time.perf_counter() - t0
+        if parsed is None:
+            fail("text: the native svmlight parser refused a valid file")
+        py = np.stack([svmlight.parse_svmlight_line(l, d)[0]
+                       for l in raw.decode().splitlines()])
+        if not np.array_equal(parsed[0], py):
+            fail("text: native svmlight parse differs from Python's")
+        cuts = [0, size // 2, size]
+        split_rows = [svmlight.load_svmlight(path, d, 2, start=s, end=e)[0]
+                      .shape[0] for s, e in zip(cuts, cuts[1:])]
+        if sum(split_rows) != n:
+            fail(f"text: byte-range splits hold {split_rows} records")
+        def mlp(dv, iterations=60):
+            return zoo.mlp(d, 2, hidden=(16,), num_iterations=iterations,
+                           device=dv)
+
+        it = svmlight.SVMLightDataSetIterator(path, batch=100,
+                                              num_features=d, num_classes=2)
+        # 10 iterations on the first batch on the card and the CPU from
+        # the same parameters; then the example's loop (4 batches x 60
+        # iterations) on the card alone: once the loss is near 0, AdaGrad
+        # scales near-zero gradients by lr / sqrt(1e-6) and the two
+        # sides' f32 rounding drifts past TOL_DL4J over the whole loop
+        vs_cpu = card_vs_cpu(torch, lambda dv: mlp(dv, 10), it.next(),
+                             "svmlight mlp")
+        it.reset()
+        net = mlp(dev)
+        net.init(0)
+        t0 = time.perf_counter()
+        while it.has_next():
+            net.fit(it.next())
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        f_all, l_all = svmlight.load_svmlight(path, d, 2)
+    acc = float((net.predict(f_all) == l_all.argmax(-1)).mean())
+    rep["svmlight"] = {"records": n, "bytes": size,
+                       "native_parse_ms": native_s * 1e3,
+                       "split_records": split_rows,
+                       "card_vs_cpu_first_batch": vs_cpu, "fit_s": fit_s,
+                       "accuracy": acc}
+    rep["launches"] = _launch_free(wrappers, "text")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"text: {card} | paragraph_vectors={rep['paragraph_vectors']} "
+          f"word2vec_card_vs_cpu={rep['word2vec_card_vs_cpu']} svmlight="
+          f"{rep['svmlight']} phase_s={rep['phase_s']:.1f}", flush=True)
+    return rep
 
 
 def print_ptxas(usage) -> None:
@@ -3503,6 +4108,15 @@ def main() -> int:
     # ---- 8c. the DL4J network stack: the CLI's DBN, the same fit in
     # process, kernel #4 on its head, card against CPU
     dl4j, dl4j_leg = run_dl4j(torch, txe, wrappers, rates, cases, card)
+    torch.cuda.empty_cache()
+
+    # ---- 8d. ResNet-50 training at batch 256 x 224^2; 8e. the LSTM
+    # sequence model; 8f. the text pipeline and the svmlight records
+    # (no kernel of the port lies on these paths: their counts stay 0)
+    resnet = run_resnet(torch, TT, wrappers, rates, card)
+    torch.cuda.empty_cache()
+    lstm = run_lstm(torch, wrappers, card)
+    text = run_text(torch, wrappers, card)
 
     # ---- 9. one line per kernel: its numbers weighted by this run's
     # launches at each main-path shape, and every shape measured
@@ -3527,7 +4141,8 @@ def main() -> int:
             "sample": sample,
             "scorer": scorer, "train_a": leg_a, "train_b": leg_b,
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},
-            "checkpoints": ckpt, "dl4j": dl4j,
+            "checkpoints": ckpt, "dl4j": dl4j, "resnet": resnet,
+            "lstm": lstm, "text": text,
             "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

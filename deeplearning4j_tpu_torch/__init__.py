@@ -18,6 +18,10 @@ Ported so far:
   ``datasets`` (fetchers, IDX files, iterators), ``evaluation``,
   ``models.zoo`` and the ``python -m deeplearning4j_tpu_torch``
   ``train`` / ``evaluate`` CLI;
+- ``models.resnet`` (ResNet-18/50 training, channels-last on cuDNN),
+  ``models.lstm``, ``native`` (the C++ host runtime, built with ``g++``
+  at first use), ``datasets.svmlight`` / ``records`` and ``text``
+  (Word2Vec, GloVe, ParagraphVectors, vectorizers, the LM corpus);
 - ``ops.cuda``: the kernel registry, the ``nvcc`` build and the seven
   hand-written Hopper kernels, each beside its plain PyTorch version.
 

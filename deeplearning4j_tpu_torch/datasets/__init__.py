@@ -1,7 +1,9 @@
 """Datasets of the port: the ``DataSet`` container, the fetchers (MNIST
 IDX files, Iris, digits, curves, LFW, CSV), the dataset iterators and the
-double-buffered host-to-device feed (``prefetch_to_device``).  The
-SVMLight and record readers come later (``ROADMAP.md`` A9)."""
+double-buffered host-to-device feed (``prefetch_to_device``), the
+SVMLight reader/writer (native parse first) and the record readers
+(``records``: CSV, line, in-memory and image readers behind
+``RecordReaderDataSetIterator``)."""
 
 from .dataset import DataSet, to_outcome_matrix
 from .fetchers import (
@@ -12,6 +14,13 @@ from .fetchers import (
     IrisDataFetcher,
     LFWDataFetcher,
     MnistDataFetcher,
+)
+from .svmlight import (
+    SVMLightDataFetcher,
+    SVMLightDataSetIterator,
+    load_svmlight,
+    parse_svmlight_line,
+    save_svmlight,
 )
 from .iterator import (
     BaseDatasetIterator,
@@ -41,4 +50,6 @@ __all__ = [
     "MovingWindowDataSetIterator", "MultipleEpochsIterator",
     "ReconstructionDataSetIterator", "SamplingDataSetIterator",
     "TestDataSetIterator",
+    "SVMLightDataFetcher", "SVMLightDataSetIterator", "load_svmlight",
+    "parse_svmlight_line", "save_svmlight",
 ]

@@ -311,7 +311,15 @@ class CSVDataFetcher(BaseDataFetcher):
         return feats, to_outcome_matrix(label_idx, int(label_idx.max()) + 1)
 
     def _parse_features(self, lines, rows, ncol, lc) -> np.ndarray:
-        """Feature columns as float32 (the Python path of the reference;
-        its native C parser is not ported)."""
+        """Feature columns as float32; native C parser fast path when the
+        WHOLE grid is numeric (labels included), Python otherwise."""
+        if self.delimiter == ",":
+            try:
+                from ..native import runtime as native_rt
+                full = native_rt.parse_csv_floats("\n".join(lines) + "\n", ncol)
+            except ImportError:
+                full = None
+            if full is not None and full.shape[0] == len(rows):
+                return np.delete(full, lc, axis=1).astype(np.float32)
         return np.array([[float(v) for j, v in enumerate(r) if j != lc]
                          for r in rows], dtype=np.float32)

@@ -555,11 +555,16 @@ def reset_cache_pages(pages, page_mask) -> list:
 def paged_flat_index(block_table, positions, page_size: int):
     """Logical positions → indices into a ``(P*page_size, ...)`` view of
     the pool: ``bt[b, t // ps] * ps + t % ps`` for ``block_table``
-    (B, n_pages) and ``positions`` (B, W); page lookups clamp to the
-    table.  Returns int64 (B, W)."""
+    (B, n_pages) and ``positions`` (B, W); page lookups index the table
+    as the reference's ``take_along_axis`` does: a negative page counts
+    from the end, and every page clamps into ``[0, n_pages)`` — never an
+    out-of-range gather, which CUDA turns into a device-side assert.
+    Returns int64 (B, W)."""
     n_pages = block_table.shape[1]
     positions = positions.long()
-    page = torch.clamp(positions // page_size, max=n_pages - 1)
+    page = positions // page_size
+    page = torch.clamp(torch.where(page < 0, page + n_pages, page), 0,
+                       n_pages - 1)
     return (torch.gather(block_table.long(), 1, page) * page_size
             + positions % page_size)
 

@@ -173,6 +173,26 @@ def test_paged_helpers_match_jax():
         _np(jtr.paged_flat_index(jnp.asarray(bt), jnp.asarray(pos), 4)))
 
 
+@pytest.mark.parametrize("positions", [
+    [[-1, -5, 0, 15, 16, 40]],            # before the table, in it, past it
+    [[-16, -13, -9, 3, 4, 63]]])          # down to a whole table back
+def test_paged_flat_index_out_of_range_positions_equal_jax(positions):
+    """A position outside ``[0, n_pages * page_size)`` indexes the block
+    table as the reference's ``take_along_axis`` does (negative pages
+    from the end, pages past it clamped to the last): never an
+    out-of-range ``torch.gather``, which on CUDA is a device-side
+    assert.  (More than a table back the reference reads its fill value
+    through int32 overflow; the port clamps to page 0.)"""
+    bt = np.array([[3, 5, 7, 9]], np.int32)
+    pos = np.array(positions, np.int32)
+    got = ttr.paged_flat_index(torch.from_numpy(bt), torch.from_numpy(pos), 4)
+    want = _np(jtr.paged_flat_index(jnp.asarray(bt), jnp.asarray(pos), 4))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.int64
+    far = ttr.paged_flat_index(torch.from_numpy(bt), torch.tensor([[-100]]), 4)
+    assert far.item() == 3 * 4 + 0                 # page 0, in the table
+
+
 @pytest.mark.parametrize("n_kv_heads", [None, 2])
 def test_greedy_sample_tokens_identical_to_jax(n_kv_heads):
     jcfg, tcfg = _cfgs(n_kv_heads)

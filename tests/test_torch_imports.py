@@ -58,7 +58,13 @@ def test_port_imports_no_jax_and_no_jax_package():
             "control/autoscaler.py", "serving/disagg/migrate.py",
             "serving/disagg/scheduler.py", "online/capture.py",
             "online/loop.py", "ops/cuda/kv_quant.py",
-            "ops/cuda/registry.py"} <= mods
+            "ops/cuda/registry.py", "native/__init__.py", "native/build.py",
+            "native/runtime.py", "datasets/svmlight.py",
+            "datasets/records.py", "models/lstm.py", "models/resnet.py",
+            *(f"text/{m}.py" for m in (
+                "__init__", "tokenization", "sentence", "vocab",
+                "similarity", "word2vec", "glove", "serializer",
+                "paragraph_vectors", "vectorizers", "lm_dataset"))} <= mods
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -124,7 +130,22 @@ def _entry_points(tmp_path):
     from deeplearning4j_tpu_torch.ops import rng
 
     mlp = zoo.mlp(4, 3, device="cpu")
+    from deeplearning4j_tpu_torch import text
+    from deeplearning4j_tpu_torch.models import lstm, resnet
+
+    rcfg = resnet.ResNetConfig.resnet18(num_classes=3, width=4)
+    corpus = ["a b c d e f"] * 4
     return {
+        "LSTMSequenceModel": lambda: lstm.LSTMSequenceModel(4, 8),
+        "ResNet": lambda: resnet.ResNet(rcfg),
+        "resnet.init_params": lambda: resnet.init_params(
+            torch.Generator(), rcfg),
+        "resnet.init_batch_stats": lambda: resnet.init_batch_stats(rcfg),
+        "Word2Vec": lambda: text.Word2Vec(corpus),
+        "Glove": lambda: text.Glove(corpus),
+        "ParagraphVectors": lambda: text.ParagraphVectors(corpus),
+        "LMTokenBatchIterator": lambda: text.LMTokenBatchIterator(
+            text.LMCorpus(corpus), 2, 4),
         "MultiLayerNetwork": lambda: MultiLayerNetwork(mlp.conf),
         "MultiLayerNetwork.load": lambda: MultiLayerNetwork.load(
             _saved(mlp, tmp_path)),
@@ -164,7 +185,10 @@ def _saved(net, tmp_path) -> str:
     "init_cls_head", "draft_lm", "DataParallelTrainer",
     "prefetch_to_device", "MultiLayerNetwork", "MultiLayerNetwork.load",
     "zoo.mlp", "zoo.dbn", "zoo.stacked_denoising_autoencoder", "zoo.lenet",
-    "RngStream", "key_for", "cli train", "cli evaluate"]))
+    "RngStream", "key_for", "cli train", "cli evaluate",
+    "LSTMSequenceModel", "ResNet", "resnet.init_params",
+    "resnet.init_batch_stats", "Word2Vec", "Glove", "ParagraphVectors",
+    "LMTokenBatchIterator"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch, tmp_path):
     """Without ``device="cpu"`` an entry point asks for CUDA; with no GPU
     (forced here, so the test means the same on any machine) it raises."""

@@ -118,6 +118,17 @@ MODULES = [
      "deeplearning4j_tpu.control.overload"),
     ("deeplearning4j_tpu_torch.control.autoscaler",
      "deeplearning4j_tpu.control.autoscaler"),
+    ("deeplearning4j_tpu_torch.models.lstm", "deeplearning4j_tpu.models.lstm"),
+    ("deeplearning4j_tpu_torch.models.resnet",
+     "deeplearning4j_tpu.models.resnet"),
+    ("deeplearning4j_tpu_torch.native.runtime",
+     "deeplearning4j_tpu.native.runtime"),
+    *[(f"deeplearning4j_tpu_torch.datasets.{m}",
+       f"deeplearning4j_tpu.datasets.{m}") for m in ("svmlight", "records")],
+    *[(f"deeplearning4j_tpu_torch.text.{m}", f"deeplearning4j_tpu.text.{m}")
+      for m in ("tokenization", "sentence", "vocab", "similarity",
+                "word2vec", "glove", "serializer", "paragraph_vectors",
+                "vectorizers", "lm_dataset")],
 ]
 
 _SEED = ("the port draws from a torch.Generator or an int seed: torch "
@@ -205,6 +216,15 @@ ALLOWED = {
         "device": _DEVICE + "; keyword-only"},
     **{f"models.zoo:{name}": {"device": _DEVICE + "; keyword-only"}
        for name in ("mlp", "dbn", "stacked_denoising_autoencoder", "lenet")},
+    **{key: {"device": _DEVICE + "; keyword-only"} for key in (
+        "models.lstm:LSTMSequenceModel.__init__",
+        "models.resnet:ResNet.__init__",
+        "text.word2vec:Word2Vec.__init__", "text.glove:Glove.__init__",
+        "text.serializer:load_into_word2vec",
+        "text.lm_dataset:LMTokenBatchIterator.__init__")},
+    "models.resnet:init_params": {"key": _SEED, "gen": _SEED,
+                                  "device": _DEVICE},
+    "models.resnet:init_batch_stats": {"device": _DEVICE},
     **{key: {"key": _SEED, "gen": _SEED} for key in (
         "ops.sampling:binomial", "ops.sampling:gaussian",
         "ops.sampling:dropout_mask", "ops.sampling:uniform",
@@ -225,6 +245,7 @@ ALLOWED = {
         "nn.layers:LSTM.init", "nn.layers:ConvolutionDownSampleLayer.init",
         "nn.layers:BatchNorm.init", "nn.layers:Embedding.init",
         "nn.multilayer:MultiLayerNetwork.init",
+        "models.lstm:LSTMSequenceModel.init", "models.resnet:ResNet.init",
         "nn.multilayer:MultiLayerNetwork.pretrain",
         "nn.multilayer:MultiLayerNetwork.finetune",
         "nn.multilayer:MultiLayerNetwork.fit",
