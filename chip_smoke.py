@@ -163,8 +163,29 @@ paths through the entry points a user calls:
    within-topic similarity above cross-topic); a small HS fit on the
    card against the CPU within ``TOL_W2V_CARD``; ``examples/08``'s
    svmlight flow (native parse equal to Python's, byte-range splits,
-   ``zoo.mlp`` fit from the file on the card against the CPU).  No
-   kernel of the port lies on 15b-15d: their launch counts must stay 0;
+   ``zoo.mlp`` fit from the file on the card against the CPU);
+15e. raw text to a trained RNTN (``run_trees``): 2,000 seeded sentences
+   of 8-24 tokens over the tagger's sample vocabulary and SentiWordNet's
+   seed words, split by ``SentenceAnnotator``, parsed by
+   ``TreebankParser`` and binarized on the host (seconds), every node
+   labelled with SentiWordNet's judgment as an SST class 0-4;
+   ``RNTN(layer_size=25, n_classes=5, max_nodes=64)`` fit 10 epochs at
+   batch 32 on the card (p50 step, trees/s, the loss falling, root
+   accuracy above the majority class), held to the CPU from the same
+   parameters (the float32 loss and gradients of a batch, 20 AdaGrad
+   steps in float64, within ``TOL_DL4J``); ``pos_tag_viterbi`` over 200
+   sentences, the tags equal the CPU's; an ``InvertedIndex`` saved,
+   loaded and searched alike;
+15f. clustering and t-SNE (``run_embed_plot``) over 15d's
+   negative-sampling Word2Vec table (~10k x 100), with TF32 on for the
+   process: ``KMeansClustering(k=20)`` (sweeps, ms a sweep; inertia
+   and labels against the CPU within ``TOL_KMEANS``), exact ``Tsne()``
+   at its defaults over the 5,000 most frequent words (the host's
+   perplexity search, ms an iteration, KL; P and 20 float64 iterations
+   against the CPU; one topic's words closer in 2-D than two topics'),
+   and ``render_word_vectors(model)``'s ``/api/coords``, 500 finite
+   points.  No kernel of the port lies on 15b-15f: their launch counts
+   must stay 0;
 16. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
    0 just before it runs, read just after; #7 has a row per page type,
    ``paged_attention_int8`` and ``paged_attention_fp8``), then the card's
@@ -3667,7 +3688,8 @@ def run_text(torch, wrappers, card, dev="cuda"):
     card against the CPU within ``TOL_W2V_CARD``; then
     ``examples/08_svmlight_records.py``'s flow: a seeded svmlight file
     parsed natively (equal to the Python parser), split by byte ranges,
-    and ``zoo.mlp`` fit from it on the card against the CPU."""
+    and ``zoo.mlp`` fit from it on the card against the CPU.  Returns the
+    report, the negative-sampling Word2Vec model and the topics' words."""
     import numpy as np
 
     from deeplearning4j_tpu_torch.datasets import svmlight
@@ -3712,7 +3734,8 @@ def run_text(torch, wrappers, card, dev="cuda"):
                       "within_topic_sim": within, "cross_topic_sim": across}
         print(f"text {label}: {card} | " + json.dumps(rep[label]),
               flush=True)
-        del model
+    w2v_ns = model          # the negative-sampling model: run_embed_plot's
+    del model
     # ---- GloVe on a fifth of the corpus
     part = sents[:len(sents) // 5]
     glove = Glove(part, seed=1, device=dev)
@@ -3827,6 +3850,459 @@ def run_text(torch, wrappers, card, dev="cuda"):
     print(f"text: {card} | paragraph_vectors={rep['paragraph_vectors']} "
           f"word2vec_card_vs_cpu={rep['word2vec_card_vs_cpu']} svmlight="
           f"{rep['svmlight']} phase_s={rep['phase_s']:.1f}", flush=True)
+    return rep, w2v_ns, topic_words
+
+
+#: 15e, the RNTN pipeline: seeded sentences of 8-24 tokens (the final
+#: "." included) built on the tag sequences of the tagger's sample corpus
+#: (``text/data/pos_sample.txt``), each slot filled from that corpus's
+#: words of the tag, or in ``TREE_SENTIMENT_RATE`` of the adjective, verb
+#: and adverb slots from SentiWordNet's seed words
+TREE_SENTENCES = 2000
+#: processes parsing them (the host's CKY: 21-26 s in one on an H100's
+#: host, ~40% of the phase)
+TREE_PARSE_WORKERS = 8
+TREE_LENGTHS = (8, 24)
+TREE_SENTIMENT_RATE = 0.35
+TREE_SENTIMENT_WORDS = {
+    "ADJ": ("good", "great", "excellent", "happy", "wonderful", "best",
+            "nice", "amazing", "bad", "terrible", "awful", "sad",
+            "horrible", "worst", "poor", "disappointing", "boring"),
+    "VERB": ("love", "hate", "like"), "ADV": ("not", "never")}
+#: SentiWordNet's judgments as the Stanford Sentiment Treebank's classes
+SST_CLASSES = {"strong_negative": 0, "negative": 1, "neutral": 2,
+               "positive": 3, "strong_positive": 4}
+RNTN_EPOCHS = 10
+RNTN_BATCH = 32
+#: AdaGrad steps held card against CPU in float64, each from the CPU's
+#: state before it.  Free-running, the RNTN's AdaGrad start is chaotic:
+#: g / sqrt(h + 1e-8) has slope lr / 1e-4 = 500 at a small gradient, and
+#: on the CPU a 1e-12 relative nudge of the parameters grows to 1.3e-4
+#: after 7 steps and to 0.46 after 10 (float64, this phase's corpus), so
+#: the card's float64 run leaves the CPU's after ~10 steps by summation
+#: order alone (0.84 after 20 on an H100)
+RNTN_CMP_STEPS = 20
+TAG_SENTENCES = 200
+#: 15f: k-means over every Word2Vec vector, exact t-SNE over the most
+#: frequent words
+KMEANS_K = 20
+TSNE_WORDS = 5000
+TSNE_CMP_ITERS = 20
+# k-means, card against CPU from one seed: the inertia, relative; the
+# labels equal but where a point's two nearest centroids lie within this
+# of each other, relative
+TOL_KMEANS = 1e-5
+# exact t-SNE, card against CPU: P (max |diff| / max P), and
+# TSNE_CMP_ITERS iterations from one y (max |diff| / max |y|) in float64.
+# P follows the float32 distances |x|^2 - 2 x.y + |y|^2 (the reference's
+# formula), whose cancellation leaves ~1e-7 of |x|^2 in a near distance:
+# the card's P read 1.35e-5 from the CPU's on an H100 (the JAX package's
+# and the port's 7.2e-5 apart on the CPU, on the reference tests' blobs),
+# so P is held at 1e-4.
+# Float32 iterations are reported, not held: the exaggerated start (P x
+# 4, learning rate 200) amplifies rounding, and from the same P and y the
+# JAX package and the port, which differ in summation order alone, part
+# by 1.8e-4 of the scale after 20 iterations at 5000 x 100 (by ~0.7 on
+# the reference tests' 60 points) on the CPU
+TOL_TSNE_P = 1e-4
+TOL_TSNE_Y = 1e-4
+
+
+def tree_corpus(np, n=TREE_SENTENCES, seed=0):
+    """``n`` seeded sentences (see ``TREE_LENGTHS``): tag templates from
+    the sample corpus joined by CONJ until the length is reached, each
+    slot filled with a word of its tag."""
+    from deeplearning4j_tpu_torch.text.annotator import (_DATA,
+                                                         load_tagged_corpus)
+
+    tagged = load_tagged_corpus(_DATA / "pos_sample.txt")
+    by_tag: dict = {}
+    for sent in tagged:
+        for w, t in sent:
+            by_tag.setdefault(t, set()).add(w.lower())
+    by_tag = {t: sorted(ws) for t, ws in by_tag.items()}
+    templates = [[t for _, t in s if t != "."] for s in tagged]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        length = int(rng.integers(TREE_LENGTHS[0], TREE_LENGTHS[1] + 1)) - 1
+        tags: list = []
+        while len(tags) < length:
+            if tags:
+                tags.append("CONJ")
+            tags.extend(templates[rng.integers(len(templates))])
+        words = []
+        for t in tags[:length]:
+            pool = by_tag[t]
+            if t in TREE_SENTIMENT_WORDS and rng.random() < TREE_SENTIMENT_RATE:
+                pool = TREE_SENTIMENT_WORDS[t]
+            words.append(pool[rng.integers(len(pool))])
+        out.append(" ".join(words) + " .")
+    return out
+
+
+def _parse_sentences(sents):
+    """Worker of ``run_trees``' parse: a default ``TreebankParser`` of its
+    own; the binarized trees of ``sents`` in order, and its seconds."""
+    from deeplearning4j_tpu_torch.text.tree import binarize
+    from deeplearning4j_tpu_torch.text.treeparser import TreebankParser
+
+    t0 = time.perf_counter()
+    parser = TreebankParser()
+    trees = [binarize(parser.get_trees(s)[0]) for s in sents]
+    return trees, time.perf_counter() - t0
+
+
+def parse_trees(sents, workers=TREE_PARSE_WORKERS):
+    """``sents`` parsed in ``workers`` spawned processes (the host CKY is
+    pure Python), contiguous shares in order: (trees, wall s, the
+    workers' summed s)."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = max(1, min(workers, os.cpu_count() or 1))
+    share = -(-len(sents) // workers)
+    parts = [sents[i:i + share] for i in range(0, len(sents), share)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(parts), mp_context=multiprocessing.get_context("spawn")) as ex:
+        done = list(ex.map(_parse_sentences, parts))
+    wall = time.perf_counter() - t0
+    return [t for trees, _ in done for t in trees], wall, sum(
+        s for _, s in done)
+
+
+def _leaf_err(got: dict, want: dict) -> float:
+    """max over the leaves of max |got - want| / max |want| (on the host)."""
+    err = 0.0
+    for k, w in want.items():
+        g = got[k].detach().double().cpu()
+        w = w.detach().double().cpu()
+        err = max(err, ((g - w).abs().max()
+                        / max(w.abs().max().item(), 1e-30)).item())
+    return err
+
+
+def rntn_card_vs_cpu(torch, trntn, model, trees, init, steps=RNTN_CMP_STEPS):
+    """The RNTN on the card against the CPU from the same parameters
+    (``init``, numpy): the float32 loss and every gradient of the first
+    batch, then ``steps`` AdaGrad steps in float64 over consecutive
+    batches, each step taken by the card from the CPU's state before it
+    (params and AdaGrad sums) and held to the CPU's state after it, each
+    within ``TOL_DL4J``.  The free-running float64 trajectories are
+    reported, not held: see ``RNTN_CMP_STEPS``."""
+    from deeplearning4j_tpu_torch.models.convert import params_from_numpy
+
+    cpu = trntn.RNTN(layer_size=model.d, n_classes=model.n_classes,
+                     max_nodes=model.max_nodes, device="cpu")
+    cpu.vocab = model.vocab
+    batches = [trees[i * RNTN_BATCH:(i + 1) * RNTN_BATCH]
+               for i in range(steps)]
+    first = {}
+    for name, m in (("card", model), ("cpu", cpu)):
+        p = params_from_numpy(init, device=m.device)
+        first[name] = trntn._loss_and_grads(p, m._batch_arrays(batches[0]),
+                                            m.l2)
+    loss_err = abs(first["card"][0].item() - first["cpu"][0].item()) \
+        / abs(first["cpu"][0].item())
+    grad_err = _leaf_err(first["card"][1], first["cpu"][1])
+
+    def to(tree, device):
+        return {k: v.to(device) for k, v in tree.items()}
+
+    p = {k: v.double() for k, v in params_from_numpy(
+        init, device="cpu").items()}
+    h = {k: torch.zeros_like(v) for k, v in p.items()}
+    card_p, card_h = to(p, model.device), to(h, model.device)
+    cpu_step, card_step = cpu._build_step(), model._build_step()
+    step_err = free_err = 0.0
+    for b in batches:
+        got_p, got_h, _ = card_step(to(p, model.device), to(h, model.device),
+                                    model._batch_arrays(b))
+        card_p, card_h, _ = card_step(card_p, card_h, model._batch_arrays(b))
+        p, h, _ = cpu_step(p, h, cpu._batch_arrays(b))
+        step_err = max(step_err, _leaf_err(got_p, p), _leaf_err(got_h, h))
+        free_err = _leaf_err(card_p, p)
+    rep = {"loss_rel_err": loss_err, "grads_rel_err": grad_err,
+           f"adagrad_f64_{steps}_steps_teacher_forced_rel_err": step_err,
+           f"adagrad_f64_{steps}_steps_free_running_rel_err": free_err,
+           "tol": TOL_DL4J}
+    if not (loss_err < TOL_DL4J and grad_err < TOL_DL4J
+            and step_err < TOL_DL4J):
+        fail(f"trees: the RNTN differs card vs CPU: {rep}")
+    return rep
+
+
+def run_trees(torch, wrappers, card, dev="cuda", n_sent=TREE_SENTENCES,
+              epochs=RNTN_EPOCHS, cmp_steps=RNTN_CMP_STEPS):
+    """Raw text to a trained RNTN on the card: ``tree_corpus``'s
+    sentences joined into one text, split by ``SentenceAnnotator``, parsed
+    by ``TreebankParser().get_trees`` (the default tagger and grammar)
+    and binarized on the host (``parse_trees``: wall s and the workers'
+    summed s); every node labelled with SentiWordNet's
+    judgment of its words as an SST class 0-4; ``RNTN(layer_size=25,
+    n_classes=5, max_nodes=64)`` at the reference's defaults fit for
+    ``epochs`` at batch 32 (the p50 step on CUDA events, trees/s, the
+    loss falling, root accuracy above the majority class); the card
+    against the CPU (``rntn_card_vs_cpu``); ``pos_tag_viterbi`` over 200
+    sentences, the card's tags equal to the CPU's; an ``InvertedIndex``
+    over the sentences saved, loaded and searched alike."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import rntn as trntn
+    from deeplearning4j_tpu_torch.models.convert import params_to_numpy
+    from deeplearning4j_tpu_torch.text.annotator import (SentenceAnnotator,
+                                                         pos_tag_viterbi)
+    from deeplearning4j_tpu_torch.text.index import InvertedIndex
+    from deeplearning4j_tpu_torch.text.sentiwordnet import SentiWordNet
+    from deeplearning4j_tpu_torch.text.tokenization import (
+        DefaultTokenizerFactory)
+    from deeplearning4j_tpu_torch.text.treeparser import TreebankParser
+
+    t_phase = time.perf_counter()
+    reset_counts(wrappers)
+    sents = SentenceAnnotator().annotate(" ".join(tree_corpus(np, n_sent)))
+    if len(sents) != n_sent:
+        fail(f"trees: the annotator split {len(sents)} sentences, not "
+             f"{n_sent}")
+    trees, parse_s, parse_cpu_s = parse_trees(sents)
+    parser = TreebankParser()
+    swn = SentiWordNet()
+    for t in trees:
+        for node in t.subtrees():
+            node.gold_label = SST_CLASSES[swn.classify(node.words())]
+    roots = np.bincount([t.gold_label for t in trees], minlength=5)
+    majority = float(roots.max() / len(trees))
+    rep: dict = {"card": card, "sentences": n_sent,
+                 "tokens": sum(len(t.words()) for t in trees),
+                 "parse_host_s": parse_s,
+                 "parse_workers_s": parse_cpu_s,
+                 "root_classes": roots.tolist()}
+
+    model = trntn.RNTN(layer_size=25, n_classes=5, max_nodes=64, device=dev)
+    model.build_vocab(trees)
+    init = params_to_numpy(model.init())
+    rep["card_vs_cpu"] = rntn_card_vs_cpu(torch, trntn, model, trees, init,
+                                          cmp_steps)
+    step = model._build_step()
+    events = []
+
+    def timed(params, hist, batch):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step(params, hist, batch)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    model._step = timed
+    t0 = time.perf_counter()
+    losses = model.fit(trees, epochs=epochs, batch_size=RNTN_BATCH)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    acc = model.accuracy(trees)
+    rep["fit"] = {"vocab": len(model.vocab), "epochs": epochs,
+                  "steps": len(step_ms), "fit_s": fit_s,
+                  "step_p50_ms": step_ms[len(step_ms) // 2],
+                  "trees_per_s": len(trees) * epochs / fit_s,
+                  "losses": losses, "root_accuracy": acc,
+                  "majority_share": majority}
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"trees: the RNTN's loss did not fall: {losses}")
+    if not acc > majority:
+        fail(f"trees: root accuracy {acc} is not above the majority class "
+             f"{majority}")
+
+    # ---- Viterbi-smoothed tagging on the card against the CPU
+    tf = DefaultTokenizerFactory()
+    toks = [tf.create(s).get_tokens() for s in sents[:TAG_SENTENCES]]
+    t0 = time.perf_counter()
+    tags = [pos_tag_viterbi(t, parser.tagger, device=dev) for t in toks]
+    tag_s = time.perf_counter() - t0
+    if tags != [pos_tag_viterbi(t, parser.tagger, device="cpu")
+                for t in toks]:
+        fail("trees: pos_tag_viterbi's tags differ card vs CPU")
+    rep["pos_tag_viterbi"] = {"sentences": len(toks), "s": tag_s,
+                              "tags_equal_cpu": True}
+
+    # ---- the inverted index: save, load, search alike
+    ix = InvertedIndex()
+    ix.add_all(sents)
+    queries = ["good great love", "terrible awful hate", "the dog runs"]
+    with tempfile.TemporaryDirectory(prefix="index_smoke_") as tmp:
+        path = Path(tmp) / "index.jsonl.gz"
+        t0 = time.perf_counter()
+        ix.save(path)
+        back = InvertedIndex.load(path)
+        io_s = time.perf_counter() - t0
+        size = path.stat().st_size
+    if not (back.terms() == ix.terms()
+            and all(back.search(q) == ix.search(q) for q in queries)
+            and ix.search(queries[0])):
+        fail("trees: the loaded index differs from the saved one")
+    rep["index"] = {"docs": ix.num_documents(), "terms": len(ix.terms()),
+                    "bytes": size, "save_load_s": io_s}
+    rep["launches"] = _launch_free(wrappers, "trees")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"trees: {card} | " + json.dumps(rep), flush=True)
+    return rep
+
+
+def _max_rel(np, got, want) -> float:
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / max(np.abs(want).max(), 1e-30))
+
+
+def run_embed_plot(torch, wrappers, card, w2v, topic_words, dev="cuda"):
+    """Clustering and t-SNE over ``run_text``'s negative-sampling Word2Vec
+    table, with TF32 switched on for the process (``"high"``) so that
+    the port's own full-float32 scopes are what keeps the distances
+    exact: a distance product in that scope against float64;
+    ``KMeansClustering(k=20)`` over every vector on the card (sweeps, ms a
+    sweep) against the CPU from the same seed (inertia within
+    ``TOL_KMEANS``, labels equal but at near ties); exact ``Tsne()`` at
+    its defaults over the ``TSNE_WORDS`` most frequent words (the host's
+    perplexity search, ms an iteration, the final KL; P against the
+    CPU's, and ``TSNE_CMP_ITERS`` iterations from one y in float64; one
+    topic's words closer in 2-D than two topics'); then
+    ``render_word_vectors(model)`` at its defaults, ``/api/coords`` over
+    HTTP."""
+    import urllib.request
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.observability import METRICS, TRACER
+    from deeplearning4j_tpu_torch.ops.linalg import exact_f32_matmul
+    from deeplearning4j_tpu_torch.plot import Tsne, render_word_vectors
+
+    t_phase = time.perf_counter()
+    reset_counts(wrappers)
+    vecs = w2v.syn0.detach().float().cpu().numpy()
+    spans: list = []
+    listening = [True]
+    TRACER.add_listener(lambda ev: listening[0] and spans.append(ev))
+
+    def span_s(name, since):
+        """Seconds in spans ``name`` recorded since ``spans[since]``."""
+        return sum(sp["dur"] for sp in spans[since:]
+                   if sp["name"] == name) / 1e6
+
+    rep: dict = {"card": card, "words": vecs.shape[0], "dim": vecs.shape[1]}
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        # ---- TF32 is on; the port's scope turns it off
+        a = torch.from_numpy(vecs[:4096]).to(dev)
+        exact = vecs[:4096].astype(np.float64) @ vecs[:KMEANS_K].T
+        tf32_err = _max_rel(np, (a @ a[:KMEANS_K].T).cpu(), exact)
+        with exact_f32_matmul():
+            scoped = torch.get_float32_matmul_precision()
+            f32_err = _max_rel(np, (a @ a[:KMEANS_K].T).cpu(), exact)
+        rep["matmul_rel_err"] = {"process_high": tf32_err,
+                                 "exact_f32_scope": f32_err}
+        if scoped != "highest" or not f32_err < 1e-5:
+            fail(f"embed: the full-float32 scope did not hold: {scoped}, "
+                 f"error {f32_err}")
+        del a
+
+        # ---- k-means over every vector
+        sweeps0 = METRICS.snapshot()["counters"].get("kmeans.sweeps", 0)
+        since = len(spans)
+        t0 = time.perf_counter()
+        km = KMeansClustering(k=KMEANS_K, device=dev).fit(vecs)
+        km_s = time.perf_counter() - t0
+        sweeps = METRICS.snapshot()["counters"]["kmeans.sweeps"] - sweeps0
+        sweep_ms = span_s("kmeans.fit", since) * 1e3 / sweeps
+        kc = KMeansClustering(k=KMEANS_K, device="cpu").fit(vecs)
+        inertia_err = abs(km.inertia - kc.inertia) / kc.inertia
+        diff = np.nonzero(km.labels() != kc.labels())[0]
+        d2 = ((vecs[diff, None, :].astype(np.float64)
+               - kc.centroids[None].astype(np.float64)) ** 2).sum(-1)
+        d2.sort(axis=1)
+        ties = int(((d2[:, 1] - d2[:, 0]) <= TOL_KMEANS * d2[:, 0]).sum())
+        rep["kmeans"] = {"k": KMEANS_K, "points": vecs.shape[0],
+                         "sweeps": sweeps, "fit_s": km_s,
+                         "ms_per_sweep": sweep_ms,
+                         "inertia": km.inertia, "inertia_rel_err": inertia_err,
+                         "labels_differ": int(diff.size),
+                         "labels_differ_at_ties": ties, "tol": TOL_KMEANS}
+        if not (inertia_err < TOL_KMEANS and ties == diff.size):
+            fail(f"embed: k-means differs card vs CPU: {rep['kmeans']}")
+
+        # ---- exact t-SNE over the most frequent words
+        x = vecs[:TSNE_WORDS]
+        tsne = Tsne(device=dev)
+        probs = {}
+        input_probs = tsne._input_probs
+        tsne._input_probs = lambda v: probs.setdefault("P", input_probs(v))
+        since = len(spans)
+        t0 = time.perf_counter()
+        y = tsne.fit_transform(x)
+        tsne_s = time.perf_counter() - t0
+        search_s = span_s("tsne.perplexity_search", since)
+        iter_ms = span_s("tsne.iterations", since) * 1e3 / tsne.n_iter
+        if y.shape != (len(x), 2) or not np.isfinite(y).all():
+            fail(f"embed: t-SNE gave {y.shape}, finite "
+                 f"{np.isfinite(y).all()}")
+        P_cpu = Tsne(device="cpu")._input_probs(x)
+        p_err = _max_rel(np, probs["P"], P_cpu)
+        y0 = np.random.default_rng(0).normal(0, 1e-4, (len(x), 2))
+        short = {d: Tsne(n_iter=TSNE_CMP_ITERS, device=d)
+                 for d in (dev, "cpu")}
+        y64 = {d: m._descend(P_cpu.astype(np.float64),
+                             torch.from_numpy(y0).to(d))
+               for d, m in short.items()}
+        y_err = _max_rel(np, y64[dev], y64["cpu"])
+        y32 = short[dev]._descend(P_cpu, torch.from_numpy(
+            y0.astype(np.float32)).to(dev))
+        rows = [[w2v.vocab.index_of(w) for w in ws] for ws in topic_words]
+        rows = [[i for i in r if 0 <= i < len(x)] for r in rows]
+
+        def mean_dist(a, b):
+            return float(np.linalg.norm(y[a][:, None] - y[b][None],
+                                        axis=-1).mean())
+
+        within = float(np.mean([mean_dist(r, r) for r in rows]))
+        across = float(np.mean([mean_dist(r, rows[(i + 1) % len(rows)])
+                                for i, r in enumerate(rows)]))
+        rep["tsne"] = {"words": len(x), "fit_s": tsne_s,
+                       "perplexity_search_host_s": search_s,
+                       "search_share": search_s / tsne_s,
+                       "ms_per_iteration": iter_ms, "kl": tsne.kl_,
+                       "P_rel_err": p_err, "tol_P": TOL_TSNE_P,
+                       f"y_f64_{TSNE_CMP_ITERS}_iters_rel_err": y_err,
+                       f"y_f32_card_vs_f64_{TSNE_CMP_ITERS}_iters": _max_rel(
+                           np, y32, y64["cpu"]), "tol_y": TOL_TSNE_Y,
+                       "topic_within_2d": within, "topic_across_2d": across}
+        if not (p_err < TOL_TSNE_P and y_err < TOL_TSNE_Y):
+            fail(f"embed: t-SNE differs card vs CPU: {rep['tsne']}")
+        if not within < across:
+            fail(f"embed: a topic's words are not closer in 2-D "
+                 f"({within}) than two topics' ({across})")
+
+        # ---- the render server over the same model
+        t0 = time.perf_counter()
+        server = render_word_vectors(w2v, device=dev)
+        try:
+            data = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/api/coords",
+                timeout=30).read())
+        finally:
+            server.stop()
+        render_s = time.perf_counter() - t0
+        if len(data) != 500 or not all(
+                np.isfinite([d["x"], d["y"]]).all() for d in data):
+            fail(f"embed: /api/coords served {len(data)} points")
+        rep["render"] = {"points": len(data), "s": render_s}
+    finally:
+        torch.set_float32_matmul_precision(prev)
+        listening[0] = False
+    rep["launches"] = _launch_free(wrappers, "embed")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"embed: {card} | " + json.dumps(rep), flush=True)
     return rep
 
 
@@ -4116,7 +4592,15 @@ def main() -> int:
     resnet = run_resnet(torch, TT, wrappers, rates, card)
     torch.cuda.empty_cache()
     lstm = run_lstm(torch, wrappers, card)
-    text = run_text(torch, wrappers, card)
+    text, w2v, topic_words = run_text(torch, wrappers, card)
+    torch.cuda.empty_cache()
+
+    # ---- 8g. raw text to a trained RNTN; 8h. k-means, exact t-SNE and
+    # the render server over the Word2Vec table (no kernel of the port
+    # lies on these paths either)
+    trees = run_trees(torch, wrappers, card)
+    embed = run_embed_plot(torch, wrappers, card, w2v, topic_words)
+    del w2v
 
     # ---- 9. one line per kernel: its numbers weighted by this run's
     # launches at each main-path shape, and every shape measured
@@ -4142,7 +4626,7 @@ def main() -> int:
             "scorer": scorer, "train_a": leg_a, "train_b": leg_b,
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},
             "checkpoints": ckpt, "dl4j": dl4j, "resnet": resnet,
-            "lstm": lstm, "text": text,
+            "lstm": lstm, "text": text, "trees": trees, "embed": embed,
             "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -3,9 +3,13 @@
 
 Port of ``deeplearning4j_tpu/ops/linalg.py``.  ``gemm`` rounds its operands
 to the policy's compute dtype and accumulates in float32; the in-place BLAS ``axpy`` is a functional return.
+:func:`exact_f32_matmul` scopes full float32 products (no TF32) for code
+whose answer turns on cancellation, such as ``|p|^2 - 2 p.c + |c|^2``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -24,6 +28,19 @@ def gemm(a: torch.Tensor, b: torch.Tensor, precision=None) -> torch.Tensor:
 
 
 mmul = gemm
+
+
+@contextlib.contextmanager
+def exact_f32_matmul():
+    """A scope in which float32 matrix products run in full float32
+    (``"highest"``: no TF32 on the card), whatever the process has set;
+    the setting is restored on exit."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

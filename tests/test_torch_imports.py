@@ -64,7 +64,14 @@ def test_port_imports_no_jax_and_no_jax_package():
             *(f"text/{m}.py" for m in (
                 "__init__", "tokenization", "sentence", "vocab",
                 "similarity", "word2vec", "glove", "serializer",
-                "paragraph_vectors", "vectorizers", "lm_dataset"))} <= mods
+                "paragraph_vectors", "vectorizers", "lm_dataset", "windows",
+                "index", "tree", "treeparser", "annotator", "sentiwordnet")),
+            "models/rntn.py", "utils/viterbi.py", "utils/counters.py",
+            "utils/misc.py", "utils/stringgrid.py",
+            *(f"clustering/{m}.py" for m in (
+                "__init__", "kdtree", "kmeans", "quadtree", "vptree")),
+            *(f"plot/{m}.py" for m in (
+                "__init__", "tsne", "render_app", "renderers"))} <= mods
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -90,6 +97,12 @@ _LIBRARY_KERNELS = {"scaled_dot_product_attention", "layer_norm",
                     "cross_entropy", "compile"}
 
 
+def _is_regex_compile(node) -> bool:
+    """``re.compile``: a regular expression, not ``torch.compile``."""
+    return (isinstance(node, ast.Attribute) and node.attr == "compile"
+            and isinstance(node.value, ast.Name) and node.value.id == "re")
+
+
 def test_package_calls_no_library_kernel():
     files = sorted(PORT.rglob("*.py"))
     mods = {p.relative_to(PORT).as_posix() for p in files}
@@ -101,14 +114,43 @@ def test_package_calls_no_library_kernel():
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             name = (node.attr if isinstance(node, ast.Attribute)
                     else node.id if isinstance(node, ast.Name) else None)
+            if _is_regex_compile(node):
+                continue
             if name in _LIBRARY_KERNELS:
                 bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {name}")
     assert not bad, bad
 
 
+def test_plot_and_clustering_import_without_matplotlib():
+    """The card's machine has no matplotlib: importing the port's plot and
+    clustering packages must not need it (the renderers import it on
+    their first call), and the tagger's sample corpus ships with the
+    port.  Checked in a fresh interpreter."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import deeplearning4j_tpu_torch.plot\n"
+            "import deeplearning4j_tpu_torch.clustering\n"
+            "from deeplearning4j_tpu_torch.text import annotator\n"
+            "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "p = annotator._DATA / 'pos_sample.txt'\n"
+            "assert p.is_file() and 'deeplearning4j_tpu_torch' in str(p)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    assert (PORT / "text" / "data" / "pos_sample.txt").is_file()
+
+
 def test_guard_flags_what_it_should():
     assert _forbidden("jax.numpy") and _forbidden("deeplearning4j_tpu.ops")
     assert _forbidden("ml_dtypes")
+    # only re.compile is let through the library-kernel guard
+    expr = ast.parse("re.compile(p); torch.compile(f); compile(s)").body
+    assert [_is_regex_compile(e.value.func) for e in expr] == [
+        True, False, False]
     assert not _forbidden("deeplearning4j_tpu_torch.ops")
 
 
@@ -135,7 +177,31 @@ def _entry_points(tmp_path):
 
     rcfg = resnet.ResNetConfig.resnet18(num_classes=3, width=4)
     corpus = ["a b c d e f"] * 4
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.models.rntn import RNTN
+    from deeplearning4j_tpu_torch.plot import Tsne, render_word_vectors
+    from deeplearning4j_tpu_torch.text.annotator import (
+        AveragedPerceptronTagger, pos_tag_viterbi)
+    from deeplearning4j_tpu_torch.utils import Viterbi, viterbi_decode
+
+    class Words:
+        """A stand-in embedding model: two words, two vectors."""
+        vocab = type("V", (), {"words": lambda self: ["a", "b"]})()
+
+        def get_word_vector(self, w):
+            return [1.0, 0.0] if w == "a" else [0.0, 1.0]
+
+    tagger = AveragedPerceptronTagger()
+    tagger.classes = ["X", "Y"]
     return {
+        "RNTN": lambda: RNTN(),
+        "KMeansClustering": lambda: KMeansClustering(2),
+        "Tsne": lambda: Tsne(),
+        "render_word_vectors": lambda: render_word_vectors(Words()),
+        "Viterbi": lambda: Viterbi(["x", "y"]),
+        "viterbi_decode": lambda: viterbi_decode([[0.0, 1.0]],
+                                                 [[0.0, 0.0], [0.0, 0.0]]),
+        "pos_tag_viterbi": lambda: pos_tag_viterbi(["a"], tagger),
         "LSTMSequenceModel": lambda: lstm.LSTMSequenceModel(4, 8),
         "ResNet": lambda: resnet.ResNet(rcfg),
         "resnet.init_params": lambda: resnet.init_params(
@@ -188,7 +254,8 @@ def _saved(net, tmp_path) -> str:
     "RngStream", "key_for", "cli train", "cli evaluate",
     "LSTMSequenceModel", "ResNet", "resnet.init_params",
     "resnet.init_batch_stats", "Word2Vec", "Glove", "ParagraphVectors",
-    "LMTokenBatchIterator"]))
+    "LMTokenBatchIterator", "RNTN", "KMeansClustering", "Tsne",
+    "render_word_vectors", "Viterbi", "viterbi_decode", "pos_tag_viterbi"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch, tmp_path):
     """Without ``device="cpu"`` an entry point asks for CUDA; with no GPU
     (forced here, so the test means the same on any machine) it raises."""

@@ -128,7 +128,15 @@ MODULES = [
     *[(f"deeplearning4j_tpu_torch.text.{m}", f"deeplearning4j_tpu.text.{m}")
       for m in ("tokenization", "sentence", "vocab", "similarity",
                 "word2vec", "glove", "serializer", "paragraph_vectors",
-                "vectorizers", "lm_dataset")],
+                "vectorizers", "lm_dataset", "windows", "index", "tree",
+                "treeparser", "annotator", "sentiwordnet")],
+    ("deeplearning4j_tpu_torch.models.rntn", "deeplearning4j_tpu.models.rntn"),
+    *[(f"deeplearning4j_tpu_torch.{m}", f"deeplearning4j_tpu.{m}")
+      for m in ("clustering", "clustering.kdtree", "clustering.kmeans",
+                "clustering.quadtree", "clustering.vptree", "plot",
+                "plot.tsne", "plot.render_app", "plot.renderers",
+                "utils.viterbi", "utils.counters", "utils.misc",
+                "utils.stringgrid")],
 ]
 
 _SEED = ("the port draws from a torch.Generator or an int seed: torch "
@@ -225,6 +233,14 @@ ALLOWED = {
     "models.resnet:init_params": {"key": _SEED, "gen": _SEED,
                                   "device": _DEVICE},
     "models.resnet:init_batch_stats": {"device": _DEVICE},
+    "utils.viterbi:viterbi_decode": {"device": _DEVICE},
+    "plot.render_app:render_word_vectors": {
+        "device": _DEVICE + " (passed to Tsne)"},
+    **{key: {"device": _DEVICE + "; keyword-only"} for key in (
+        "utils.viterbi:Viterbi.__init__", "text.annotator:pos_tag_viterbi",
+        "models.rntn:RNTN.__init__",
+        "clustering.kmeans:KMeansClustering.__init__",
+        "plot.tsne:Tsne.__init__")},
     **{key: {"key": _SEED, "gen": _SEED} for key in (
         "ops.sampling:binomial", "ops.sampling:gaussian",
         "ops.sampling:dropout_mask", "ops.sampling:uniform",
