@@ -46,11 +46,13 @@ paths through the entry points a user calls:
 4. ``ModelServer`` over engine A answering 2 requests via ``ServingClient``;
 5. engine B: as A with ``kv_quant="int8", paged_attention_impl=
    "pallas_int8"`` and 8 requests;
-5a. engine F: as B with ``kv_quant="fp8"`` (e4m3 pages), on A's 16
-   prompts, 8 at a time, with B's teacher-forced comparison;
+5a. engine F: as B with ``kv_quant="fp8"`` (e4m3 pages), on A's first 8
+   prompts (not all 16: the script's time limit), with B's teacher-forced
+   comparison;
 5b. the disaggregated tier (``run_disagg``): a ``DisaggScheduler`` over
    one ``role="prefill"`` and one ``role="decode"`` engine (A's serving
-   config with the prefix cache) serving A's 16 prompts on float pages,
+   config with the prefix cache) serving A's first 8 prompts on float
+   pages,
    then on fp8 pages: the tokens equal engine A's, then engine F's; a
    129-token prompt served twice (its second migration claims its 8
    pages by hash and moves no byte); that prompt migrated over HTTP
@@ -186,6 +188,23 @@ paths through the entry points a user calls:
    and ``render_word_vectors(model)``'s ``/api/coords``, 500 finite
    points.  No kernel of the port lies on 15b-15f: their launch counts
    must stay 0;
+15g. the data-parallel tier (``run_data_parallel``) at leg A's config and
+   global batch (64 x 512, split over the ranks; SGD with momentum):
+   one rank in this process over NCCL — ``DataParallelTrainer`` at ZeRO
+   stages 0-3 and hogwild, and ``TransformerLM(cfg, mesh)``'s
+   ``build_train_step(zero1=True)`` against ``zero1=False``; NCCL
+   refusing two spawned ranks on one GPU; two spawned ranks sharing the
+   card over gloo — the same stages (each held to stage 0, stage 0 to
+   dp=1, p50 step ms on CUDA events, tokens/s, the collectives' host ms
+   a step and the gloo calls staged through host memory), the per-rank
+   optimizer-state bytes (stage 2 / stage 0 ~ 1/2), a ZeRO-2 checkpoint
+   written at dp=2 and restored here at dp=1 (its next loss held);
+   then four spawned ranks: ``TrainingSupervisor.fit`` over a trainer
+   factory, ``mesh.shrink`` losing 2 ranks at step 3 and ``mesh.grow``
+   taking them back at step 4, every recovered loss within
+   ``TOL_DP_ELASTIC`` of the un-faulted run (resize and reshard
+   seconds).  Each rank's launches of #1/#3/#4 join the kernels line at
+   the rows that rank ran;
 16. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
    0 just before it runs, read just after; #7 has a row per page type,
    ``paged_attention_int8`` and ``paged_attention_fp8``), then the card's
@@ -289,8 +308,9 @@ TOL_SCORE = 0.05
 TRAIN_KERNELS = ("flash_attention", "fused_attention",
                  "fused_residual_layernorm", "blocked_cross_entropy")
 #: rows of the LN and xent calls in the two training legs (64 x 512,
-#: 8 x 2048) and the checkpoint phase (8 x 512)
-TRAIN_ROWS = (32768, 16384, 4096)
+#: 8 x 2048), the checkpoint phase (8 x 512) and a rank of the
+#: data-parallel phase at dp=4 (16 x 512)
+TRAIN_ROWS = (32768, 16384, 4096, 8192)
 #: rows of the LN calls: the training legs' (the scorer's 32 x 512 is leg
 #: B's count) and the full-forward sampler's one row of 2048
 LN_ROWS = TRAIN_ROWS + (2048,)
@@ -745,7 +765,8 @@ ATTN_CASES = (("flash_attention", 64, 512, False),
               ("fused_attention", 64, 512, False),
               ("fused_attention", 1, 2048, True),
               ("flash_attention", 32, 512, False),
-              ("fused_attention", 8, 512, True))
+              ("fused_attention", 8, 512, True),
+              ("flash_attention", 16, 512, False))
 
 
 def check_attention(torch, tat, dev, rates, cases, H=12, Dh=64):
@@ -1129,8 +1150,13 @@ def main_path_weights(case, reports, mcfg, legs):
             return sum(leg["launches"][name] for leg in legs
                        if (leg["batch"], leg["seq"], leg["causal"])
                        == (case["B"], case["T"], case["causal"]))
+        # rows alone do not tell an LM's xent from the DBN head's (both
+        # 8192 rows): a leg off the LM names its vocabulary
+        lm = mcfg.vocab_size
         return sum(leg["launches"][name] for leg in legs
-                   if leg["batch"] * leg["seq"] == case["N"])
+                   if leg["batch"] * leg["seq"] == case["N"]
+                   and case.get("V", leg.get("vocab", lm))
+                   == leg.get("vocab", lm))
     ffn = {(mcfg.d_model, mcfg.d_ff), (mcfg.d_ff, mcfg.d_model)}
     if name == "int8_matmul":
         per_step = (mcfg.n_layers if (case["K"], case["N"]) in ffn
@@ -3335,7 +3361,9 @@ def run_dl4j(torch, txe, wrappers, rates, cases, card: str):
         fail(f"dl4j: {len(cg_solves)} CG solves ran under the sync check")
     rep["phase_s"] = time.perf_counter() - t_phase
     print("dl4j: " + json.dumps(rep), flush=True)
-    leg = {"batch": N, "seq": 1, "causal": None, "launches": counts}
+    # the head's vocabulary: its xent rows are not the LM's at N rows
+    leg = {"batch": N, "seq": 1, "causal": None, "vocab": V,
+           "launches": counts}
     return rep, leg
 
 
@@ -4306,6 +4334,563 @@ def run_embed_plot(torch, wrappers, card, w2v, topic_words, dev="cuda"):
     return rep
 
 
+# ------------------------------------------------------------------ data parallel
+
+#: phase 15g (run_data_parallel): leg A's config at its global batch,
+#: split over the ranks; one warm-up and DP_STEPS timed steps a stage
+DP_BATCH, DP_SEQ = 64, 512
+DP_STEPS = 2
+#: the elastic leg: steps, the faults (dp 4 -> 2 at step 3, back at 4)
+DP_ELASTIC_STEPS = 5
+DP_ELASTIC_FAULTS = (("mesh.shrink", 3, "2"), ("mesh.grow", 4, None))
+#: seconds a rank process may take (its build load, its steps)
+DP_TIMEOUT_S = 420
+#: SGD with momentum (the LM's default transform) at this rate: an
+#: adaptive optimizer's first step is ~lr * sign(g), which turns the
+#: rounding of a near-zero gradient into a whole step, so Adam makes no
+#: comparison of layouts; SGD moves a weight by lr * its gradient
+DP_LR = 1e-2
+# the held numbers, in bf16 on the card, set from the spread measured on
+# an H100 (PERF.md §6, PR 14).  Stage 1 is stage 0's reduction (one
+# all-reduce of the same packed buffer, then an elementwise update of a
+# chunk): held bitwise, losses and params (measured equal at dp=1 and
+# dp=2, as were stages 2 and 3, whose reduce-scatter sums two ranks in
+# the all-reduce's order; at more ranks it may sum in another, so they
+# are held to a window: losses ~10.5, params after 4 SGD steps).  Other
+# per-rank rows (dp=2 against dp=1, the elastic run's widths against the
+# un-faulted dp=4 run, a checkpoint restored at another width) mean other
+# GEMM shapes and bf16 roundings: measured 4.9e-5 (dp=2 vs dp=1) and
+# 4.5e-5 (elastic) on the losses, held at 10x that
+TOL_DP_STAGE = 1e-5
+TOL_DP_PARAMS = 1e-6
+TOL_DP_WIDTH = 5e-4
+TOL_DP_ELASTIC = 5e-4
+
+
+def dp_config(torch, ttr, cfg_kw=None):
+    """Leg A's config (BERT-base: flash, fused LN, blocked xent, bf16)."""
+    kw = dict(vocab_size=32768, d_model=768, n_heads=12, n_layers=12,
+              d_ff=3072, max_len=512, causal=False, dtype=torch.bfloat16,
+              remat=False, attention="flash", fused_ln=True,
+              xent_impl="blocked")
+    kw.update(cfg_kw or {})
+    return ttr.TransformerConfig(**kw)
+
+
+def dp_inputs(torch, ttr, cfg, dev, n_batches, batch=DP_BATCH, seq=DP_SEQ):
+    """The seeded params and global batches, drawn alike on every rank."""
+    model = ttr.TransformerLM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batches = []
+    for _ in range(n_batches):
+        toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                             device=dev)
+        batches.append((toks, torch.roll(toks, -1, dims=1)))
+    return params, batches
+
+
+def dp_wrappers():
+    from deeplearning4j_tpu_torch.ops.cuda import attention as tat
+    from deeplearning4j_tpu_torch.ops.cuda import layernorm as tln
+    from deeplearning4j_tpu_torch.ops.cuda import xent as txe
+
+    return (tat.flash_attention, tat.fused_attention,
+            tln.fused_residual_layernorm, txe.blocked_cross_entropy)
+
+
+def dp_stages(torch, mesh, cfg, params, batches, dev, label, stages,
+              ckpt_dir=None):
+    """Each stage (0-3, "hogwild") of ``DataParallelTrainer`` over
+    ``mesh`` from the same params on the same global batches: one warm-up
+    and DP_STEPS timed steps (CUDA events), the losses, collectives' host
+    ms a step, the per-rank optimizer-state bytes, max |p - p0| against
+    stage 0; with ``ckpt_dir``, stage 2 saves a checkpoint there and takes
+    one more step (its loss is the restore's reference)."""
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.observability import METRICS
+    from deeplearning4j_tpu_torch.optimize import transforms as TT
+    from deeplearning4j_tpu_torch.parallel import (CheckpointManager,
+                                                   DataParallelTrainer)
+    from deeplearning4j_tpu_torch.parallel import collectives as clv
+    from deeplearning4j_tpu_torch.utils.tree_math import tree_leaves
+
+    def loss_fn(p, x, y, gen=None):
+        return ttr.lm_loss_local(p, x, y, cfg)
+
+    out, p0 = {}, None
+    rank = mesh.rank
+    for stage in stages:
+        METRICS.reset()
+        kw = ({"router": "hogwild", "average_every": 2} if stage == "hogwild"
+              else {"zero_stage": stage})
+        tr = DataParallelTrainer(
+            loss_fn, TT.chain(TT.momentum(0.9), TT.sgd_lr(DP_LR)), mesh=mesh,
+            device=dev, **kw)
+        state = tr.init_state(params)
+        gauges = METRICS.snapshot()["gauges"]
+        opt_bytes = next((v for k, v in gauges.items()
+                          if k.startswith("train.opt_state_bytes.device.")),
+                         None)
+        losses, times = [], []
+        for i in range(1 + DP_STEPS):
+            if i == 1:
+                clv.reset_stats()
+            x, y = batches[i % len(batches)]
+            with _dp_timer(torch, dev) as ms:
+                state, lazy = tr.step(state, x, y)
+                losses.append(float(lazy))
+            if i:
+                times.append(ms[0])
+        coll = {k: dict(v) for k, v in clv.STATS.items()}
+        final = tr.final_params(state)
+        rep = {"losses": losses, "step_ms": times,
+               "p50_step_ms": sorted(times)[len(times) // 2],
+               "collective_ms_per_step": 1e3 * sum(
+                   v["seconds"] for v in coll.values()) / DP_STEPS,
+               "collectives": coll, "opt_state_bytes": opt_bytes,
+               "host_staged": METRICS.snapshot()["counters"].get(
+                   "collectives.host_staged", 0)}
+        rep["tokens_per_s"] = DP_BATCH * DP_SEQ / (rep["p50_step_ms"] / 1e3)
+        if stage == 0:
+            p0 = [t.detach().float().clone() for t in tree_leaves(final)]
+        else:
+            rep["max_param_diff_vs_stage0"] = max(
+                (a.float() - b).abs().max().item()
+                for a, b in zip(tree_leaves(final), p0))
+        if stage == 2 and ckpt_dir is not None:
+            mgr = CheckpointManager(ckpt_dir, keep=1)
+            t0 = time.perf_counter()
+            tr.checkpoint(state, mgr)
+            rep["save_s"] = time.perf_counter() - t0
+            x, y = batches[(1 + DP_STEPS) % len(batches)]
+            state, lazy = tr.step(state, x, y)
+            rep["next_loss"] = float(lazy)
+        out[str(stage)] = rep
+        if rank == mesh.ranks[0]:
+            print(f"{label} stage {stage}: p50_step_ms="
+                  f"{rep['p50_step_ms']:.2f} tokens_per_s="
+                  f"{rep['tokens_per_s']:.1f} collective_ms_per_step="
+                  f"{rep['collective_ms_per_step']:.2f} host_staged="
+                  f"{rep['host_staged']} losses="
+                  f"{[round(v, 5) for v in losses]}", flush=True)
+        del tr, state, final
+        torch.cuda.empty_cache()
+    return out
+
+
+def _counts(wrappers) -> dict:
+    return {w.__name__: w.launches for w in wrappers}
+
+
+@contextlib.contextmanager
+def _dp_timer(torch, dev):
+    """Milliseconds of the body: CUDA events on the card (the body ends
+    in a host read, so the end event follows its work), the host clock
+    elsewhere; the value lands in the yielded list."""
+    out = []
+    if torch.device(dev).type == "cuda":
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        yield out
+        t1.record()
+        t1.synchronize()
+        out.append(t0.elapsed_time(t1))
+    else:
+        t = time.perf_counter()
+        yield out
+        out.append(1e3 * (time.perf_counter() - t))
+
+
+def _peak_gb(torch, dev) -> float:
+    if torch.device(dev).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def dp_rank_main(rank, world, store, conn, job, kwargs):
+    """A spawned rank of phase 15g: join the gloo group on ``cuda:0``, run
+    ``job`` and send its result (or the traceback) to the parent; with
+    ``nccl_first``, first ask for NCCL and keep its refusal."""
+    import traceback
+
+    os.environ.setdefault("OMP_NUM_THREADS", "4")
+    try:
+        import torch
+
+        if torch.device(kwargs.get("dev", "cuda")).type == "cuda":
+            torch.cuda.set_device(0)
+        from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+
+        refusal = None
+        if kwargs.pop("nccl_first", False):
+            # these ranks share one card: NCCL must refuse them, loudly
+            try:
+                pmesh.initialize_multihost(f"file://{store}.nccl", world,
+                                           rank, backend="nccl",
+                                           timeout_s=DP_TIMEOUT_S)
+                refusal = "NCCL accepted two ranks on one GPU"
+                pmesh.shutdown_multihost()
+            except RuntimeError as e:
+                refusal = str(e)
+        pmesh.initialize_multihost(f"file://{store}", world, rank,
+                                   backend="gloo", timeout_s=DP_TIMEOUT_S)
+        try:
+            out = globals()[job](torch, rank, world, **kwargs)
+            if refusal is not None:
+                out["nccl_refusal"] = refusal
+            conn.send(("ok", out))
+        finally:
+            pmesh.shutdown_multihost()
+    except Exception:       # the rank's boundary: reported to the parent
+        conn.send(("err", f"rank {rank}:\n{traceback.format_exc()}"))
+
+
+def spawn_ranks(world, job, label, **kwargs) -> list:
+    """``job`` in ``world`` spawned rank processes sharing one card over
+    gloo; their results in rank order.  Any failure, or a rank not done
+    within DP_TIMEOUT_S, kills every rank and fails the run."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="dl4j_dp_") as tmp:
+        procs, conns = [], []
+        for r in range(world):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=dp_rank_main,
+                            args=(r, world, str(Path(tmp) / "store"), child,
+                                  job, dict(kwargs)), daemon=True)
+            p.start()
+            procs.append(p)
+            conns.append(parent)
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        results, errors = [], []
+        try:
+            for r, c in enumerate(conns):
+                if not c.poll(max(0.0, deadline - time.monotonic())):
+                    errors.append(f"rank {r} not done in {DP_TIMEOUT_S} s")
+                    break
+                try:
+                    kind, value = c.recv()
+                except EOFError:
+                    kind, value = "err", f"rank {r} died"
+                (errors if kind == "err" else results).append(value)
+        finally:
+            for p in procs:
+                p.join(timeout=30 if not errors else 1)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    if errors:
+        fail(f"{label}: " + "\n".join(errors))
+    return results
+
+
+def dp_width_job(torch, rank, world, ckpt_dir, cfg_kw=None, dev="cuda"):
+    """dp=``world`` over gloo: the stages and hogwild, and a ZeRO-2
+    checkpoint into ``ckpt_dir``; this rank's launches."""
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.parallel.mesh import local_mesh
+
+    wrappers = dp_wrappers()
+    cfg = dp_config(torch, ttr, cfg_kw)
+    params, batches = dp_inputs(torch, ttr, cfg, dev, 1 + DP_STEPS + 1)
+    reset_counts(wrappers)
+    rep = dp_stages(torch, local_mesh(), cfg, params, batches, dev,
+                    f"dp={world} gloo", (0, 1, 2, 3, "hogwild"), ckpt_dir)
+    return {"stages": rep, "launches": _counts(wrappers),
+            "peak_mem_gb": _peak_gb(torch, dev)}
+
+
+def dp_elastic_job(torch, rank, world, root, cfg_kw=None, dev="cuda"):
+    """The supervised elastic run over every rank (ZeRO-1; dp 4 -> 2 -> 4
+    by DP_ELASTIC_FAULTS) and the un-faulted fit before it; the launches
+    split by the width they ran at (the factory snapshots the counts)."""
+    import glob
+
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.observability import FLIGHTREC, METRICS
+    from deeplearning4j_tpu_torch.optimize import transforms as TT
+    from deeplearning4j_tpu_torch.parallel import (CheckpointManager,
+                                                   DataParallelTrainer,
+                                                   elastic_mesh)
+    from deeplearning4j_tpu_torch.parallel.mesh import rank_devices
+    from deeplearning4j_tpu_torch.resilience import (FaultSpec, RetryPolicy,
+                                                     TrainingSupervisor,
+                                                     inject_faults)
+
+    wrappers = dp_wrappers()
+    cfg = dp_config(torch, ttr, cfg_kw)
+    params, data = dp_inputs(torch, ttr, cfg, dev, DP_ELASTIC_STEPS)
+    reset_counts(wrappers)
+    by_width: dict = {}
+    current = {"width": None, "at": _counts(wrappers)}
+
+    def settle():
+        now = _counts(wrappers)
+        if current["width"] is not None:
+            acc = by_width.setdefault(current["width"], dict.fromkeys(now, 0))
+            for k in now:
+                acc[k] += now[k] - current["at"][k]
+        current["at"] = now
+
+    def factory(devices):
+        devs = devices if devices is not None else rank_devices()
+        settle()
+        current["width"] = len(devs)
+        return DataParallelTrainer(
+            lambda p, x, y, gen=None: ttr.lm_loss_local(p, x, y, cfg),
+            TT.chain(TT.momentum(0.9), TT.sgd_lr(DP_LR)),
+            mesh=elastic_mesh(devs), zero_stage=1, device=dev)
+
+    ref = factory(None)
+    t0 = time.perf_counter()
+    _, ref_losses = ref.fit(ref.init_state(params), data)
+    ref_s = time.perf_counter() - t0
+    del ref
+    torch.cuda.empty_cache()
+    root = Path(root)
+    sup = TrainingSupervisor(CheckpointManager(root / "ckpt", keep=10),
+                             RetryPolicy(max_attempts=4, backoff_base_s=0.01),
+                             install_signal_handlers=False)
+    FLIGHTREC.dump_dir = root / f"rec{rank}"
+    METRICS.reset()
+    specs = [FaultSpec(s, at_step=a, kind=k) for s, a, k in DP_ELASTIC_FAULTS]
+    t0 = time.perf_counter()
+    with inject_faults(*specs, seed=0):
+        state, _ = sup.fit(factory, params, data, epochs=1,
+                           checkpoint_every=2)
+    fit_s = time.perf_counter() - t0
+    settle()
+    rebuild = []
+    for path in sorted(glob.glob(str(FLIGHTREC.dump_dir /
+                                      "flightrec-mesh_resize-*.json"))):
+        extra = json.loads(Path(path).read_text()).get("extra", {})
+        rebuild.append((extra.get("direction"), extra.get("rebuild_seconds")))
+    snap = METRICS.snapshot()
+    return {"step": int(state.step), "ref_losses": ref_losses,
+            "losses_by_step": {int(k): v for k, v in
+                               sup.report.losses_by_step.items()},
+            "mesh_sizes": list(sup.report.mesh_sizes),
+            "member": sup.trainer.member, "ref_fit_s": ref_s,
+            "supervised_fit_s": fit_s, "rebuild_s": rebuild,
+            "reshard_s": snap["gauges"].get("elastic.reshard_seconds"),
+            "restore_s": snap["timers"].get("checkpoint.restore", {}),
+            "launches_by_width": by_width,
+            "peak_mem_gb": _peak_gb(torch, dev)}
+
+
+def dp_hold_stages(rep, label) -> None:
+    """Stage 1 bitwise stage 0 (the same reduction); stages 2-3 within
+    TOL_DP_STAGE (losses) and TOL_DP_PARAMS (params)."""
+    for stage in ("1", "2", "3"):
+        d = max(abs(a - b) for a, b in zip(rep[stage]["losses"],
+                                           rep["0"]["losses"]))
+        pd = rep[stage]["max_param_diff_vs_stage0"]
+        tol, ptol = (0.0, 0.0) if stage == "1" else (TOL_DP_STAGE,
+                                                     TOL_DP_PARAMS)
+        if d > tol or pd > ptol:
+            fail(f"15g {label}: stage {stage} off stage 0 by {d} (losses, "
+                 f"tol {tol}), {pd} (params, tol {ptol})")
+
+
+def run_data_parallel(torch, wrappers, card, dev="cuda", cfg_kw=None,
+                      backend="nccl", expect_launches=True):
+    """Phase 15g: the data-parallel tier at leg A's full width.
+
+    1. one rank in this process over ``backend`` (NCCL on the card):
+       ZeRO stages 0-3 and hogwild through ``DataParallelTrainer``, then
+       ``TransformerLM(cfg, mesh).build_train_step(zero1=True)`` against
+       ``zero1=False`` — every collective a real call of the backend;
+    2. NCCL refusing two ranks on one GPU (the two spawned ranks of 3.
+       ask for it first);
+    3. dp=2: two spawned ranks on the card over gloo: the stages and
+       hogwild, each stage against stage 0 and stage 0 against dp=1, the
+       per-rank optimizer-state bytes, a ZeRO-2 checkpoint written at
+       dp=2 and restored here at dp=1 (its next loss held);
+    4. the elastic run over four spawned ranks: ``TrainingSupervisor.fit``
+       over a trainer factory, ``mesh.shrink`` losing 2 ranks at step 3
+       and ``mesh.grow`` taking them back at step 4, every recovered loss
+       within TOL_DP_ELASTIC of the un-faulted run.
+
+    Launches of #1/#3/#4 are counted per rank and returned as legs at the
+    per-rank rows they ran (the kernels line's weights)."""
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.observability import METRICS
+    from deeplearning4j_tpu_torch.optimize import transforms as TT
+    from deeplearning4j_tpu_torch.parallel import (CheckpointManager,
+                                                   DataParallelTrainer)
+    from deeplearning4j_tpu_torch.parallel import collectives as clv
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    cfg = dp_config(torch, ttr, cfg_kw)
+    rep: dict = {"config": str(cfg), "global_batch": [DP_BATCH, DP_SEQ]}
+    # ---- 1. one rank, this process
+    tmp = tempfile.mkdtemp(prefix="dl4j_dp_")
+    try:
+        pmesh.initialize_multihost(f"file://{tmp}/store", 1, 0,
+                                   backend=backend, timeout_s=DP_TIMEOUT_S)
+        mesh = pmesh.local_mesh()
+        rep["backend_one_rank"] = pmesh.backend()
+        params, batches = dp_inputs(torch, ttr, cfg, dev, 1 + DP_STEPS + 1)
+        reset_counts(wrappers)
+        one = dp_stages(torch, mesh, cfg, params, batches, dev,
+                        f"dp=1 {backend}", (0, 1, 2, 3, "hogwild"))
+        model = ttr.TransformerLM(cfg, mesh, device=dev)
+        z1 = {}
+        for zero1 in (False, True):
+            tx = TT.chain(TT.momentum(0.9), TT.sgd_lr(DP_LR))
+            step = model.build_train_step(tx, zero1=zero1)
+            opt = (model.init_opt_zero1(params, tx) if zero1
+                   else model.init_opt(params, tx))
+            p, losses = params, []
+            clv.reset_stats()
+            for x, y in batches[:1 + DP_STEPS]:
+                p, opt, loss = step(p, opt, x, y)
+                losses.append(loss.item())
+            z1[str(zero1)] = {"losses": losses, "collectives": {
+                k: dict(v) for k, v in clv.STATS.items()}}
+            del p, opt, step
+        rep["lm_zero1"] = z1
+        gap = max(abs(a - b) for a, b in zip(z1["True"]["losses"],
+                                             z1["False"]["losses"]))
+        calls = {k: v["calls"] for k, v in z1["True"]["collectives"].items()}
+        print(f"dp=1 {backend} TransformerLM zero1 losses="
+              f"{[round(v, 5) for v in z1['True']['losses']]} vs replicated"
+              f" max |diff|={gap:.3g} collective calls={calls}", flush=True)
+        if gap > TOL_DP_STAGE:
+            fail(f"15g: zero1 step off the replicated one by {gap}")
+        rep["one_rank"] = one
+        dp_hold_stages(one, "dp=1")
+        if backend == "nccl" and not all(
+                s.get("calls") for s in one["2"]["collectives"].values()):
+            fail(f"15g dp=1: no NCCL collective ran: {one['2']}")
+        del params, batches
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- 2./3. two ranks on the card: NCCL refuses them; dp=2 over
+        # gloo, and the checkpoint back at dp=1 here
+        ckpt = Path(tmp) / "zero2"
+        on_card = torch.device(dev).type == "cuda"
+        two = spawn_ranks(2, "dp_width_job", "15g dp=2",
+                          ckpt_dir=str(ckpt), cfg_kw=cfg_kw, dev=dev,
+                          nccl_first=on_card)
+        if on_card:
+            msgs = [r["nccl_refusal"] for r in two]
+            if not all("NCCL cannot run several ranks on one GPU" in m
+                       for m in msgs):
+                fail(f"15g: NCCL did not refuse two ranks on one GPU: "
+                     f"{msgs}")
+            rep["nccl_two_ranks_refused"] = msgs[0]
+            print(f"dp=2 nccl: refused on both ranks ({msgs[0][:60]}...)",
+                  flush=True)
+        st2 = two[0]["stages"]
+        dp_hold_stages(st2, "dp=2")
+        wd = max(abs(a - b) for a, b in zip(st2["0"]["losses"],
+                                            one["0"]["losses"]))
+        hd = abs(st2["hogwild"]["losses"][0] - st2["0"]["losses"][0])
+        if wd > TOL_DP_WIDTH or hd > TOL_DP_WIDTH:
+            fail(f"15g: dp=2 off dp=1 by {wd}, hogwild's first loss by {hd}")
+        shrink = [r["stages"]["2"]["opt_state_bytes"]
+                  / r["stages"]["0"]["opt_state_bytes"] for r in two]
+        if not all(0.5 <= s <= 0.5 + 1e-3 for s in shrink):
+            fail(f"15g dp=2: optimizer-state bytes at stage 2 / stage 0 = "
+                 f"{shrink}, not ~1/2")
+        METRICS.reset()
+        tr = DataParallelTrainer(
+            lambda p, x, y, gen=None: ttr.lm_loss_local(p, x, y, cfg),
+            TT.chain(TT.momentum(0.9), TT.sgd_lr(DP_LR)), mesh=mesh,
+            zero_stage=2, device=dev)
+        params, batches = dp_inputs(torch, ttr, cfg, dev, 1 + DP_STEPS + 1)
+        t0 = time.perf_counter()
+        state = tr.restore(tr.init_state(params), CheckpointManager(ckpt))
+        restore_s = time.perf_counter() - t0
+        x, y = batches[(1 + DP_STEPS) % len(batches)]
+        state, lazy = tr.step(state, x, y)
+        next_loss = float(lazy)
+        want = st2["2"]["next_loss"]
+        resharded = METRICS.snapshot()["counters"].get("checkpoint.reshards")
+        if abs(next_loss - want) > TOL_DP_WIDTH or not resharded:
+            fail(f"15g: ZeRO-2 dp=2 checkpoint restored at dp=1 steps to "
+                 f"{next_loss}, dp=2 to {want} (reshards {resharded})")
+        # this process's launches: leg 1 and the restored step, all at
+        # the global batch on one rank
+        launches_one = _counts(wrappers)
+        del tr, state, params, batches
+        torch.cuda.empty_cache()
+        rep["dp2"] = {"stages": st2, "opt_state_shrink": shrink,
+                      "launches_per_rank": [r["launches"] for r in two],
+                      "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in two],
+                      "dp2_vs_dp1_max_loss_diff": wd,
+                      "ckpt_save_s": st2["2"].get("save_s"),
+                      "ckpt_restore_dp1_s": restore_s,
+                      "ckpt_next_loss": [want, next_loss]}
+        print(f"dp=2 gloo: stage 1 bitwise stage 0, 2-3 within "
+              f"{TOL_DP_STAGE}, dp=2 vs "
+              f"dp=1 max |loss diff|={wd:.3g}, opt-state bytes stage2/stage0"
+              f"={[round(s, 5) for s in shrink]}, zero2 checkpoint save_s="
+              f"{st2['2'].get('save_s', 0):.2f} restore at dp=1 s="
+              f"{restore_s:.2f} next loss {next_loss:.5f} vs {want:.5f}, "
+              f"peak_mem_gb={rep['dp2']['peak_mem_gb_per_rank']}", flush=True)
+
+        # ---- 4. the elastic run over four ranks
+        four = spawn_ranks(4, "dp_elastic_job", "15g elastic",
+                           root=str(Path(tmp) / "elastic"), cfg_kw=cfg_kw,
+                           dev=dev)
+        e0 = four[0]
+        win = max(abs(v - e0["ref_losses"][s - 1])
+                  for s, v in e0["losses_by_step"].items())
+        if e0["step"] != DP_ELASTIC_STEPS or e0["mesh_sizes"] != [2, 4] \
+                or not all(r["member"] for r in four) or win > TOL_DP_ELASTIC:
+            fail(f"15g elastic: step {e0['step']}, sizes {e0['mesh_sizes']}, "
+                 f"members {[r['member'] for r in four]}, window {win}")
+        rep["elastic"] = {k: e0[k] for k in (
+            "ref_losses", "losses_by_step", "mesh_sizes", "ref_fit_s",
+            "supervised_fit_s", "rebuild_s", "reshard_s", "restore_s")}
+        rep["elastic"]["window"] = win
+        rep["elastic"]["peak_mem_gb_per_rank"] = [r["peak_mem_gb"]
+                                                  for r in four]
+        print(f"elastic dp 4->2->4 gloo: window={win:.3g} (tol "
+              f"{TOL_DP_ELASTIC}) un-faulted fit s={e0['ref_fit_s']:.2f} "
+              f"supervised fit s={e0['supervised_fit_s']:.2f} rebuild s="
+              f"{e0['rebuild_s']} reshard s={e0['reshard_s']} peak_mem_gb="
+              f"{rep['elastic']['peak_mem_gb_per_rank']}", flush=True)
+    finally:
+        pmesh.shutdown_multihost()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the legs of the kernels line: launches summed over the ranks, at the
+    # rows each rank ran
+    def leg(batch, launches):
+        return {"batch": batch, "seq": DP_SEQ, "causal": cfg.causal,
+                "launches": launches}
+
+    names = [w.__name__ for w in wrappers]
+    legs = [leg(DP_BATCH, launches_one)]
+    legs.append(leg(DP_BATCH // 2, {k: sum(r["launches"].get(k, 0)
+                                          for r in two) for k in names}))
+    for width in (4, 2):
+        legs.append(leg(DP_BATCH // width, {k: sum(
+            r["launches_by_width"].get(width, {}).get(k, 0) for r in four)
+            for k in names}))
+    total = {k: sum(lg["launches"][k] for lg in legs) for k in names}
+    for k in ("flash_attention", "fused_residual_layernorm",
+              "blocked_cross_entropy"):
+        if expect_launches and total[k] <= 0:
+            fail(f"15g: {k} was not launched: {total}")
+    rep["legs"] = legs
+    rep["launches"] = total
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"data parallel: {card} | phase_s={rep['phase_s']:.1f} "
+          f"launches={total}", flush=True)
+    return rep
+
+
 def print_ptxas(usage) -> None:
     """Registers, spills and static shared memory of the bf16 kernels,
     from the builds' ``ptxas -v`` reports (every kernel's are in the
@@ -4482,12 +5067,13 @@ def main() -> int:
           flush=True)
     del engine_b
 
-    # ---- 5a. engine F: B's config on fp8 pages, on A's prompts (so the
-    # disaggregated fp8 leg below has a unified engine to equal)
+    # ---- 5a. engine F: B's config on fp8 pages, on A's first 8 prompts
+    # (so the disaggregated fp8 leg below has a unified engine to equal;
+    # not all 16: the script's time limit)
     cfg_f = eng.ServingConfig(slots=8, paged=True, page_size=16,
                               int8_decode=True, kv_quant="fp8",
                               paged_attention_impl="pallas_int8")
-    engine_f, rep_f = run_engine(eng, tmodel, params, cfg_f, prompts_a,
+    engine_f, rep_f = run_engine(eng, tmodel, params, cfg_f, prompts_a[:8],
                                  wrappers, "engine F")
     engine_f.stop()
     del engine_f
@@ -4501,10 +5087,13 @@ def main() -> int:
           flush=True)
 
     # ---- 5a'. the disaggregated tier: one prefill-role and one
-    # decode-role engine behind DisaggScheduler, A's prompts, on float
-    # pages (held to engine A's tokens) and on fp8 pages (engine F's)
-    disagg = {label: run_disagg(eng, serving, tmodel, params, prompts_a,
-                                want["served"], label, extra, wrappers, rng)
+    # decode-role engine behind DisaggScheduler, A's first 8 prompts (the
+    # script's time limit; a request's tokens do not depend on the rest
+    # of the batch), on float pages (held to engine A's tokens) and on
+    # fp8 pages (engine F's)
+    disagg = {label: run_disagg(eng, serving, tmodel, params, prompts_a[:8],
+                                want["served"][:8], label, extra, wrappers,
+                                rng)
               for label, extra, want in (
                   ("float", dict(paged_attention_impl="pallas"), rep_a),
                   ("fp8", dict(kv_quant="fp8",
@@ -4601,6 +5190,12 @@ def main() -> int:
     trees = run_trees(torch, wrappers, card)
     embed = run_embed_plot(torch, wrappers, card, w2v, topic_words)
     del w2v
+    torch.cuda.empty_cache()
+
+    # ---- 8i. the data-parallel tier at leg A's width: one rank over
+    # NCCL here, two and four ranks over gloo on the card (the ZeRO
+    # stages, hogwild, a checkpoint across widths, elastic shrink/grow)
+    dp = run_data_parallel(torch, wrappers, card)
 
     # ---- 9. one line per kernel: its numbers weighted by this run's
     # launches at each main-path shape, and every shape measured
@@ -4609,7 +5204,7 @@ def main() -> int:
                 prefix["float"]["cache"], prefix["int8"]["cache"], beam,
                 router, ckpt["serve"], ckpt["reload"], online["serve"]],
         [leg_a, leg_b, sample["bfloat16"], scorer, ckpt["leg"],
-         online["leg"], dl4j_leg],
+         online["leg"], dl4j_leg] + dp["legs"],
         mcfg, rates)
     if args.report:
         path = Path(args.report)
@@ -4627,7 +5222,7 @@ def main() -> int:
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},
             "checkpoints": ckpt, "dl4j": dl4j, "resnet": resnet,
             "lstm": lstm, "text": text, "trees": trees, "embed": embed,
-            "kernels": kernels}, indent=1))
+            "data_parallel": dp, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ Port of ``deeplearning4j_tpu/__main__.py``:
 - ``evaluate`` — load a saved model (either package's file), evaluate on a
                  named dataset.
 - ``scaleout``, ``dryrun``, ``provision`` parse as in the reference and
-  exit naming ``ROADMAP.md`` A10: the multi-device runtime is not ported.
+  exit naming their ``ROADMAP.md`` item: the sharding dryrun is A10.2
+  (the model-parallel axes), scaleout and provisioning A10.3 (the host
+  control plane).
 
 ``--platform`` (before the command or after it) is the torch device and
 defaults to ``cuda``: without a card the run raises, it never falls back
@@ -84,10 +86,11 @@ def _cmd_evaluate(args) -> int:
 
 
 def _not_ported(args) -> int:
+    item = "A10.2" if args.command == "dryrun" else "A10.3"
     raise SystemExit(
         f"python -m deeplearning4j_tpu_torch {args.command}: the multi-device "
         "runtime (scaleout, the sharding dryrun, provisioning) is not ported "
-        "yet (ROADMAP.md A10); use the JAX package's CLI")
+        f"yet (ROADMAP.md {item}); use the JAX package's CLI")
 
 
 def main(argv=None) -> int:
@@ -118,7 +121,7 @@ def main(argv=None) -> int:
     e.set_defaults(fn=_cmd_evaluate)
 
     s = sub.add_parser("scaleout", help="multi-process scaleout runtime "
-                                        "(not ported: ROADMAP.md A10)")
+                                        "(not ported: ROADMAP.md A10.3)")
     s.add_argument("-t", "--type", choices=("master", "worker", "kill"),
                    default="master")
     s.add_argument("--state-dir", required=True)
@@ -133,13 +136,13 @@ def main(argv=None) -> int:
     s.set_defaults(fn=_not_ported)
 
     d = sub.add_parser("dryrun", help="multi-chip sharding dryrun "
-                                      "(not ported: ROADMAP.md A10)")
+                                      "(not ported: ROADMAP.md A10.2)")
     d.add_argument("--devices", type=int, default=8)
     d.set_defaults(fn=_not_ported)
 
     p = sub.add_parser("provision",
                        help="render or execute a pod-slice bring-up "
-                            "(not ported: ROADMAP.md A10)")
+                            "(not ported: ROADMAP.md A10.3)")
     p.add_argument("--name", default="dl4j-tpu-slice")
     p.add_argument("--accelerator-type", default="v5litepod-64")
     p.add_argument("--zone", default="us-west4-a")

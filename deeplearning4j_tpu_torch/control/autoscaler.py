@@ -268,9 +268,9 @@ def router_actuators(router, replica_factory,
 def wave_actuators(runner):
     """``(scale_up, scale_down, pool_size)`` over an elastic training
     runner (``register_worker`` / ``retire_worker``).  The elastic runner
-    is multi-device work not ported to deeplearning4j_tpu_torch yet, so
-    this raises (``ROADMAP.md`` A10)."""
+    is the host control plane's (the scaleout waves), not ported to
+    deeplearning4j_tpu_torch yet, so this raises (``ROADMAP.md`` A10.3)."""
     raise NotImplementedError(
         "wave_actuators: the elastic training runner (register_worker / "
         "retire_worker) is not ported to deeplearning4j_tpu_torch yet "
-        "(ROADMAP.md A10)")
+        "(ROADMAP.md A10.3)")

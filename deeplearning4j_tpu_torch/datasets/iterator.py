@@ -365,14 +365,26 @@ class _Stager:
     """Copies batches onto ``device``: through pinned memory and a side
     stream on a GPU, directly on the CPU."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, sharding=None):
         self.device = device
+        self.sharding = sharding
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
+
+    def _rows(self, x):
+        """This rank's block of ``x`` under the sharding (0-d leaves pass
+        whole)."""
+        from ..parallel.mesh import local_block
+
+        if self.sharding is None or x.ndim == 0:
+            return x
+        return local_block(x, self.sharding)
 
     def stage(self, batch):
         """``(batch on the device, the copies' event or None, the copied
         tensors)``."""
+        if self.sharding is not None:
+            batch = _map(batch, self._rows)
         if self.stream is None:
             return _map(batch, lambda x: torch.as_tensor(x).to(
                 self.device)), None, []
@@ -513,13 +525,10 @@ def prefetch_to_device(iterable, size: int = 2, sharding=None,
     With ``host_thread=True`` a daemon worker also produces the batches
     (generator work: parsing, padding) ahead of the consumer, and the
     result has ``close()`` for deterministic shutdown.  ``sharding`` (a
-    placement over a mesh) comes with the multi-device port (``ROADMAP.md``
-    A10) and raises."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "prefetch_to_device(sharding=...): meshes are not ported to "
-            "deeplearning4j_tpu_torch yet (ROADMAP.md A10)")
-    stager = _Stager(resolve_device(device))
+    ``parallel.mesh.NamedSharding``, as the trainer's batch placement)
+    stages only this rank's block of each array (its rows of the global
+    batch, under ``P('dp')``), each rank of the mesh its own."""
+    stager = _Stager(resolve_device(device), sharding)
     if host_thread:
         return _ThreadedPrefetch(iterable, size, stager)
 

@@ -1,7 +1,9 @@
-"""Transformer LM — the flagship model: training and decoding on one device.
+"""Transformer LM — the flagship model: training (one device, or data
+parallel over a mesh) and decoding.
 
-Port of ``deeplearning4j_tpu/models/transformer.py`` without its mesh:
-config and parameters; the training forward (``_block`` with the ring /
+Port of ``deeplearning4j_tpu/models/transformer.py``: config and
+parameters (and their ``param_specs``); the training forward (``_block``
+with the ring /
 flash / fused attention and the fused residual+LayerNorm seam,
 ``encode_local``, ``forward_local``) and losses (``lm_head_loss`` with its
 full, chunked and blocked routes, ``lm_loss_local``, the classifier head);
@@ -14,8 +16,13 @@ keeps the JAX package's names and layouts (``wqkv`` ``(D, 3, H, Dh)`` or
 ``wq``/``wkv`` under GQA, ``wo`` ``(H, Dh, D)``, ``w1/b1/w2/b2``, tied
 ``tok_embed``, ``pos_embed``, ``final_ln_*``), so moving parameters
 between the packages is a key-by-key numpy copy (``models.convert``).
-Sequence and tensor parallel axes (``n_sp > 1``, ``tp_axis``) and a mesh
-raise ``NotImplementedError``: they come with the multi-device port.
+``TransformerLM(cfg, mesh)`` trains over a dp-only mesh
+(``parallel.mesh``): every rank runs the step on its rows of the global
+batch, and the gradients cross in one all-reduce — or, with
+``zero1=True``, a reduce-scatter into each rank's chunk of the optimizer
+state and an all-gather of the updated params.  Sequence and tensor
+parallel axes (``n_sp > 1``, ``tp_axis``) raise ``NotImplementedError``:
+they come with the model-parallel port (``ROADMAP.md`` A10.2).
 
 Numerics mirror the JAX package: matmuls in ``cfg.dtype``, attention
 scores, softmax and LayerNorm in f32.  Caches and page pools are updated
@@ -40,7 +47,7 @@ from ..ops.cuda import kv_quant, registry
 from ..ops.cuda.layernorm import fused_residual_layernorm
 from ..ops.cuda.matmul_int8 import int8_matmul
 from ..optimize import transforms as tx_mod
-from ..utils.tree_math import tree_leaves, tree_unflatten
+from ..utils.tree_math import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,10 +235,12 @@ _DEFAULT_KERNELS = TrainKernels()
 def _no_axes(n_sp: int = 1, sp_axis=None, tp_axis=None) -> None:
     if n_sp != 1 or sp_axis is not None:
         raise NotImplementedError("sequence parallelism (n_sp > 1) comes "
-                                  "with the multi-device port")
+                                  "with the model-parallel port "
+                                  "(ROADMAP.md A10.2)")
     if tp_axis is not None:
         raise NotImplementedError("tensor parallelism (tp_axis) comes with "
-                                  "the multi-device port")
+                                  "the model-parallel port (ROADMAP.md "
+                                  "A10.2)")
 
 
 def _attend_block(q, k, v, q_pos, k_pos, causal, acc, m, l):
@@ -412,6 +421,36 @@ def init_cls_head(gen: torch.Generator, cfg: TransformerConfig,
                                                   dtype=cfg.param_dtype),
             "b_cls": torch.zeros((n_classes,), dtype=cfg.param_dtype,
                                  device=dev)}
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """PartitionSpecs per leaf: heads and the FFN hidden dim over tp, the
+    rest replicated (over a dp-only mesh every one is replicated)."""
+    from ..parallel.mesh import TP, P
+
+    layer = {
+        "ln1_scale": P(), "ln1_bias": P(),
+        **({"wqkv": P(None, None, TP, None)} if cfg.kv_heads == cfg.n_heads
+           else {"wq": P(), "wkv": P()}),
+        "wo": P(TP, None, None),
+        "ln2_scale": P(), "ln2_bias": P(),
+        "w1": P(None, TP), "b1": P(TP),
+        "w2": P(TP, None), "b2": P(),
+    }
+    specs = {
+        "tok_embed": P(), "pos_embed": P(),
+        "final_ln_scale": P(), "final_ln_bias": P(),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P()
+    return specs
+
+
+def cls_head_specs():
+    from ..parallel.mesh import P
+
+    return {"w_cls": P(), "b_cls": P()}
 
 
 def cls_loss_local(params, head, tokens, labels, cfg: TransformerConfig, *,
@@ -808,17 +847,45 @@ def sample_token(logits: torch.Tensor, temperature: float,
 
 # --------------------------------------------------------------------------- model facade
 
-class TransformerLM:
-    """The flagship LM on one device: training steps and decoding.
+def _map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree`` and a spec tree of its structure
+    (a spec is a leaf, not a node)."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_specs(fn, x, specs[i])
+                          for i, x in enumerate(tree))
+    return fn(tree, specs)
 
-    ``mesh`` must be None: the sharded train step and ZeRO-1 come with the
-    multi-device port (``ROADMAP.md`` A10)."""
+
+def _pmean_tree(grads, clv, axis):
+    """Mean over ``axis`` of every leaf, in one all-reduce of the leaves
+    packed (f32) into one buffer."""
+    leaves = tree_leaves(grads)
+    flat = torch.cat([g.reshape(-1).float() for g in leaves])
+    flat = clv.pmean(flat, axis)
+    out, off = [], 0
+    for g in leaves:
+        out.append(flat[off:off + g.numel()].reshape(g.shape).to(g.dtype))
+        off += g.numel()
+    return tree_unflatten(grads, out)
+
+
+class TransformerLM:
+    """The flagship LM: training steps (on one device, or data parallel
+    over the ranks of a dp-only ``parallel.mesh.Mesh``) and decoding.
+
+    With a mesh every rank builds the same steps and calls them with the
+    same GLOBAL batch; each rank computes on its rows (``place`` with
+    ``P('dp')``), the loss is the mean over the ranks' local means and
+    the gradients are averaged over dp.  ``zero1=True`` (with
+    ``init_opt_zero1``) shards the optimizer state: each rank holds its
+    ``(1, ceil(size / n_dp))`` chunk of every state leaf.  Sequence and
+    tensor parallel axes are not ported (``ROADMAP.md`` A10.2)."""
 
     def __init__(self, cfg: TransformerConfig, mesh=None, *, device=None):
-        if mesh is not None:
-            raise NotImplementedError("a mesh (sharded training) comes with "
-                                      "the multi-device port")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
 
     def init(self, gen: torch.Generator | None = None) -> dict:
@@ -855,50 +922,230 @@ class TransformerLM:
         leaves here)."""
         return None
 
-    def init_opt(self, params, tx=None, lr: float = 1e-3):
+    # -- the mesh -------------------------------------------------------
+    def _axes(self):
+        """``(n_dp, n_sp, n_tp)`` of the mesh (1s without one)."""
+        if self.mesh is None:
+            return 1, 1, 1
+        from ..parallel.mesh import DP, SP, TP
+
+        s = self.mesh.shape
+        return s.get(DP, 1), s.get(SP, 1), s.get(TP, 1)
+
+    def _is_finetune_tree(self, tree):
+        return isinstance(tree, dict) and set(tree.keys()) == {"backbone",
+                                                                "head"}
+
+    def _specs(self):
+        """Param-tree PartitionSpecs for this model's layout."""
+        return param_specs(self.cfg)
+
+    def finetune_specs(self):
+        return {"backbone": self._specs(), "head": cls_head_specs()}
+
+    def place(self, tree, specs=None):
+        """This rank's part of each leaf of ``tree`` per ``specs``
+        (default ``param_specs``), on the model's device: a replicated
+        leaf whole, a ``P('dp', ...)`` leaf its dp block (the rank-level
+        ``device_put`` of the reference's ``place``).  Without a mesh,
+        ``tree`` unchanged."""
+        if self.mesh is None:
+            return tree
+        from ..parallel.mesh import NamedSharding, local_block
+
+        specs = specs if specs is not None else self._specs()
+
+        def put(x, spec):
+            if not (torch.is_tensor(x) or isinstance(x, np.ndarray)):
+                return x
+            x = local_block(x, NamedSharding(self.mesh, spec))
+            return torch.as_tensor(x).to(self.device)
+
+        return _map_specs(put, tree, specs)
+
+    def init_opt(self, params, tx=None, lr: float = 1e-3, specs=None):
         """Optimizer state ``(step_count, tx_state)`` for the steps below,
         for the plain tree and the ``{"backbone", "head"}`` finetune tree
-        alike; ``step_count`` is a Python int."""
+        alike; ``step_count`` is a Python int.  Over a mesh the state is
+        placed with the transform's state specs (``specs``: the params',
+        inferred by default) — replicated over a dp-only mesh."""
         tx = tx if tx is not None else self._default_tx(lr)
-        return 0, tx.init(params)
+        state = (0, tx.init(params))
+        if self.mesh is None:
+            return state
+        if specs is None:
+            specs = (self.finetune_specs() if self._is_finetune_tree(params)
+                     else self._specs())
+        return self.place(state, self.opt_specs(tx, specs))
 
-    def _build_step(self, tx, loss_of):
+    def opt_specs(self, tx, params_specs=None):
+        from ..parallel.mesh import P
+
+        ps = params_specs if params_specs is not None else self._specs()
+        spec_fn = tx.state_spec or (lambda _: ())
+        return (P(), spec_fn(ps))
+
+    # -- ZeRO-1 weight-update sharding over dp --------------------------
+    #
+    # Each rank owns 1/n_dp of every parameter: gradients reduce-scatter
+    # over dp, the transform updates only the local chunk (optimizer
+    # memory / n_dp) and the updated params all-gather back.  A state
+    # leaf is globally (1, n_dp * chunk) placed P(None, DP), so a rank
+    # holds (1, chunk).
+
+    @staticmethod
+    def _z1_chunk(size: int, n_dp: int) -> int:
+        return -(-size // n_dp)
+
+    def init_opt_zero1(self, params, tx, specs=None):
+        """Optimizer state with the ZeRO-1 layout for
+        ``build_train_step(..., zero1=True)``: every stateful-transform
+        leaf holds only this rank's chunk, ``(1, ceil(size / n_dp))``."""
+        assert self.mesh is not None, "zero1 requires a mesh"
+        n_dp = self._axes()[0]
+        tmpl = tree_map(lambda p: torch.zeros(
+            (1, self._z1_chunk(p.numel(), n_dp)), dtype=p.dtype,
+            device=self.device), params)
+        return 0, tx.init(tmpl)
+
+    def opt_specs_zero1(self, tx, params_specs=None, params=None):
+        """Placement specs of a ZeRO-1 ``(count, tx_state)`` tree (every
+        state leaf ``P(None, 'dp')``) — with ``place``, the restore
+        counterpart of ``init_opt_zero1``: restore the global host arrays,
+        then ``place(opt, model.opt_specs_zero1(tx))``."""
+        from ..parallel.mesh import DP, P
+
+        if params_specs is None:
+            params_specs = (self.finetune_specs()
+                            if params is not None
+                            and self._is_finetune_tree(params)
+                            else self._specs())
+        spec_fn = tx.state_spec or (lambda _: ())
+        return (P(), spec_fn(tree_map(lambda _: P(None, DP), params_specs)))
+
+    def _z1_scatter_gather(self):
+        """(grads -> this rank's chunks, params -> this rank's chunks,
+        updated chunks -> full params) over the mesh's dp axis."""
+        from ..parallel import collectives as clv
+        from ..parallel.mesh import DP
+
+        n_dp = self._axes()[0]
+        my = self.mesh.axis_index(DP)
+
+        def padded(x):
+            flat = x.reshape(-1)
+            k = self._z1_chunk(flat.numel(), n_dp)
+            return F.pad(flat, (0, n_dp * k - flat.numel())), k
+
+        def scatter(g):
+            flat, _ = padded(g.float())
+            return clv.reduce_scatter(flat, DP) / n_dp
+
+        def pslice(p):
+            flat, k = padded(p)
+            return flat[my * k:(my + 1) * k]
+
+        def gather(chunk, p):
+            full = clv.all_gather(chunk, DP, tiled=True)
+            return full[:p.numel()].reshape(p.shape).to(p.dtype)
+
+        return scatter, pslice, gather
+
+    def _build_step(self, tx, loss_of, zero1: bool = False):
         """``step(tree, opt, *data) -> (tree, opt, loss)``: value and
         gradient of ``loss_of(tree, *data)``, the transform chain (weight
         decay on the leaves ``_decay_mask`` names), then
         ``apply_updates``.  Functional: the returned tree and state are new
         tensors and the caller's are not modified (nor marked as requiring
-        grad).  ``loss`` is a 0-d tensor on the device (no host sync)."""
+        grad).  ``loss`` is a 0-d tensor on the device (no host sync).
+
+        Over a mesh the data are the GLOBAL batch and each rank takes its
+        rows (a rank outside the mesh returns ``tree`` and ``opt`` as they
+        are, and a NaN loss); the loss and the gradients are averaged over
+        dp (the
+        gradients in one packed all-reduce), or with ``zero1`` the
+        gradients reduce-scatter into this rank's chunks, the transform
+        updates them against its ZeRO-1 state, and the params
+        all-gather.  Over a one-rank mesh in a process group these still
+        run (through the backend), and ``zero1`` holds one chunk: the
+        whole flat leaf (the reference asserts dp > 1 instead)."""
+        mesh = self.mesh
+        if zero1:
+            assert mesh is not None, "zero1 needs a mesh to shard state over"
+        # without a process group a mesh has one rank: the plain step
+        plain = mesh is None or (mesh.group is None and not zero1)
+        if mesh is not None:
+            from ..parallel import collectives as clv
+            from ..parallel.mesh import DP, NamedSharding, P, local_block
+            rows = NamedSharding(mesh, P(DP))
 
         def step(tree, opt, *data):
             count, tx_state = opt
+            if mesh is not None:
+                if not mesh.member:
+                    # a rank outside the mesh takes no part: it returns
+                    # its state as it is, and no loss
+                    return tree, opt, torch.full((), float("nan"))
+                data = tuple(local_block(d, rows) for d in data)
             leaves = [p.detach().requires_grad_(True)
                       for p in tree_leaves(tree)]
             live = tree_unflatten(tree, leaves)
             loss = loss_of(live, *data)
             grads = tree_unflatten(tree, torch.autograd.grad(
                 loss, leaves, allow_unused=True, materialize_grads=True))
+            loss = loss.detach()
             with torch.no_grad():
                 frozen = tree_unflatten(tree, [p.detach() for p in leaves])
-                with tx_mod.decay_mask_override(self._decay_mask(frozen)):
-                    updates, tx_state = tx.update(grads, tx_state, frozen,
-                                                  count)
-                new_tree = tx_mod.apply_updates(frozen, updates)
-            return new_tree, (count + 1, tx_state), loss.detach()
+                if plain:
+                    with tx_mod.decay_mask_override(self._decay_mask(frozen)):
+                        updates, tx_state = tx.update(grads, tx_state, frozen,
+                                                      count)
+                    new_tree = tx_mod.apply_updates(frozen, updates)
+                    return new_tree, (count + 1, tx_state), loss
+                with mesh:
+                    loss = clv.pmean(loss, DP)
+                    if not zero1:
+                        grads = _pmean_tree(grads, clv, DP)
+                        with tx_mod.decay_mask_override(
+                                self._decay_mask(frozen)):
+                            updates, tx_state = tx.update(grads, tx_state,
+                                                          frozen, count)
+                        new_tree = tx_mod.apply_updates(frozen, updates)
+                        return new_tree, (count + 1, tx_state), loss
+                    scatter, pslice, gather = self._z1_scatter_gather()
+                    gch = tree_map(scatter, grads)
+                    pch = tree_map(pslice, frozen)
+                    st = tree_map(lambda v: v[0] if torch.is_tensor(v)
+                                  else v, tx_state)        # (1, k) -> (k,)
+                    # the chunks are 1-D: name the weight-class leaves
+                    # from the natural tree, or ndim >= 2 decays nothing
+                    mask = self._decay_mask(frozen)
+                    if mask is None:
+                        mask = tx_mod.decay_leaf_mask(frozen)
+                    with tx_mod.decay_mask_override(mask):
+                        updates, st = tx.update(gch, st, pch, count)
+                    tx_state = tree_map(lambda v: v[None]
+                                        if torch.is_tensor(v) else v, st)
+                    pch = tx_mod.apply_updates(pch, updates)
+                    new_tree = tree_map(gather, pch, frozen)
+            return new_tree, (count + 1, tx_state), loss
 
         return step
 
-    def build_train_step(self, tx=None, lr: float = 1e-3):
+    def build_train_step(self, tx=None, lr: float = 1e-3,
+                         zero1: bool = False):
         """LM train step over any ``GradientTransform`` (default: SGD with
         momentum): ``step(params, opt, tokens, targets) -> (params, opt,
-        loss)`` with ``opt = (step_count, tx_state)``."""
+        loss)`` with ``opt = (step_count, tx_state)``.  ``zero1=True``
+        shards the optimizer state over dp (pair with
+        ``init_opt_zero1``)."""
         cfg = self.cfg
         tx = tx if tx is not None else self._default_tx(lr)
 
         def loss_of(params, tokens, targets):
             return lm_loss_local(params, tokens, targets, cfg)
 
-        return self._build_step(tx, loss_of)
+        return self._build_step(tx, loss_of, zero1=zero1)
 
     # -- BERT-style sequence-classification fine-tune -------------------
     def init_finetune(self, gen: torch.Generator, n_classes: int,
@@ -909,9 +1156,12 @@ class TransformerLM:
         head = init_cls_head(gen, self.cfg, n_classes, self.device)
         return {"backbone": backbone, "head": head}
 
-    def build_finetune_step(self, tx=None, lr: float = 2e-5):
+    def build_finetune_step(self, tx=None, lr: float = 2e-5,
+                            zero1: bool = False):
         """Classifier fine-tune step: ``step(tree, opt, tokens, labels) ->
-        (tree, opt, loss)`` over ``{"backbone": ..., "head": ...}``."""
+        (tree, opt, loss)`` over ``{"backbone": ..., "head": ...}``.
+        ``zero1=True`` shards the optimizer state over dp (pair with
+        ``init_opt_zero1``)."""
         cfg = self.cfg
         tx = tx if tx is not None else self._default_tx(lr)
 
@@ -919,7 +1169,7 @@ class TransformerLM:
             return cls_loss_local(tree["backbone"], tree["head"], tokens,
                                   labels, cfg)
 
-        return self._build_step(tx, loss_of)
+        return self._build_step(tx, loss_of, zero1=zero1)
 
     def fit(self, params, opt, batches, *, tx=None, lr: float = 1e-3,
             epochs: int = 1, finetune: bool = False,

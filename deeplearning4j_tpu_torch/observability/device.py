@@ -5,9 +5,9 @@ Port of ``deeplearning4j_tpu/observability/device.py``.
 ``torch.cuda.memory_stats`` into the registry; without CUDA it is a no-op
 gauge (``device.memory_stats_supported`` = 0), so instrumented paths call
 it unconditionally.  :func:`sample_state_bytes` gauges the bytes the
-parameter and optimizer-state trees hold on each device, from tensor
-metadata only (no sync, no transfer), at trainer init and after every
-restore.
+parameter and optimizer-state trees hold on each device (each rank, in
+a multi-rank run), from tensor metadata only (no sync, no transfer), at
+trainer init and after every restore.
 """
 
 from __future__ import annotations
@@ -66,17 +66,34 @@ def _bytes_by_device(tree) -> dict[str, int]:
     return out
 
 
+def _rank_key() -> str | None:
+    """This process's global rank, as a device id, when a process group
+    spans several ranks (a rank is the reference's device there)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return str(dist.get_rank())
+    return None
+
+
 def sample_state_bytes(params, tstate,
                        registry: MetricsRegistry = METRICS) -> int:
     """Gauge ``train.params_bytes.device.<dev>`` and
-    ``train.opt_state_bytes.device.<dev>`` (``<dev>`` as ``cuda0``,
-    ``cpu0``); returns the devices reported."""
+    ``train.opt_state_bytes.device.<dev>``; returns the devices reported.
+    ``<dev>`` is the global rank when a process group spans several ranks
+    (each rank gauges what it holds: its chunks under ZeRO, the ~1/ndp
+    shrink), else the device (``cuda0``, ``cpu0``)."""
     if not core.enabled():
         return 0
+    rank = _rank_key()
     seen: set[str] = set()
     for name, tree in (("train.params_bytes", params),
                        ("train.opt_state_bytes", tstate)):
-        for dev, nbytes in _bytes_by_device(tree).items():
+        by_dev = _bytes_by_device(tree)
+        if rank is not None:
+            by_dev = {rank: sum(by_dev.values())}
+        for dev, nbytes in by_dev.items():
             registry.gauge(f"{name}.device.{dev}", float(nbytes))
             seen.add(dev)
     return len(seen)

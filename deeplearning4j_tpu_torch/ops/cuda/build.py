@@ -8,7 +8,8 @@ takes seconds)::
          -Xcompiler -fPIC -Xptxas -v -o <build>/lib<name>-<hash>.so csrc/<name>.cu
 
 The build runs at first use into ``deeplearning4j_tpu_torch/_build/``
-(listed in ``.gitignore``; ``DL4J_TORCH_BUILD_DIR`` moves it).  The file
+(listed in ``.gitignore``; ``DL4J_TORCH_BUILD_DIR`` moves it, and so does
+``parallel.setup_compile_cache``).  The file
 name carries a hash of the source and the shared ``*.cuh`` headers, so an
 edited source is rebuilt rather
 than served stale.  :func:`build_all` starts one ``nvcc`` per source at
@@ -45,7 +46,20 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+#: the directory ``parallel.setup_compile_cache`` chose (None: the default)
+_dir_override: Path | None = None
+
+
+def set_build_dir(path) -> None:
+    """Build into ``path`` from now on (None: back to the default); a
+    library already loaded stays loaded."""
+    global _dir_override
+    _dir_override = Path(path) if path is not None else None
+
+
 def build_dir() -> Path:
+    if _dir_override is not None:
+        return _dir_override
     env = os.environ.get("DL4J_TORCH_BUILD_DIR")
     return Path(env) if env else Path(__file__).resolve().parents[2] / "_build"
 

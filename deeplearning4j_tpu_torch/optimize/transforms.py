@@ -12,9 +12,11 @@ runs as ``torch._foreach_*`` calls over all leaves at once.
 
 Schedules are plain Python callables ``step -> lr`` evaluated in float32
 arithmetic (numpy scalars), as the reference's jnp schedules evaluate
-them; the step count of the trainers is a Python int.  Sharded state
-placement (``state_spec``, ``state_shardings``, ``init_sharded``) waits
-for the multi-device port.
+them; the step count of the trainers is a Python int.  A stateful
+transform declares ``state_spec`` (param specs -> state specs, the
+structure ``init`` returns), which ``state_shardings`` and
+``init_sharded`` use to place optimizer state as the ZeRO trainer's flat
+param chunks are placed: each rank materializes its chunk only.
 """
 
 from __future__ import annotations
@@ -37,6 +39,12 @@ class GradientTransform(NamedTuple):
     init: Callable[[Any], Any]           # params -> state
     update: Callable[[Any, Any, Any, Any], tuple[Any, Any]]
     # (grads, state, params, iteration) -> (new_grads, new_state)
+    state_spec: Callable[[Any], Any] | None = None
+    # param specs -> state specs (init's structure); None: no state
+
+
+def _empty_spec(param_specs):
+    return ()
 
 
 # --------------------------------------------------------------------- decay mask
@@ -71,6 +79,41 @@ def decay_leaf_mask(params):
     return tree_map(lambda w: w.dim() >= 2, params)
 
 
+def state_shardings(transform: GradientTransform, params, leaf_spec, mesh):
+    """``NamedSharding`` tree for ``transform.init(params)``, from
+    ``state_spec`` with every param leaf placed as ``leaf_spec`` (the ZeRO
+    trainer hands the FLATTENED params and ``P('dp')``).  Raises when the
+    spec tree and the state disagree in leaf count (a stateful transform
+    in the chain without its ``state_spec``)."""
+    from ..parallel.mesh import NamedSharding
+
+    param_specs = tree_map(lambda _: leaf_spec, params)
+    specs = (transform.state_spec or _empty_spec)(param_specs)
+    state = transform.init(tree_map(
+        lambda p: torch.empty(tuple(p.shape), dtype=p.dtype, device="meta"),
+        params))
+    spec_leaves = tree_leaves(specs)
+    if len(spec_leaves) != len(tree_leaves(state)):
+        raise ValueError(
+            f"state_spec produced {len(spec_leaves)} leaf specs for a state "
+            f"with {len(tree_leaves(state))} leaves — a stateful transform "
+            "in the chain is missing (or mis-declaring) its state_spec")
+    return tree_unflatten(state, [NamedSharding(mesh, s)
+                                  for s in spec_leaves])
+
+
+def init_sharded(transform: GradientTransform, params, leaf_spec, mesh):
+    """``transform.init`` over this rank's blocks of ``params`` placed as
+    ``leaf_spec``: every state leaf is born rank-local (no full-size
+    state on any rank), in the placement ``state_shardings`` derives."""
+    from ..parallel.mesh import NamedSharding, local_block
+
+    state_shardings(transform, params, leaf_spec, mesh)   # the contract
+    sharding = NamedSharding(mesh, leaf_spec)
+    return transform.init(tree_map(lambda p: local_block(p, sharding),
+                                   params))
+
+
 def chain(*transforms: GradientTransform) -> GradientTransform:
     def init(params):
         return tuple(t.init(params) for t in transforms)
@@ -82,7 +125,11 @@ def chain(*transforms: GradientTransform) -> GradientTransform:
             new_state.append(s2)
         return grads, tuple(new_state)
 
-    return GradientTransform(init, update)
+    def state_spec(param_specs):
+        return tuple((t.state_spec or _empty_spec)(param_specs)
+                     for t in transforms)
+
+    return GradientTransform(init, update, state_spec)
 
 
 def identity() -> GradientTransform:
@@ -118,7 +165,7 @@ def adagrad(lr: float, eps: float = 1e-6) -> GradientTransform:
         out = tree_map(lambda g, h: lr * g * torch.rsqrt(h + eps), grads, hist)
         return out, hist
 
-    return GradientTransform(_f32_zeros, update)
+    return GradientTransform(_f32_zeros, update, lambda ps: ps)
 
 
 def sgd_lr(lr: float) -> GradientTransform:
@@ -205,7 +252,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         return (tree_unflatten(grads, out),
                 (tree_unflatten(mu, mu_l), tree_unflatten(nu, nu_l)))
 
-    return GradientTransform(init, update)
+    return GradientTransform(init, update, lambda ps: (ps, ps))
 
 
 def add_decayed_weights(wd: float) -> GradientTransform:
@@ -254,7 +301,7 @@ def momentum(base: float,
             _f32_leaves(grads))
         return tree_unflatten(grads, v), tree_unflatten(vel, v)
 
-    return GradientTransform(_f32_zeros, update)
+    return GradientTransform(_f32_zeros, update, lambda ps: ps)
 
 
 def weight_decay(l2: float) -> GradientTransform:

@@ -38,7 +38,13 @@ Publish is race-free against concurrent readers: every step dir
 materializes inside a unique temp dir (payloads fsync'd, ``meta.json``
 last) and appears under its ``ckpt_*`` name only through one atomic
 ``os.replace``, so ``all_steps()``/``latest_valid_step()`` polled from a
-serving process never list a partially written step.  Same-step
+serving process never list a partially written step.
+
+Several ranks: the trainer gathers what its ranks hold (collective over
+its mesh), then :func:`publish_from_first_rank` has the mesh's first rank
+write while the others wait at a barrier that also carries whether the
+write succeeded, so a failed write fails every rank alike; every rank
+then restores from the same files and keeps its own part.  Same-step
 republish and rotation move the old dir aside (atomic rename to a
 non-``ckpt_`` name) before deleting it.  ``quarantine(step)`` renames a
 published-but-bad step out of the ``ckpt_*`` namespace.
@@ -548,3 +554,33 @@ class CheckpointManager:
             "zero_stage": zero_stage,
             "resharded": resharded,
         }
+
+
+def publish_from_first_rank(manager: CheckpointManager, mesh, step: int,
+                            params, **save_kw) -> Path | None:
+    """``manager.save(step, params, **save_kw)`` on the first rank of
+    ``mesh``; every member then meets the others in one all-reduce of a
+    success flag (the barrier), and all raise if the write failed.
+    Returns the written directory on the writer, else None; a rank
+    outside the mesh does nothing."""
+    if not mesh.member:
+        return None
+    path, err = None, None
+    if mesh.rank == mesh.ranks[0]:
+        try:
+            path = manager.save(step, params, **save_kw)
+        except Exception as e:  # re-raised below, after the barrier
+            err = e
+    if len(mesh.ranks) > 1:
+        from . import collectives as clv
+
+        with mesh:
+            ok = torch.full((), 0.0 if err is not None else 1.0,
+                            device=clv.collective_device())
+            total = int(clv.psum(ok, DP).item())
+        if err is None and total != len(mesh.ranks):
+            raise RuntimeError(f"checkpoint step {step}: the write on rank "
+                               f"{mesh.ranks[0]} failed")
+    if err is not None:
+        raise err
+    return path

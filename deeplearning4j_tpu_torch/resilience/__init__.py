@@ -10,8 +10,8 @@ Three cooperating parts:
   preemption), armed via :func:`inject_faults` or ``DL4J_TPU_FAULTS``.
 - :mod:`.supervisor` — :class:`TrainingSupervisor`: bounded retry with
   backoff + jitter, resume from the newest *valid* checkpoint, NaN/Inf
-  divergence rollback, SIGTERM/SIGINT emergency checkpointing (elastic
-  resize is multi-device work, ``ROADMAP.md`` A10).
+  divergence rollback, SIGTERM/SIGINT emergency checkpointing, elastic
+  shrink and grow over a trainer factory.
 - hardening in the layer underneath: ``parallel/checkpoint.py`` checksum
   verification and restore fallback.
 """

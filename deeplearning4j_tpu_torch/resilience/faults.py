@@ -23,9 +23,10 @@ site                   effect when armed
                        poll returns True (emergency checkpoint + resume)
 ``mesh.shrink``        :class:`DeviceLossError` raised before dispatching a
                        train step (``DataParallelTrainer._dispatch``, via
-                       ``FAULTS.check``); on one device nothing survives,
-                       and the supervisor's resize is multi-device work
-                       (``ROADMAP.md`` A10)
+                       ``FAULTS.check``; ``kind`` = the number of ranks
+                       lost, the mesh's last); every rank raises at the
+                       same step, and the supervisor rebuilds over the
+                       survivors (one device has none)
 ``mesh.grow``          the supervisor's ``should_stop`` poll drains the run
                        (emergency checkpoint) before a resize
 ``checkpoint.reshard`` :class:`TransientStepFault` raised inside a

@@ -20,9 +20,14 @@ recovery policy:
   (injected preemption) or raises :class:`~.faults.TrainingPreempted` so
   the process can exit having lost nothing.
 
-Elastic resize (a trainer factory rebuilding the mesh after a device loss
-or re-admission) is multi-device work: :meth:`TrainingSupervisor._resize`
-raises ``NotImplementedError`` naming ``ROADMAP.md`` A10.
+- **elastic resize**: given a trainer FACTORY, a device loss
+  (:class:`~.faults.DeviceLossError`, the ``mesh.shrink`` site) rebuilds
+  the trainer over the surviving ranks and reshard-resumes from the
+  newest checkpoint, and a ``mesh.grow`` signal drains, then rebuilds
+  over the ranks lost before.  The lost ranks stay alive outside the
+  mesh (spectators that keep the step count), every rank takes the same
+  decisions at the same step, and the ``elastic.*`` gauges and a
+  ``mesh_resize`` flight bundle record each resize.
 
 Every recovery event is counted in the metrics registry
 (``resilience.retries``, ``resilience.rollbacks``,
@@ -49,8 +54,14 @@ from .faults import FAULTS, DeviceLossError, DivergenceError, TrainingPreempted
 
 
 def _devices_of(trainer) -> list:
-    """The devices a trainer runs on (one, until the multi-device port)."""
-    return [trainer.device]
+    """The devices (ranks) of a trainer's mesh, or its one device."""
+    mesh = getattr(trainer, "mesh", None)
+    return list(mesh.devices.flat) if mesh is not None else [trainer.device]
+
+
+def _device_ids(devices) -> list:
+    """JSON-safe device labels for resize bundles."""
+    return [getattr(d, "id", str(d)) for d in devices]
 
 
 def _loss_tail(by_step: dict, n: int = 32) -> dict:
@@ -171,13 +182,33 @@ class TrainingSupervisor:
 
     # ------------------------------------------------------------- elastic
     def _resize(self, factory, old_devices, new_devices, step, direction):
-        """Rebuild the trainer over ``new_devices`` — elastic resize, which
-        needs a mesh over several devices (``ROADMAP.md`` A10)."""
-        raise NotImplementedError(
-            f"elastic {direction} from {len(old_devices)} to "
-            f"{len(new_devices)} device(s) at step {step}: a mesh over "
-            "several devices is not ported to deeplearning4j_tpu_torch yet "
-            "(ROADMAP.md A10)")
+        """Rebuild the trainer over ``new_devices`` (detect -> drain ->
+        reshard -> resume).  Every rank runs this at the same step with
+        the same lists (building the new mesh is collective over the
+        world), then meets the new mesh's ranks at a barrier, so a rank
+        coming back reads the checkpoint the others just drained to.  The
+        rebuild is timed here; the exact state re-split lands in
+        ``elastic.reshard_seconds`` when the next attempt's restore
+        crosses widths."""
+        t0 = time.monotonic()
+        trainer = factory(list(new_devices))
+        barrier = getattr(trainer, "barrier", None)
+        if barrier is not None:
+            barrier()
+        dt = time.monotonic() - t0
+        self.report.resizes += 1
+        self.report.mesh_sizes.append(len(new_devices))
+        METRICS.increment("elastic.mesh_resizes")
+        METRICS.gauge("elastic.mesh_size", len(new_devices))
+        METRICS.gauge("elastic.resizes_total", self.report.resizes)
+        FLIGHTREC.dump("mesh_resize", extra={
+            "direction": direction,
+            "step": int(step) if step is not None else None,
+            "old_devices": _device_ids(old_devices),
+            "new_devices": _device_ids(new_devices),
+            "rebuild_seconds": dt,
+        })
+        return trainer
 
     # ------------------------------------------------------------- generic
     def supervise(self, fn: Callable, *args, **kwargs):
@@ -211,11 +242,11 @@ class TrainingSupervisor:
 
         ``trainer`` may also be a FACTORY ``callable(devices) -> trainer``
         (anything without a ``.fit`` attribute): ``factory(None)`` builds
-        the trainer, and the supervisor would own elasticity — rebuilding
-        over the survivors on :class:`DeviceLossError`, or larger on a
-        ``mesh.grow`` signal.  On one device there are no survivors, and
-        the resize raises ``NotImplementedError`` (``ROADMAP.md`` A10).
-        Without a factory a device loss propagates.
+        the trainer over every rank, and the supervisor owns elasticity —
+        rebuilding over the survivors on :class:`DeviceLossError`, or
+        larger on a ``mesh.grow`` signal (``factory(devices)`` with the
+        new mesh's rank devices).  One device has no survivors, and the
+        loss propagates; without a factory a device loss propagates.
         """
         if self.manager is None:
             raise ValueError("TrainingSupervisor.fit requires a checkpoint_manager")

@@ -40,7 +40,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             "observability/device.py", "resilience/faults.py",
             "resilience/supervisor.py", "parallel/mesh.py",
             "parallel/zero.py", "parallel/checkpoint.py",
-            "parallel/trainer.py", "datasets/dataset.py",
+            "parallel/trainer.py", "parallel/collectives.py",
+            "parallel/compile_cache.py", "parallel/observe.py",
+            "parallel/__init__.py", "datasets/dataset.py",
             "datasets/iterator.py", "datasets/fetchers.py",
             "datasets/mnist_idx.py", "ops/dtypes.py", "ops/rng.py",
             "ops/sampling.py", "ops/activations.py", "ops/linalg.py",

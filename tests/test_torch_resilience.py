@@ -325,8 +325,14 @@ def test_device_loss_propagates_and_resize_waits_for_a_mesh(tmp_path):
             with pytest.raises(DeviceLossError, match="at step 3"):
                 sup.fit(trainer, params, data, epochs=1)
     assert METRICS.snapshot()["counters"]["resilience.device_losses"] == 2
-    with pytest.raises(NotImplementedError, match="A10"):
-        sup._resize(None, ["cuda:0", "cuda:1"], ["cuda:0"], 3, "shrink")
+    # a resize rebuilds through the factory over the new devices (the
+    # multi-rank shrink and grow are in test_torch_elastic.py)
+    built = []
+    trainer = sup._resize(lambda devs: built.append(devs) or _new_trainer(),
+                          ["cuda:0", "cuda:1"], ["cuda:0"], 3, "shrink")
+    assert built == [["cuda:0"]] and trainer.n_dp == 1
+    assert sup.report.resizes == 1 and sup.report.mesh_sizes == [1]
+    assert METRICS.snapshot()["counters"]["elastic.mesh_resizes"] == 1
 
 
 def test_supervise_generic_retry_and_give_up():

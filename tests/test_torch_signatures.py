@@ -76,6 +76,9 @@ MODULES = [
      "deeplearning4j_tpu.parallel.checkpoint"),
     ("deeplearning4j_tpu_torch.parallel.trainer",
      "deeplearning4j_tpu.parallel.trainer"),
+    *[(f"deeplearning4j_tpu_torch.parallel.{m}",
+       f"deeplearning4j_tpu.parallel.{m}")
+      for m in ("collectives", "compile_cache", "observe")],
     ("deeplearning4j_tpu_torch.datasets.dataset",
      "deeplearning4j_tpu.datasets.dataset"),
     ("deeplearning4j_tpu_torch.datasets.iterator",
@@ -161,20 +164,11 @@ ALLOWED = {
     "models.transformer:TransformerLM.__init__": {
         "device": _DEVICE + "; keyword-only",
     },
-    "models.transformer:TransformerLM.build_train_step": {
-        "zero1": "ZeRO-1 over a mesh (-> A5, A10)",
-    },
-    "models.transformer:TransformerLM.build_finetune_step": {
-        "zero1": "ZeRO-1 over a mesh (-> A5, A10)",
-    },
     "models.transformer:TransformerLM.init": {
         "key": _SEED, "gen": _SEED,
     },
     "models.transformer:TransformerLM.init_finetune": {
         "key": _SEED, "gen": _SEED,
-    },
-    "models.transformer:TransformerLM.init_opt": {
-        "specs": "optimizer-state sharding specs (-> A5, A10)",
     },
     "models.transformer:TransformerLM.sample": {
         "key": _SEED, "seed": _SEED,
@@ -196,8 +190,19 @@ ALLOWED = {
         "device": _DEVICE + "; keyword-only",
     },
     "datasets.iterator:prefetch_to_device": {
-        "device": _DEVICE + "; keyword-only (the reference places by "
-                  "`sharding`, which waits for a mesh: -> A10)",
+        "device": _DEVICE + "; keyword-only (`sharding` picks this rank's "
+                  "rows, `device` where they go; kept)",
+    },
+    "parallel.mesh:initialize_multihost": {
+        "backend": "the torch.distributed backend (NCCL or gloo), which "
+                   "JAX's coordination service does not have; "
+                   "keyword-only (kept)",
+        "timeout_s": "how long a collective waits for a peer before the "
+                     "process group fails; keyword-only (kept)",
+    },
+    "parallel.zero:ZeroLayout.place_flat": {
+        "device": "the device the placed chunks go to (a jit's "
+                  "out_shardings carry it in the reference); kept",
     },
     "ops.cuda.matmul_int8:int8_matmul": {
         "block_n": "a Pallas tiling knob; the port's launch plan picks its "
@@ -354,7 +359,13 @@ def test_the_comparison_covers_the_ported_surface():
                  "serving.router.replicas:ProcessReplica.__init__",
                  "serving.batcher:RequestQueue.__init__",
                  "control.autoscaler:Autoscaler.__init__",
-                 "control.overload:BrownoutController.__init__"):
+                 "control.overload:BrownoutController.__init__",
+                 "parallel.mesh:make_mesh", "parallel.mesh:MeshSpec.resolve",
+                 "parallel.collectives:reduce_scatter",
+                 "parallel.zero:ZeroLayout.__init__",
+                 "parallel.compile_cache:setup_compile_cache",
+                 "optimize.transforms:init_sharded",
+                 "models.transformer:TransformerLM.init_opt_zero1"):
         assert must in keys
     assert len(PAIRS) >= 50
     assert set(ALLOWED) <= keys, set(ALLOWED) - keys
@@ -453,3 +464,27 @@ def test_cli_options_match_the_reference():
             continue
         assert p.get(key) == r.get(key), (key, p.get(key), r.get(key))
     assert set(ALLOWED_CLI) <= set(p)
+
+
+#: names the reference's ``parallel`` package exports that the port's
+#: does not: name -> reason (-> ROADMAP.md item)
+PARALLEL_EXPORTS_ALLOWED = {
+    "Driver": "the host control plane's checkpointing driver, with the "
+              "scaleout waves and process runners (-> A10.3)",
+}
+
+
+def test_parallel_exports_match_the_reference():
+    import deeplearning4j_tpu.parallel as ref
+    import deeplearning4j_tpu_torch.parallel as port
+
+    missing = set(ref.__all__) - set(port.__all__)
+    assert missing == set(PARALLEL_EXPORTS_ALLOWED), missing
+    for name in set(ref.__all__) - missing:
+        assert hasattr(port, name), name
+    for name in ("psum", "pmean", "all_gather", "reduce_scatter",
+                 "reduce_scatter_or_psum", "all_gather_or_identity",
+                 "ppermute", "ring_shift", "axis_index", "barrier_sum"):
+        from deeplearning4j_tpu_torch.parallel import collectives
+
+        assert callable(getattr(collectives, name)), name

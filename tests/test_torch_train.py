@@ -371,8 +371,16 @@ def test_sequence_and_tensor_axes_raise():
     with pytest.raises(NotImplementedError):
         ttr._block(tp["layers"][0], torch.zeros((1, 4, 32)), tcfg,
                    tp_axis="tp")
-    with pytest.raises(NotImplementedError):
-        ttr.TransformerLM(tcfg, device=CPU, mesh=object())
+    # a dp-only mesh trains (test_torch_parallel.py); one with an sp or
+    # tp axis wider than 1 raises, naming the model-parallel item
+    from deeplearning4j_tpu_torch.parallel.mesh import (MeshSpec as TSpec,
+                                                        RankDevice,
+                                                        make_mesh as tmake)
+
+    for spec in (TSpec(dp=1, sp=2), TSpec(dp=1, tp=2)):
+        with pytest.raises(NotImplementedError, match="A10.2"):
+            ttr.TransformerLM(tcfg, device=CPU, mesh=tmake(
+                spec, devices=[RankDevice(0), RankDevice(1)]))
 
 
 # ------------------------------------------------------------ train steps

@@ -339,14 +339,30 @@ def test_hot_loop_has_no_host_sync():
 
 
 def test_multi_device_options_raise():
-    for kw in ({"mesh": object()}, {"router": "hogwild"},
-               {"zero_stage": 1}):
+    """Model-parallel axes raise naming their roadmap item; the
+    data-parallel options (hogwild, ZeRO) build over the one-rank mesh
+    (their multi-rank runs are in test_torch_parallel.py); bad options
+    are ValueErrors, as in the reference."""
+    from deeplearning4j_tpu_torch.parallel.mesh import (MeshSpec as TSpec,
+                                                        RankDevice,
+                                                        make_mesh as tmake)
+
+    two = [RankDevice(0), RankDevice(1)]
+    for spec in (TSpec(dp=1, tp=2), TSpec(dp=1, sp=2), TSpec(dp=1, pp=2)):
         with pytest.raises(NotImplementedError, match="A10"):
-            DataParallelTrainer(tloss, TT.sgd_lr(0.1), device=CPU, **kw)
+            tmake(spec, devices=two)
+    with pytest.raises(NotImplementedError, match="A10"):
+        ttr._no_axes(n_sp=2)
+    for kw in ({"router": "hogwild"}, {"zero_stage": 1}):
+        tr = DataParallelTrainer(tloss, TT.sgd_lr(0.1), device=CPU, **kw)
+        assert tr.n_dp == 1 and tr.member
     with pytest.raises(ValueError):
         DataParallelTrainer(tloss, TT.sgd_lr(0.1), router="x", device=CPU)
     with pytest.raises(ValueError):
         DataParallelTrainer(tloss, TT.sgd_lr(0.1), zero_stage=5, device=CPU)
+    with pytest.raises(ValueError, match="hogwild"):
+        DataParallelTrainer(tloss, TT.sgd_lr(0.1), router="hogwild",
+                            zero_stage=2, device=CPU)
 
 
 # --------------------------------------------------------- prefetch_to_device
@@ -370,8 +386,19 @@ def test_prefetch_preserves_order_and_passes_non_arrays(host_thread):
 
 
 def test_prefetch_sharding_waits_for_a_mesh():
-    with pytest.raises(NotImplementedError, match="A10"):
-        prefetch_to_device([], sharding=object(), device=CPU)
+    """``sharding=`` stages this rank's rows; on the one-rank mesh that is
+    every row (the multi-rank split is in test_torch_parallel.py)."""
+    from deeplearning4j_tpu_torch.parallel.mesh import (batch_sharding,
+                                                        local_mesh)
+
+    batches = [(np.full((4, 2), i, np.float32), np.arange(4), i)
+               for i in range(3)]
+    out = list(prefetch_to_device(iter(batches), size=2, device=CPU,
+                                  sharding=batch_sharding(local_mesh())))
+    assert [n for _, _, n in out] == [0, 1, 2]
+    for (a, b, _), (x, y, _) in zip(out, batches):
+        np.testing.assert_array_equal(a.numpy(), x)
+        np.testing.assert_array_equal(b.numpy(), y)
 
 
 def test_prefetch_host_thread_exits_on_exhaustion():
