@@ -51,7 +51,7 @@ paths through the entry points a user calls:
    comparison;
 5b. the disaggregated tier (``run_disagg``): a ``DisaggScheduler`` over
    one ``role="prefill"`` and one ``role="decode"`` engine (A's serving
-   config with the prefix cache) serving A's first 8 prompts on float
+   config with the prefix cache) serving A's first 4 prompts on float
    pages,
    then on fp8 pages: the tokens equal engine A's, then engine F's; a
    129-token prompt served twice (its second migration claims its 8
@@ -67,8 +67,8 @@ paths through the entry points a user calls:
    and float32;
 7. the prefix cache: 8 requests sharing a 128-token system prompt (with
    suffixes of 16-128 tokens, 16 new tokens each) on A's and on B's
-   config with ``prefix_cache=True`` against the same with ``False``:
-   the hit rate, and float pages' tokens equal;
+   config with ``prefix_cache=True`` against the same with ``False`` on
+   the first 4 of them: the hit rate, and float pages' tokens equal;
 8. ``beam_search`` at width 4, 8 tokens, over the int8 serving tree;
 8b. the router phase (``run_router``): 16 requests of 4 tenants (a
    128-token system prompt each) through two engines (A's config with the
@@ -154,7 +154,7 @@ paths through the entry points a user calls:
 15c. the LSTM sequence model (``run_lstm``), ``examples/05``'s flow:
    20 epochs on the card and the CPU from the same parameters (losses
    within ``TOL_LSTM``, ``predict_next``, beams and samples equal),
-   then to 150 epochs on the card, beam search continuing "abc" with
+   then to 110 epochs on the card, beam search continuing "abc" with
    "defg", and 200 sampled tokens (tokens/s);
 15d. the text pipeline (``run_text``): the native host library must
    load; a seeded ~1M-token, ~10k-word Zipfian topic corpus; Word2Vec
@@ -166,12 +166,12 @@ paths through the entry points a user calls:
    card against the CPU within ``TOL_W2V_CARD``; ``examples/08``'s
    svmlight flow (native parse equal to Python's, byte-range splits,
    ``zoo.mlp`` fit from the file on the card against the CPU);
-15e. raw text to a trained RNTN (``run_trees``): 2,000 seeded sentences
+15e. raw text to a trained RNTN (``run_trees``): 1,200 seeded sentences
    of 8-24 tokens over the tagger's sample vocabulary and SentiWordNet's
    seed words, split by ``SentenceAnnotator``, parsed by
    ``TreebankParser`` and binarized on the host (seconds), every node
    labelled with SentiWordNet's judgment as an SST class 0-4;
-   ``RNTN(layer_size=25, n_classes=5, max_nodes=64)`` fit 10 epochs at
+   ``RNTN(layer_size=25, n_classes=5, max_nodes=64)`` fit 4 epochs at
    batch 32 on the card (p50 step, trees/s, the loss falling, root
    accuracy above the majority class), held to the CPU from the same
    parameters (the float32 loss and gradients of a batch, 20 AdaGrad
@@ -205,6 +205,26 @@ paths through the entry points a user calls:
    ``TOL_DP_ELASTIC`` of the un-faulted run (resize and reshard
    seconds).  Each rank's launches of #1/#3/#4 join the kernels line at
    the rows that rank ran;
+15h. the model-parallel axes (``mp_rank_job``, on 15g's four elastic
+   ranks after their run; ``run_model_parallel`` spawns its own for the
+   phase alone) at the flagship's full width, sharing the card over
+   gloo, SGD with
+   momentum, one warm-up and two timed steps a leg: tensor parallel (leg
+   A's config on dp2·tp2, global 16 x 512: ``flash_attention`` on 6
+   local heads), sequence parallel (the causal config with ring
+   attention on sp2·tp2, global 4 x 2048: 1,024 positions a rank) and
+   the GPipe pipeline (``PipelinedTransformerLM`` on leg B's config,
+   pp2·dp2, 4 micro-batches, global 8 x 2048), each held against the
+   same config's one-device step on the same global batch (p50 step ms,
+   tokens/s, the collectives' host ms and bytes a step by axis, the
+   calls staged through host memory, peak memory a rank); the pipeline's
+   ZeRO-1 step against its replicated one, and its ZeRO-1 state saved
+   from the mesh and restored into a one-device ``TransformerLM`` (its
+   next loss held); ``ShardedWord2Vec`` (HS, NS) and ``ShardedGlove``
+   over ep=4 on a seeded topic corpus against the one-device fits,
+   beside ``python -m deeplearning4j_tpu_torch dryrun --devices 8`` (exit
+   0 and the ``dryrun_multichip OK`` line).  #1 at the tp shape has its own
+   case among phase 2's;
 16. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
    0 just before it runs, read just after; #7 has a row per page type,
    ``paged_attention_int8`` and ``paged_attention_fp8``), then the card's
@@ -758,7 +778,9 @@ def torch_isfinite(t) -> bool:
 #: (kernel, B, T, causal): the two training legs' shapes, each leg's own
 #: kernel first; the next two run a kernel at the other leg's shape; then
 #: the full-forward sampler (one row of 2048, causal), the scorer's batch
-#: (32 rows of leg A's 512) and the checkpoint phase's (8 x 512, causal)
+#: (32 rows of leg A's 512) and the checkpoint phase's (8 x 512, causal);
+#: a fifth element is the heads (12 without it): 15h's tp rank attends
+#: over 6 heads of 8 x 512
 ATTN_CASES = (("flash_attention", 64, 512, False),
               ("fused_attention", 8, 2048, True),
               ("flash_attention", 8, 2048, True),
@@ -766,19 +788,23 @@ ATTN_CASES = (("flash_attention", 64, 512, False),
               ("fused_attention", 1, 2048, True),
               ("flash_attention", 32, 512, False),
               ("fused_attention", 8, 512, True),
-              ("flash_attention", 16, 512, False))
+              ("flash_attention", 16, 512, False),
+              ("flash_attention", 8, 512, False, 6))
 
 
 def check_attention(torch, tat, dev, rates, cases, H=12, Dh=64):
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    for name, B, T, causal in ATTN_CASES:
+    heads = H
+    for name, B, T, causal, *h in ATTN_CASES:
+        H = h[0] if h else heads
         frontier = name == "fused_attention"
         # q/k/v as the strided views of packed (B,T,3,H,Dh) projections,
-        # as the train step hands them over; two copies exceed the L2
+        # as the train step hands them over; enough copies to exceed the L2
         packs = [torch.randn((B, T, 3, H, Dh), generator=gen, device=dev)
-                 .to(torch.bfloat16) for _ in range(2)]
+                 .to(torch.bfloat16)
+                 for _ in range(copies_for(B * T * 3 * H * Dh * 2))]
         views = [tuple(p[:, :, i] for i in range(3)) for p in packs]
         q, k, v = views[0]
         ref, ref_lse = tat.reference_flash_fwd(q.float(), k.float(),
@@ -1148,8 +1174,9 @@ def main_path_weights(case, reports, mcfg, legs):
     if name in TRAIN_KERNELS:
         if "T" in case:
             return sum(leg["launches"][name] for leg in legs
-                       if (leg["batch"], leg["seq"], leg["causal"])
-                       == (case["B"], case["T"], case["causal"]))
+                       if (leg["batch"], leg["seq"], leg["causal"],
+                           leg.get("heads", mcfg.n_heads))
+                       == (case["B"], case["T"], case["causal"], case["H"]))
         # rows alone do not tell an LM's xent from the DBN head's (both
         # 8192 rows): a leg off the LM names its vocabulary
         lm = mcfg.vocab_size
@@ -1479,13 +1506,19 @@ def window_vs_steps(torch, ttr, tmm, tpa, mcfg, params, dev="cuda", B=8,
 #: the prefix-cache phase: 16 requests share a 128-token system prompt,
 #: each with a suffix of 16-128 tokens, 16 new tokens each
 PREFIX_SYSTEM, PREFIX_SUFFIX, PREFIX_NEW = 128, (16, 128), 16
+#: the uncached baseline engines serve the first 4 of the phase's
+#: requests (a request's tokens do not depend on its batch): their
+#: token-by-token prefill was ~57 s of the script at 8
+PREFIX_BASELINE = 4
 
 
 def run_prefix(eng, tmodel, params, rng, wrappers, dev="cuda", n_req=16,
                slots=8, page_size=16, system=PREFIX_SYSTEM,
-               suffix=PREFIX_SUFFIX, max_new=PREFIX_NEW):
+               suffix=PREFIX_SUFFIX, max_new=PREFIX_NEW,
+               n_base=PREFIX_BASELINE):
     """The prefix-cache engine on float and on int8 pages against the same
-    engine with ``prefix_cache=False``, on the same prompts.  Float pages:
+    engine with ``prefix_cache=False`` on the first ``n_base`` of the same
+    prompts (a request's tokens do not depend on its batch).  Float pages:
     the hit rate is positive and the tokens are equal (a hit skips
     positions whose K/V it aliases, the same bytes the prefill would
     write).  int8 pages: the hit rate is positive, and the two engines'
@@ -1508,17 +1541,19 @@ def run_prefix(eng, tmodel, params, rng, wrappers, dev="cuda", n_req=16,
             scfg = eng.ServingConfig(slots=slots, paged=True,
                                      page_size=page_size, int8_decode=True,
                                      prefix_cache=cache, **extra)
-            engine, rep = run_engine(eng, tmodel, params, scfg, prompts,
+            engine, rep = run_engine(eng, tmodel, params, scfg,
+                                     prompts if cache else prompts[:n_base],
                                      wrappers, f"prefix {label}", dev=dev,
                                      max_new=max_new)
             engine.stop()
             del engine
             runs[cache] = rep
         hit = runs[True]["prefix"]["prefix_hit_rate"]
-        agree = token_agreement(runs[True]["served"], runs[False]["served"])
+        cached = runs[True]["served"][:n_base]
+        agree = token_agreement(cached, runs[False]["served"])
         if not hit > 0:
             fail(f"prefix {label}: hit rate {hit}")
-        if label == "float" and runs[True]["served"] != runs[False]["served"]:
+        if label == "float" and cached != runs[False]["served"]:
             fail(f"prefix float: tokens differ from prefix_cache=False: "
                  f"{agree}")
         print(engine_line(f"prefix {label} (cache)", runs[True])
@@ -1528,7 +1563,8 @@ def run_prefix(eng, tmodel, params, rng, wrappers, dev="cuda", n_req=16,
         out[label] = {"cache": runs[True], "no_cache": runs[False],
                       "agreement": agree}
         if label == "int8":
-            tf = prefix_teacher_forced(eng, tmodel, params, prompts,
+            tf = prefix_teacher_forced(eng, tmodel, params,
+                                       prompts[:n_base],
                                        runs[False]["served"], extra, dev=dev,
                                        slots=slots, page_size=page_size)
             out[label]["teacher_forced"] = tf
@@ -1536,10 +1572,10 @@ def run_prefix(eng, tmodel, params, rng, wrappers, dev="cuda", n_req=16,
                   flush=True)
             if (tf["top1"] < TOL_TOP1_BF16
                     or not tf["max_err"] <= TOL_LOGITS_BF16
-                    or tf["hits"] != n_req - 1):
+                    or tf["hits"] != n_base - 1):
                 fail(f"prefix int8: teacher-forced {tf} (top1 floor "
                      f"{TOL_TOP1_BF16}, logit tol {TOL_LOGITS_BF16}, "
-                     f"{n_req - 1} hits)")
+                     f"{n_base - 1} hits)")
     return out
 
 
@@ -1597,6 +1633,10 @@ def prefix_teacher_forced(eng, tmodel, params, prompts, served, extra,
 #: first decode query (16 * 8 + 1 tokens), so its second migration can
 #: claim every content page by hash and move no page bytes
 DISAGG_REPEAT_PAGES = 8
+#: the disaggregated tier serves engine A's first 4 prompts on each page
+#: type (8 before phase 15h, ~32 s more; a request's tokens do not
+#: depend on its batch)
+DISAGG_PROMPTS = 4
 
 
 def run_disagg(eng, serving, tmodel, params, prompts, want, label, extra,
@@ -3385,7 +3425,9 @@ TOL_LSTM = 1e-4
 # a small Word2Vec HS fit, card against CPU, every table entry
 TOL_W2V_CARD = 1e-4
 LSTM_TEXT = "abcdefg " * 60
-LSTM_EPOCHS = 150
+#: the card's fit (110 epochs: the CPU's beam first reads "defg" at 100;
+#: 150 before phase 15h, ~18 s more)
+LSTM_EPOCHS = 110
 LSTM_CMP_EPOCHS = 20
 # word2vec's subsampling of frequent words: with none (the reference's
 # default, 0) both packages' batched updates diverge to NaN on a Zipfian
@@ -3886,7 +3928,8 @@ def run_text(torch, wrappers, card, dev="cuda"):
 #: (``text/data/pos_sample.txt``), each slot filled from that corpus's
 #: words of the tag, or in ``TREE_SENTIMENT_RATE`` of the adjective, verb
 #: and adverb slots from SentiWordNet's seed words
-TREE_SENTENCES = 2000
+#: (2,000 before phase 15h: ~17 s more of parse and fit)
+TREE_SENTENCES = 1200
 #: processes parsing them (the host's CKY: 21-26 s in one on an H100's
 #: host, ~40% of the phase)
 TREE_PARSE_WORKERS = 8
@@ -3900,7 +3943,10 @@ TREE_SENTIMENT_WORDS = {
 #: SentiWordNet's judgments as the Stanford Sentiment Treebank's classes
 SST_CLASSES = {"strong_negative": 0, "negative": 1, "neutral": 2,
                "positive": 3, "strong_positive": 4}
-RNTN_EPOCHS = 10
+#: the RNTN's epochs on the card (10 before phase 15h, ~28 s more: the
+#: loss falls most in the first 4, 0.91 -> 0.57 of 0.52 at 10 in the last
+#: whole run with 10)
+RNTN_EPOCHS = 4
 RNTN_BATCH = 32
 #: AdaGrad steps held card against CPU in float64, each from the CPU's
 #: state before it.  Free-running, the RNTN's AdaGrad start is chaotic:
@@ -4509,12 +4555,26 @@ def _peak_gb(torch, dev) -> float:
     return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
+#: a spawned rank's pipe to the parent (``report_progress``)
+_RANK_CONN = None
+
+
+def report_progress(msg) -> None:
+    """From a spawned rank: tell the parent ``msg`` before the job ends
+    (``spawn_ranks``' ``on_progress``)."""
+    if _RANK_CONN is not None:
+        _RANK_CONN.send(("progress", msg))
+
+
 def dp_rank_main(rank, world, store, conn, job, kwargs):
-    """A spawned rank of phase 15g: join the gloo group on ``cuda:0``, run
-    ``job`` and send its result (or the traceback) to the parent; with
-    ``nccl_first``, first ask for NCCL and keep its refusal."""
+    """A spawned rank of phases 15g/15h: join the gloo group on
+    ``cuda:0``, run ``job`` and send its result (or the traceback) to the
+    parent; with ``nccl_first``, first ask for NCCL and keep its
+    refusal."""
     import traceback
 
+    global _RANK_CONN
+    _RANK_CONN = conn
     os.environ.setdefault("OMP_NUM_THREADS", "4")
     try:
         import torch
@@ -4547,9 +4607,10 @@ def dp_rank_main(rank, world, store, conn, job, kwargs):
         conn.send(("err", f"rank {rank}:\n{traceback.format_exc()}"))
 
 
-def spawn_ranks(world, job, label, **kwargs) -> list:
+def spawn_ranks(world, job, label, on_progress=None, **kwargs) -> list:
     """``job`` in ``world`` spawned rank processes sharing one card over
-    gloo; their results in rank order.  Any failure, or a rank not done
+    gloo; their results in rank order (``on_progress(rank, msg)`` takes
+    what a rank reports before it ends).  Any failure, or a rank not done
     within DP_TIMEOUT_S, kills every rank and fails the run."""
     import multiprocessing
 
@@ -4568,14 +4629,21 @@ def spawn_ranks(world, job, label, **kwargs) -> list:
         results, errors = [], []
         try:
             for r, c in enumerate(conns):
-                if not c.poll(max(0.0, deadline - time.monotonic())):
-                    errors.append(f"rank {r} not done in {DP_TIMEOUT_S} s")
-                    break
-                try:
-                    kind, value = c.recv()
-                except EOFError:
-                    kind, value = "err", f"rank {r} died"
+                kind = "progress"
+                while kind == "progress":
+                    if not c.poll(max(0.0, deadline - time.monotonic())):
+                        kind, value = "err", (f"rank {r} not done in "
+                                              f"{DP_TIMEOUT_S} s")
+                        break
+                    try:
+                        kind, value = c.recv()
+                    except EOFError:
+                        kind, value = "err", f"rank {r} died"
+                    if kind == "progress" and on_progress is not None:
+                        on_progress(r, value)
                 (errors if kind == "err" else results).append(value)
+                if kind == "err" and "not done" in value:
+                    break
         finally:
             for p in procs:
                 p.join(timeout=30 if not errors else 1)
@@ -4603,10 +4671,13 @@ def dp_width_job(torch, rank, world, ckpt_dir, cfg_kw=None, dev="cuda"):
             "peak_mem_gb": _peak_gb(torch, dev)}
 
 
-def dp_elastic_job(torch, rank, world, root, cfg_kw=None, dev="cuda"):
+def dp_elastic_job(torch, rank, world, root, cfg_kw=None, dev="cuda",
+                   mp=None):
     """The supervised elastic run over every rank (ZeRO-1; dp 4 -> 2 -> 4
     by DP_ELASTIC_FAULTS) and the un-faulted fit before it; the launches
-    split by the width they ran at (the factory snapshots the counts)."""
+    split by the width they ran at (the factory snapshots the counts).
+    With ``mp`` (``MPRun.job_kwargs``) the same ranks then run phase
+    15h's ``mp_rank_job``, whose result is under "mp"."""
     import glob
 
     from deeplearning4j_tpu_torch.models import transformer as ttr
@@ -4669,16 +4740,22 @@ def dp_elastic_job(torch, rank, world, root, cfg_kw=None, dev="cuda"):
         extra = json.loads(Path(path).read_text()).get("extra", {})
         rebuild.append((extra.get("direction"), extra.get("rebuild_seconds")))
     snap = METRICS.snapshot()
-    return {"step": int(state.step), "ref_losses": ref_losses,
-            "losses_by_step": {int(k): v for k, v in
-                               sup.report.losses_by_step.items()},
-            "mesh_sizes": list(sup.report.mesh_sizes),
-            "member": sup.trainer.member, "ref_fit_s": ref_s,
-            "supervised_fit_s": fit_s, "rebuild_s": rebuild,
-            "reshard_s": snap["gauges"].get("elastic.reshard_seconds"),
-            "restore_s": snap["timers"].get("checkpoint.restore", {}),
-            "launches_by_width": by_width,
-            "peak_mem_gb": _peak_gb(torch, dev)}
+    out = {"step": int(state.step), "ref_losses": ref_losses,
+           "losses_by_step": {int(k): v for k, v in
+                              sup.report.losses_by_step.items()},
+           "mesh_sizes": list(sup.report.mesh_sizes),
+           "member": sup.trainer.member, "ref_fit_s": ref_s,
+           "supervised_fit_s": fit_s, "rebuild_s": rebuild,
+           "reshard_s": snap["gauges"].get("elastic.reshard_seconds"),
+           "restore_s": snap["timers"].get("checkpoint.restore", {}),
+           "launches_by_width": by_width,
+           "peak_mem_gb": _peak_gb(torch, dev)}
+    if mp is not None:
+        del sup, state, data, params
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        out["mp"] = mp_rank_job(torch, rank, world, **mp)
+    return out
 
 
 def dp_hold_stages(rep, label) -> None:
@@ -4696,7 +4773,7 @@ def dp_hold_stages(rep, label) -> None:
 
 
 def run_data_parallel(torch, wrappers, card, dev="cuda", cfg_kw=None,
-                      backend="nccl", expect_launches=True):
+                      backend="nccl", expect_launches=True, mp=None):
     """Phase 15g: the data-parallel tier at leg A's full width.
 
     1. one rank in this process over ``backend`` (NCCL on the card):
@@ -4715,7 +4792,10 @@ def run_data_parallel(torch, wrappers, card, dev="cuda", cfg_kw=None,
        within TOL_DP_ELASTIC of the un-faulted run.
 
     Launches of #1/#3/#4 are counted per rank and returned as legs at the
-    per-rank rows they ran (the kernels line's weights)."""
+    per-rank rows they ran (the kernels line's weights).  With ``mp`` (an
+    ``MPRun``) the four elastic ranks then run phase 15h's legs: their
+    results are under "mp_ranks" and their seconds under "mp_s", not in
+    this phase's."""
     from deeplearning4j_tpu_torch.models import transformer as ttr
     from deeplearning4j_tpu_torch.observability import METRICS
     from deeplearning4j_tpu_torch.optimize import transforms as TT
@@ -4837,9 +4917,14 @@ def run_data_parallel(torch, wrappers, card, dev="cuda", cfg_kw=None,
               f"peak_mem_gb={rep['dp2']['peak_mem_gb_per_rank']}", flush=True)
 
         # ---- 4. the elastic run over four ranks
-        four = spawn_ranks(4, "dp_elastic_job", "15g elastic",
-                           root=str(Path(tmp) / "elastic"), cfg_kw=cfg_kw,
-                           dev=dev)
+        four = spawn_ranks(
+            4, "dp_elastic_job", "15g elastic",
+            on_progress=mp.on_progress if mp is not None else None,
+            root=str(Path(tmp) / "elastic"), cfg_kw=cfg_kw, dev=dev,
+            mp=mp.job_kwargs if mp is not None else None)
+        if mp is not None:
+            rep["mp_ranks"] = [r.pop("mp") for r in four]
+            rep["mp_s"] = rep["mp_ranks"][0]["s"]
         e0 = four[0]
         win = max(abs(v - e0["ref_losses"][s - 1])
                   for s, v in e0["losses_by_step"].items())
@@ -4885,9 +4970,424 @@ def run_data_parallel(torch, wrappers, card, dev="cuda", cfg_kw=None,
             fail(f"15g: {k} was not launched: {total}")
     rep["legs"] = legs
     rep["launches"] = total
-    rep["phase_s"] = time.perf_counter() - t_phase
+    rep["phase_s"] = time.perf_counter() - t_phase - rep.get("mp_s", 0.0)
     print(f"data parallel: {card} | phase_s={rep['phase_s']:.1f} "
           f"launches={total}", flush=True)
+    return rep
+
+
+#: phase 15h (run_model_parallel): the model-parallel axes at the
+#: flagship's full width, four ranks sharing the card over gloo.  Each LM
+#: leg: label -> (mesh, global batch, seq, micro-batches); one warm-up and
+#: MP_STEPS timed steps, SGD with momentum at DP_LR, as 15g
+MP_STEPS = 2
+MP_LEGS = {"tp": (dict(dp=2, tp=2), 16, 512, 0),
+           "sp": (dict(dp=1, sp=2, tp=2), 4, 2048, 0),
+           "pp": (dict(dp=2, pp=2), 8, 2048, 4)}
+#: the ep leg: a seeded topic corpus (tokens, words): ~7.4k words seen,
+#: so each of the four shards owns ~1.9k rows; every batch ships its rows
+#: by gloo all-reduces through host memory (~8 ms each on one card), so
+#: the fits are kept small: Word2Vec window 2, GloVe window 3, one pass
+MP_EP_TOKENS, MP_EP_VOCAB = 50_000, 10_000
+#: the held numbers, bf16 on the card, set from the spread measured on an
+#: H100 (PERF.md §6).  A mesh step against the one-device step on the
+#: same global batch: other GEMM shapes (heads or FFN columns split over
+#: tp, a sequence split over sp, micro-batches of one row in the
+#: pipeline) round bf16 otherwise, as 15g's widths do: measured 4.4e-5
+#: to 6.2e-5 on the losses (~10.55) and 1.4e-6 to 3.4e-6 on the params
+#: (after 3 SGD steps), held at ~10x that.  ZeRO-1 against the
+#: replicated pipelined step (the same reduction but for the dp
+#: reduce-scatter, measured 0): TOL_DP_STAGE / TOL_DP_PARAMS.  The ep
+#: leg's fits in float32 against one device (the same batches, draws and
+#: ordered scatter-adds, plus zeros from the rows a shard does not own):
+#: measured 0 (Word2Vec) and 3e-8 to 6e-8 (GloVe)
+TOL_MP_LOSS = 6e-4
+TOL_MP_PARAMS = 3e-5
+TOL_MP_EP = 1e-6
+
+
+def mp_config(torch, ttr, label, cfg_kw=None):
+    """The tp leg: leg A's config; sp: the default causal config (T=2048,
+    remat) with ring attention; pp: leg B's (fused attention and LN)."""
+    if label == "tp":
+        return dp_config(torch, ttr, cfg_kw)
+    kw = dict(fused_ln=True, xent_impl="blocked",
+              attention="ring" if label == "sp" else "fused")
+    kw.update(cfg_kw or {})
+    return ttr.TransformerConfig(**kw)
+
+
+def _max_diff(torch, got, want) -> float:
+    from deeplearning4j_tpu_torch.utils.tree_math import tree_leaves
+
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _one_device(torch, ttr, cfg, params, batches, dev, opt=None):
+    """The same config's one-device steps on the global batches: (losses,
+    params)."""
+    from deeplearning4j_tpu_torch.optimize import transforms as TT
+
+    solo = ttr.TransformerLM(cfg, device=dev)
+    tx = TT.chain(TT.momentum(0.9), TT.sgd_lr(DP_LR))
+    step = solo.build_train_step(tx)
+    opt = opt if opt is not None else solo.init_opt(params, tx)
+    losses = []
+    for x, y in batches:
+        params, opt, loss = step(params, opt, x, y)
+        losses.append(loss.item())
+    return losses, params
+
+
+def mp_lm_leg(torch, label, wrappers, dev, cfg_kw=None, ckpt_dir=None):
+    """One LM leg of 15h on every rank: the mesh steps (timed), this
+    rank's launches, the collectives by axis; the params gathered, and on
+    the first rank the one-device steps they are held to.  The pp leg
+    adds its ZeRO-1 step (against the replicated one) and a checkpoint of
+    the ZeRO-1 state written from the mesh, restored into a one-device
+    ``TransformerLM`` whose next loss is held to the mesh's."""
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.models.pipeline import (
+        PipelinedTransformerLM, stack_layers, unstack_layers,
+        zero1_state_to_natural)
+    from deeplearning4j_tpu_torch.observability import METRICS
+    from deeplearning4j_tpu_torch.optimize import transforms as TT
+    from deeplearning4j_tpu_torch.parallel import CheckpointManager
+    from deeplearning4j_tpu_torch.parallel import collectives as clv
+    from deeplearning4j_tpu_torch.parallel.checkpoint import save_sharded
+    from deeplearning4j_tpu_torch.parallel.mesh import (MeshSpec, make_mesh,
+                                                        rank_devices,
+                                                        world_rank)
+
+    spec, batch, seq, n_micro = MP_LEGS[label]
+    cfg = mp_config(torch, ttr, label, cfg_kw)
+    mesh = make_mesh(MeshSpec(**spec), devices=rank_devices()[:4])
+    model = (PipelinedTransformerLM(cfg, mesh, n_micro=n_micro, device=dev)
+             if n_micro else ttr.TransformerLM(cfg, mesh, device=dev))
+    params, batches = dp_inputs(torch, ttr, cfg, dev, 2 + MP_STEPS,
+                                batch=batch, seq=seq)
+    init = stack_layers(params) if n_micro else params
+    tx = TT.chain(TT.momentum(0.9), TT.sgd_lr(DP_LR))
+    unstack = ((lambda t: unstack_layers(t, cfg.n_layers)) if n_micro
+               else (lambda t: t))
+
+    def run(zero1):
+        tree = model.place(init)
+        opt = (model.init_opt_zero1(tree, tx) if zero1
+               else model.init_opt(tree, tx))
+        step = model.build_train_step(tx, zero1=zero1)
+        losses, times = [], []
+        for i in range(1 + MP_STEPS):
+            if i == 1:
+                clv.reset_stats()
+                METRICS.reset()
+            x, y = batches[i]
+            with _dp_timer(torch, dev) as ms:
+                tree, opt, loss = step(tree, opt, x, y)
+                losses.append(loss.item())
+            if i:
+                times.append(ms[0])
+        return tree, opt, step, losses, times
+
+    reset_counts(wrappers)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tree, _, _, losses, times = run(False)
+    coll = {k: dict(v) for k, v in clv.STATS.items()}
+    staged = METRICS.snapshot()["counters"].get("collectives.host_staged", 0)
+    p50 = sorted(times)[len(times) // 2]
+    rep = {"mesh": spec, "global_batch": [batch, seq], "n_micro": n_micro,
+           "config": str(cfg), "losses": losses, "step_ms": times,
+           "p50_step_ms": p50, "tokens_per_s": batch * seq / (p50 / 1e3),
+           "collective_ms_per_step": 1e3 * sum(
+               v["seconds"] for v in coll.values()) / MP_STEPS,
+           "collectives": coll,
+           "collectives_by_axis": {a: {**v, "ms_per_step": 1e3 * v["seconds"]
+                                       / MP_STEPS}
+                                   for a, v in clv.AXIS_STATS.items()},
+           "host_staged_per_step": staged / MP_STEPS}
+    whole = model.gather(tree)
+    del tree
+    nxt = None
+    if n_micro:
+        z_tree, z_opt, z_step, z_losses, _ = run(True)
+        z_whole = model.gather(z_tree)
+        rep["zero1_losses"] = z_losses
+        rep["zero1_vs_replicated"] = [
+            max(abs(a - b) for a, b in zip(z_losses, losses)),
+            _max_diff(torch, z_whole, whole)]
+        t0 = time.perf_counter()
+        save_sharded(CheckpointManager(ckpt_dir, keep=1), model,
+                     1 + MP_STEPS, z_tree, z_opt, model._specs(),
+                     model.opt_specs_zero1(tx))
+        rep["ckpt_save_s"] = time.perf_counter() - t0
+        x, y = batches[1 + MP_STEPS]
+        _, _, nxt = z_step(z_tree, z_opt, x, y)
+        rep["zero1_next_loss"] = nxt = nxt.item()
+        del z_tree, z_opt, z_whole
+    rep["launches"] = _counts(wrappers)
+    rep["peak_mem_gb"] = _peak_gb(torch, dev)
+    if world_rank() == 0:
+        # the one-device steps on the same global batches (their launches
+        # are not the leg's)
+        ref_losses, ref = _one_device(torch, ttr, cfg, params,
+                                      batches[:1 + MP_STEPS], dev)
+        rep["vs_one_device"] = [
+            max(abs(a - b) for a, b in zip(losses, ref_losses)),
+            _max_diff(torch, unstack(whole), ref)]
+        rep["one_device_losses"] = ref_losses
+        del ref
+        if n_micro:
+            t0 = time.perf_counter()
+            z1, _ = model._z1_template_and_specs(whole, model._specs())
+            r = CheckpointManager(ckpt_dir).restore(whole, (0, tx.init(z1)))
+            count, st = zero1_state_to_natural(model, tx, r["tstate"],
+                                               r["params"])
+            st = tuple(unstack(s) if isinstance(s, dict) else s for s in st)
+            loss, _ = _one_device(torch, ttr, cfg, unstack(r["params"]),
+                                  batches[1 + MP_STEPS:], dev,
+                                  opt=(count, st))
+            rep["ckpt_restore_one_device_s"] = time.perf_counter() - t0
+            rep["ckpt_next_loss"] = [nxt, loss[0]]
+            del z1, r, st
+    del whole, params, batches
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return rep
+
+
+def mp_ep_leg(torch, dev, n_tokens=MP_EP_TOKENS, vocab=MP_EP_VOCAB):
+    """``ShardedWord2Vec`` (HS, then NS) and ``ShardedGlove`` over ep=4,
+    and on the first rank the one-device fits they are held to."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.parallel import collectives as clv
+    from deeplearning4j_tpu_torch.parallel.mesh import (MeshSpec, make_mesh,
+                                                        rank_devices,
+                                                        world_rank)
+    from deeplearning4j_tpu_torch.text.glove import Glove
+    from deeplearning4j_tpu_torch.text.sharded_embedding import (
+        ShardedGlove, ShardedWord2Vec, pad_rows)
+    from deeplearning4j_tpu_torch.text.word2vec import Word2Vec
+
+    sents, _, _ = topic_corpus(np, n_tokens=n_tokens, vocab=vocab)
+    mesh = make_mesh(MeshSpec(dp=1, ep=4), devices=rank_devices()[:4])
+    w2v = dict(layer_size=64, window=2, sample=1e-3, seed=1,
+               batch_size=4096)
+    runs = (("word2vec_hs", ShardedWord2Vec, Word2Vec, dict(w2v)),
+            ("word2vec_ns", ShardedWord2Vec, Word2Vec,
+             dict(w2v, negative=5, use_hierarchic_softmax=False)),
+            ("glove", ShardedGlove, Glove,
+             dict(layer_size=32, window=3, iterations=1, seed=1)))
+    rep = {}
+    for label, sharded, solo, kw in runs:
+        clv.reset_stats()
+        t0 = time.perf_counter()
+        m = sharded(sents, mesh=mesh, device=dev, **kw).fit()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        out = {"fit_s": time.perf_counter() - t0, "vocab": len(m.vocab),
+               "rows_per_shard": pad_rows(len(m.vocab), 4) // 4,
+               "collectives_by_axis": {a: dict(v) for a, v in
+                                       clv.AXIS_STATS.items()}}
+        emb = m.syn0[:len(m.vocab)]
+        if world_rank() == 0:
+            one = solo(sents, device=dev, **kw).fit()
+            out["vs_one_device"] = (emb - one.syn0[:len(one.vocab)]
+                                    ).abs().max().item()
+        rep[label] = out
+    return rep
+
+
+def mp_rank_job(torch, rank, world, ckpt_dir, cfg_kw=None, dev="cuda",
+                ep_tokens=MP_EP_TOKENS):
+    """A rank of phase 15h: the tp, sp and pp legs, then the ep leg."""
+    t0 = time.perf_counter()
+    wrappers = dp_wrappers()
+    out = {label: mp_lm_leg(torch, label, wrappers, dev, cfg_kw,
+                            ckpt_dir=ckpt_dir if label == "pp" else None)
+           for label in MP_LEGS}
+    if rank == 0:
+        report_progress("lm_done")
+    out["ep"] = mp_ep_leg(torch, dev, n_tokens=ep_tokens)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+class MPRun:
+    """Phase 15h's state between its ranks' start and its report: the
+    rank job's keyword arguments, the dryrun subprocess (started when the
+    first rank reports its LM legs done, beside the ep leg) and a
+    temporary directory for the pipeline's checkpoint."""
+
+    def __init__(self, root=ROOT, dev="cuda", cfg_kw=None, dryrun=True,
+                 ep_tokens=MP_EP_TOKENS):
+        self.root, self.dev, self.dryrun = root, dev, dryrun
+        self.tmp = tempfile.mkdtemp(prefix="dl4j_mp_")
+        self.job_kwargs = dict(ckpt_dir=str(Path(self.tmp) / "pp_zero1"),
+                               cfg_kw=cfg_kw, dev=dev, ep_tokens=ep_tokens)
+        self.proc, self.t_dryrun = None, None
+
+    def on_progress(self, rank, msg) -> None:
+        if self.dryrun and msg == "lm_done" and self.proc is None:
+            self.t_dryrun = time.perf_counter()
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "deeplearning4j_tpu_torch", "dryrun",
+                 "--devices", "8", "--platform", self.dev],
+                cwd=str(self.root), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+
+    def close(self) -> None:
+        """Stop the dryrun if it still runs; remove the directory."""
+        import shutil
+
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def run_model_parallel(torch, wrappers, card, root=ROOT, dev="cuda",
+                       cfg_kw=None, expect_launches=True, dryrun=True,
+                       ep_tokens=MP_EP_TOKENS):
+    """Phase 15h alone: four spawned ranks run ``mp_rank_job``, then
+    :func:`mp_report` (in the whole script the ranks of 15g's elastic leg
+    run it, which saves a start-up)."""
+    t0 = time.perf_counter()
+    run = MPRun(root, dev, cfg_kw, dryrun, ep_tokens)
+    try:
+        ranks = spawn_ranks(4, "mp_rank_job", "15h",
+                            on_progress=run.on_progress, **run.job_kwargs)
+        return mp_report(torch, wrappers, card, ranks, run,
+                         time.perf_counter() - t0, expect_launches)
+    finally:
+        run.close()
+
+
+def mp_report(torch, wrappers, card, ranks, run, ranks_s,
+              expect_launches=True):
+    """Phase 15h: the model-parallel axes at the flagship's full width.
+
+    Four ranks sharing the card over gloo ran MP_LEGS (``mp_rank_job``,
+    ``ranks_s`` seconds): tensor parallel (leg A's config, dp2·tp2, #1 on
+    6 local heads), sequence parallel (ring attention over sp2·tp2, 1024
+    positions a rank) and the GPipe pipeline (leg B's config, pp2·dp2, 4
+    micro-batches of one row; its ZeRO-1 step against the replicated
+    one, and a checkpoint of the ZeRO-1 state from the mesh restored into
+    a one-device ``TransformerLM``), each held here against the same
+    config's one-device step on the same global batch; then
+    ``ShardedWord2Vec`` (HS, NS) and ``ShardedGlove`` over ep=4 against
+    the one-device fits, beside ``python -m deeplearning4j_tpu_torch
+    dryrun --devices 8`` (eight more ranks on the card), whose exit and
+    OK line are held.  Each leg's launches of #1-#4, summed over the
+    ranks, join the kernels line at the shapes a rank ran them."""
+    t_after = time.perf_counter()
+    r0 = ranks[0]
+    rep: dict = {"card": card}
+    names = [w.__name__ for w in wrappers]
+    for label in MP_LEGS:
+        leg = r0[label]
+        loss_d, param_d = leg["vs_one_device"]
+        total = {k: sum(r[label]["launches"].get(k, 0) for r in ranks)
+                 for k in names}
+        leg["launches_total"] = total
+        leg["peak_mem_gb_per_rank"] = [r[label]["peak_mem_gb"]
+                                       for r in ranks]
+        rep[label] = leg
+        by_axis = {a: (round(v["ms_per_step"], 2), v["bytes"] // MP_STEPS)
+                   for a, v in leg["collectives_by_axis"].items()}
+        print(f"15h {label} {leg['mesh']} {leg['global_batch']}: p50_step_ms="
+              f"{leg['p50_step_ms']:.2f} tokens_per_s="
+              f"{leg['tokens_per_s']:.1f} collective_ms_per_step="
+              f"{leg['collective_ms_per_step']:.2f} by axis (ms, bytes a "
+              f"step)={by_axis} host_staged_per_step="
+              f"{leg['host_staged_per_step']:.0f} peak_mem_gb="
+              f"{[round(g, 2) for g in leg['peak_mem_gb_per_rank']]} "
+              f"losses={[round(v, 5) for v in leg['losses']]} vs one device "
+              f"max |loss diff|={loss_d:.3g} max |param diff|={param_d:.3g} "
+              f"launches={total}", flush=True)
+        if not (loss_d <= TOL_MP_LOSS and param_d <= TOL_MP_PARAMS):
+            fail(f"15h {label}: off the one-device step by {loss_d} "
+                 f"(losses, tol {TOL_MP_LOSS}), {param_d} (params, tol "
+                 f"{TOL_MP_PARAMS})")
+    pp = rep["pp"]
+    zl, zp = pp["zero1_vs_replicated"]
+    want, got = pp["ckpt_next_loss"]
+    print(f"15h pp zero1: vs replicated max |loss diff|={zl:.3g} max |param "
+          f"diff|={zp:.3g}; checkpoint save_s={pp['ckpt_save_s']:.2f}, "
+          f"restored into one device next loss {got:.5f} vs mesh "
+          f"{want:.5f} (restore + step s="
+          f"{pp['ckpt_restore_one_device_s']:.2f})", flush=True)
+    if zl > TOL_DP_STAGE or zp > TOL_DP_PARAMS:
+        fail(f"15h pp: zero1 off the replicated step by {zl} (losses, tol "
+             f"{TOL_DP_STAGE}), {zp} (params, tol {TOL_DP_PARAMS})")
+    if abs(got - want) > TOL_MP_LOSS:
+        fail(f"15h pp: the ZeRO-1 checkpoint restored at one device steps "
+             f"to {got}, the mesh to {want} (tol {TOL_MP_LOSS})")
+    rep["ep"] = r0["ep"]
+    for label, e in rep["ep"].items():
+        print(f"15h ep {label}: vocab={e['vocab']} rows_per_shard="
+              f"{e['rows_per_shard']} fit_s={e['fit_s']:.2f} vs one device "
+              f"max |diff|={e['vs_one_device']:.3g} collectives="
+              f"{ {a: round(v['seconds'], 3) for a, v in e['collectives_by_axis'].items()} }",
+              flush=True)
+        if not e["vs_one_device"] <= TOL_MP_EP:
+            fail(f"15h ep {label}: off the one-device fit by "
+                 f"{e['vs_one_device']} (tol {TOL_MP_EP})")
+    if run.dryrun:
+        proc = run.proc
+        if proc is None:
+            fail("15h: the LM legs never reported, so the dryrun never ran")
+        try:
+            out, err = proc.communicate(timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        ok = [ln for ln in out.splitlines()
+              if ln.startswith("dryrun_multichip OK: ")]
+        rep["dryrun"] = {"rc": proc.returncode, "line": ok[:1],
+                         "s": time.perf_counter() - run.t_dryrun,
+                         "after_the_ranks_s": time.perf_counter() - t_after}
+        print(f"15h dryrun --devices 8 ({run.dev}): rc={proc.returncode} "
+              f"s={rep['dryrun']['s']:.1f} (beside the ep leg; "
+              f"{rep['dryrun']['after_the_ranks_s']:.1f} after it) "
+              f"{ok[:1]}", flush=True)
+        if proc.returncode != 0 or len(ok) != 1:
+            fail(f"15h dryrun: rc {proc.returncode}\n{out[-2000:]}"
+                 f"\n{err[-4000:]}")
+
+    # the legs of the kernels line: a tp rank attends over 6 heads of 8 x
+    # 512 and scores its 8 x 512 tokens; an sp rank scores 4 x 1024 (its
+    # ring is torch ops); a pp rank runs micro-batches of one 2048-row
+    # sequence through its stage and scores its 4 x 2048 tokens
+    def leg(batch, seq, causal, heads, label, kernels):
+        total = rep[label]["launches_total"]
+        return {"batch": batch, "seq": seq, "causal": causal,
+                "heads": heads,
+                "launches": {k: (total[k] if k in kernels else 0)
+                             for k in names}}
+
+    attn = ("flash_attention", "fused_attention")
+    ln = ("fused_residual_layernorm",)
+    xent = ("blocked_cross_entropy",)
+    legs = [leg(8, 512, False, 6, "tp", attn + ln + xent),
+            leg(4, 1024, True, 6, "sp", attn + ln + xent),
+            leg(1, 2048, True, 12, "pp", attn + ln),
+            leg(4, 2048, True, 12, "pp", xent)]
+    total = {k: sum(lg["launches"][k] for lg in legs) for k in names}
+    for k, lbl in (("flash_attention", "tp"), ("fused_attention", "pp"),
+                   ("fused_residual_layernorm", "pp"),
+                   ("blocked_cross_entropy", "tp")):
+        if expect_launches and rep[lbl]["launches_total"][k] <= 0:
+            fail(f"15h: {k} was not launched in the {lbl} leg: "
+                 f"{rep[lbl]['launches_total']}")
+    rep["legs"] = legs
+    rep["launches"] = total
+    rep["ranks_s"] = ranks_s
+    rep["phase_s"] = ranks_s + time.perf_counter() - t_after
+    print(f"model parallel: {card} | phase_s={rep['phase_s']:.1f} "
+          f"(the ranks {ranks_s:.1f}) launches={total}", flush=True)
     return rep
 
 
@@ -5087,13 +5587,14 @@ def main() -> int:
           flush=True)
 
     # ---- 5a'. the disaggregated tier: one prefill-role and one
-    # decode-role engine behind DisaggScheduler, A's first 8 prompts (the
-    # script's time limit; a request's tokens do not depend on the rest
-    # of the batch), on float pages (held to engine A's tokens) and on
-    # fp8 pages (engine F's)
-    disagg = {label: run_disagg(eng, serving, tmodel, params, prompts_a[:8],
-                                want["served"][:8], label, extra, wrappers,
-                                rng)
+    # decode-role engine behind DisaggScheduler, A's first DISAGG_PROMPTS
+    # prompts (the script's time limit; a request's tokens do not depend
+    # on the rest of the batch), on float pages (held to engine A's
+    # tokens) and on fp8 pages (engine F's)
+    disagg = {label: run_disagg(eng, serving, tmodel, params,
+                                prompts_a[:DISAGG_PROMPTS],
+                                want["served"][:DISAGG_PROMPTS], label,
+                                extra, wrappers, rng)
               for label, extra, want in (
                   ("float", dict(paged_attention_impl="pallas"), rep_a),
                   ("fp8", dict(kv_quant="fp8",
@@ -5195,7 +5696,18 @@ def main() -> int:
     # ---- 8i. the data-parallel tier at leg A's width: one rank over
     # NCCL here, two and four ranks over gloo on the card (the ZeRO
     # stages, hogwild, a checkpoint across widths, elastic shrink/grow)
-    dp = run_data_parallel(torch, wrappers, card)
+    # ---- 8j. the model-parallel axes at the flagship's width, on 15g's
+    # four elastic ranks (one start-up less): tp, sp with the ring, the
+    # GPipe pipeline with ZeRO-1 and a checkpoint to one device,
+    # ep-split embeddings, beside the eight-rank sharding dryrun
+    mp_run = MPRun(root)
+    try:
+        dp = run_data_parallel(torch, wrappers, card, mp=mp_run)
+        mp = mp_report(torch, wrappers, card, dp.pop("mp_ranks"), mp_run,
+                       dp["mp_s"])
+    finally:
+        mp_run.close()
+    torch.cuda.empty_cache()
 
     # ---- 9. one line per kernel: its numbers weighted by this run's
     # launches at each main-path shape, and every shape measured
@@ -5204,7 +5716,7 @@ def main() -> int:
                 prefix["float"]["cache"], prefix["int8"]["cache"], beam,
                 router, ckpt["serve"], ckpt["reload"], online["serve"]],
         [leg_a, leg_b, sample["bfloat16"], scorer, ckpt["leg"],
-         online["leg"], dl4j_leg] + dp["legs"],
+         online["leg"], dl4j_leg] + dp["legs"] + mp["legs"],
         mcfg, rates)
     if args.report:
         path = Path(args.report)
@@ -5222,7 +5734,8 @@ def main() -> int:
             "step_vs_plain": {"train_a": step_a, "train_b": step_b},
             "checkpoints": ckpt, "dl4j": dl4j, "resnet": resnet,
             "lstm": lstm, "text": text, "trees": trees, "embed": embed,
-            "data_parallel": dp, "kernels": kernels}, indent=1))
+            "data_parallel": dp, "model_parallel": mp,
+            "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,13 @@ Port of ``deeplearning4j_tpu/__main__.py``:
                  print the evaluation, optionally save the model.
 - ``evaluate`` — load a saved model (either package's file), evaluate on a
                  named dataset.
-- ``scaleout``, ``dryrun``, ``provision`` parse as in the reference and
-  exit naming their ``ROADMAP.md`` item: the sharding dryrun is A10.2
-  (the model-parallel axes), scaleout and provisioning A10.3 (the host
-  control plane).
+- ``dryrun``   — the multi-rank sharding dryrun: ``--devices N`` gloo
+                 ranks spawned on the CPU or all on one card, one SPMD
+                 train step each over a dp/pp/tp(/sp) mesh, ZeRO-1 and
+                 the ring; prints the reference's ``dryrun_multichip OK``
+                 line.
+- ``scaleout``, ``provision`` parse as in the reference and exit naming
+  their ``ROADMAP.md`` item, A10.3 (the host control plane).
 
 ``--platform`` (before the command or after it) is the torch device and
 defaults to ``cuda``: without a card the run raises, it never falls back
@@ -85,12 +88,21 @@ def _cmd_evaluate(args) -> int:
     return 0
 
 
+def _cmd_dryrun(args) -> int:
+    from .parallel.dryrun import run_dryrun
+    try:
+        run_dryrun(args.devices, device=str(args.device))
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 1
+    return 0
+
+
 def _not_ported(args) -> int:
-    item = "A10.2" if args.command == "dryrun" else "A10.3"
     raise SystemExit(
-        f"python -m deeplearning4j_tpu_torch {args.command}: the multi-device "
-        "runtime (scaleout, the sharding dryrun, provisioning) is not ported "
-        f"yet (ROADMAP.md {item}); use the JAX package's CLI")
+        f"python -m deeplearning4j_tpu_torch {args.command}: the host "
+        "control plane (scaleout, provisioning) is not ported yet "
+        "(ROADMAP.md A10.3); use the JAX package's CLI")
 
 
 def main(argv=None) -> int:
@@ -135,10 +147,11 @@ def main(argv=None) -> int:
     s.add_argument("--max-wall-s", type=float, default=300.0)
     s.set_defaults(fn=_not_ported)
 
-    d = sub.add_parser("dryrun", help="multi-chip sharding dryrun "
-                                      "(not ported: ROADMAP.md A10.2)")
+    d = sub.add_parser("dryrun", help="multi-rank sharding dryrun")
     d.add_argument("--devices", type=int, default=8)
-    d.set_defaults(fn=_not_ported)
+    d.add_argument("--platform", default=argparse.SUPPRESS,
+                   help=platform_help)
+    d.set_defaults(fn=_cmd_dryrun)
 
     p = sub.add_parser("provision",
                        help="render or execute a pod-slice bring-up "

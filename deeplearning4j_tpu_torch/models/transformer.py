@@ -16,13 +16,17 @@ keeps the JAX package's names and layouts (``wqkv`` ``(D, 3, H, Dh)`` or
 ``wq``/``wkv`` under GQA, ``wo`` ``(H, Dh, D)``, ``w1/b1/w2/b2``, tied
 ``tok_embed``, ``pos_embed``, ``final_ln_*``), so moving parameters
 between the packages is a key-by-key numpy copy (``models.convert``).
-``TransformerLM(cfg, mesh)`` trains over a dp-only mesh
-(``parallel.mesh``): every rank runs the step on its rows of the global
-batch, and the gradients cross in one all-reduce — or, with
-``zero1=True``, a reduce-scatter into each rank's chunk of the optimizer
-state and an all-gather of the updated params.  Sequence and tensor
-parallel axes (``n_sp > 1``, ``tp_axis``) raise ``NotImplementedError``:
-they come with the model-parallel port (``ROADMAP.md`` A10.2).
+``TransformerLM(cfg, mesh)`` trains over a mesh of ranks
+(``parallel.mesh``) with data, sequence and tensor parallel axes, as the
+reference's explicit-SPMD step does: every rank runs the same step on
+its block of the global batch (``P('dp', 'sp')``); under ``sp`` the
+attention is ring attention (K/V blocks rotate around the sp ring by
+``ppermute``), under ``tp`` the heads and the FFN hidden dim are split
+(Megatron's ``copy_to_tp``/``reduce_from_tp`` around each branch); the
+gradients are averaged over every axis a leaf is replicated on — or,
+with ``zero1=True``, reduce-scattered over dp into each rank's chunk of
+the optimizer state and the updated params all-gathered.  The pipeline
+axis is ``models.pipeline``.
 
 Numerics mirror the JAX package: matmuls in ``cfg.dtype``, attention
 scores, softmax and LayerNorm in f32.  Caches and page pools are updated
@@ -47,6 +51,10 @@ from ..ops.cuda import kv_quant, registry
 from ..ops.cuda.layernorm import fused_residual_layernorm
 from ..ops.cuda.matmul_int8 import int8_matmul
 from ..optimize import transforms as tx_mod
+from ..parallel import collectives as clv
+from ..parallel.collectives import copy_to_tp, reduce_from_tp
+from ..parallel.mesh import (DP, SP, TP, NamedSharding, P, _dim_axes,
+                             global_block, local_block)
 from ..utils.tree_math import tree_leaves, tree_map, tree_unflatten
 
 
@@ -232,17 +240,6 @@ class TrainKernels:
 _DEFAULT_KERNELS = TrainKernels()
 
 
-def _no_axes(n_sp: int = 1, sp_axis=None, tp_axis=None) -> None:
-    if n_sp != 1 or sp_axis is not None:
-        raise NotImplementedError("sequence parallelism (n_sp > 1) comes "
-                                  "with the model-parallel port "
-                                  "(ROADMAP.md A10.2)")
-    if tp_axis is not None:
-        raise NotImplementedError("tensor parallelism (tp_axis) comes with "
-                                  "the model-parallel port (ROADMAP.md "
-                                  "A10.2)")
-
-
 def _attend_block(q, k, v, q_pos, k_pos, causal, acc, m, l):
     """One flash-style block update: q (B, Tq, H, Dh), k/v (B, Tk, H, Dh),
     acc (B, Tq, H, Dh) f32, m/l (B, Tq, H) running max / denominator."""
@@ -265,32 +262,52 @@ def _attend_block(q, k, v, q_pos, k_pos, causal, acc, m, l):
 
 def ring_attention(q, k, v, *, n_sp: int, sp_axis, causal: bool,
                    t_local: int):
-    """Blockwise ring attention, single shard: with ``n_sp == 1`` it is one
-    flash-style block over the whole sequence (the torch incumbent of the
-    ``attention`` kind).  ``n_sp > 1`` raises until the multi-device
-    port."""
-    _no_axes(n_sp, sp_axis)
+    """Blockwise ring attention over the sp axis: each rank holds its
+    ``t_local`` queries, keys and values; K/V blocks rotate ``n_sp - 1``
+    times around the ring (``ppermute``) while a running softmax
+    accumulates, with the queries' and keys' global positions for the
+    causal mask.  With ``n_sp == 1`` it is one flash-style block over the
+    whole sequence (the torch incumbent of the ``attention`` kind)."""
     B, Tq, H, Dh = q.shape
-    q_pos = torch.arange(t_local, device=q.device)
+    my = clv.axis_index(sp_axis) if sp_axis else 0
+    local = torch.arange(t_local, device=q.device)
+    q_pos = my * t_local + local
     acc = torch.zeros((B, Tq, H, Dh), dtype=torch.float32, device=q.device)
     m = torch.full((B, Tq, H), float("-inf"), device=q.device)
     l = torch.zeros((B, Tq, H), device=q.device)
-    acc, m, l = _attend_block(q, k, v, q_pos, q_pos, causal, acc, m, l)
+    perm = [(j, (j + 1) % n_sp) for j in range(n_sp)]
+    for i in range(n_sp):
+        k_pos = ((my - i) % n_sp) * t_local + local
+        acc, m, l = _attend_block(q, k, v, q_pos, k_pos, causal, acc, m, l)
+        if i < n_sp - 1:
+            # the block after the last is never read: no last rotation
+            k = clv.ppermute(k, sp_axis, perm)
+            v = clv.ppermute(v, sp_axis, perm)
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.to(q.dtype)
 
 
 def _block(params, x, cfg: TransformerConfig, n_sp=1, sp_axis=None,
            tp_axis=None, t_local=None, kernels: TrainKernels | None = None):
-    """One transformer block on (B, T, D) activations (no tp/sp axes)."""
-    _no_axes(n_sp, sp_axis, tp_axis)
+    """One transformer block on (B, T, D) activations, sp- and tp-aware:
+    under ``tp_axis`` each branch enters through ``copy_to_tp`` and leaves
+    through ``reduce_from_tp`` (the partial sums over the local heads and
+    FFN columns), and the fused residual+LayerNorm kernel runs only off
+    tp, as in the reference."""
     kernels = kernels or _DEFAULT_KERNELS
     t_local = x.shape[1] if t_local is None else t_local
     dt = cfg.dtype
     h = _layernorm(x, params["ln1_scale"], params["ln1_bias"])
+    if tp_axis:
+        h = copy_to_tp(h, tp_axis)
     q, k, v = _qkv_proj(params, h, dt)
     if k.shape[-2] != q.shape[-2]:
-        # GQA head-group broadcast before attention
+        # GQA head-group broadcast before attention; under tp the local
+        # query heads would need a shard-offset-aware group map, which
+        # the reference does not have either
+        if tp_axis:
+            raise ValueError("GQA (n_kv_heads < n_heads) does not shard "
+                             "over tp")
         k = repeat_kv_heads(k, q.shape[-2] // k.shape[-2])
         v = repeat_kv_heads(v, q.shape[-2] // v.shape[-2])
     if cfg.attention != "ring" and n_sp == 1 and t_local % 128 == 0:
@@ -303,23 +320,32 @@ def _block(params, x, cfg: TransformerConfig, n_sp=1, sp_axis=None,
         attn = ring_attention(q, k, v, n_sp=n_sp, sp_axis=sp_axis,
                               causal=cfg.causal, t_local=t_local)
     proj = torch.einsum("bthe,hed->btd", attn.to(dt), params["wo"].to(dt))
-    if cfg.fused_ln:
+    if tp_axis:
+        proj = reduce_from_tp(proj, tp_axis)
+    if cfg.fused_ln and not tp_axis:
         fused = kernels.residual_layernorm or fused_residual_layernorm
         x, h2 = fused(x, proj.to(x.dtype), params["ln2_scale"],
                       params["ln2_bias"])
     else:
         x = x + proj.to(x.dtype)
         h2 = _layernorm(x, params["ln2_scale"], params["ln2_bias"])
-    down = _ffn(params, h2, dt) + params["b2"].to(dt)
+    if tp_axis:
+        h2 = copy_to_tp(h2, tp_axis)
+    down = _ffn(params, h2, dt)
+    if tp_axis:
+        down = reduce_from_tp(down, tp_axis)
+    down = down + params["b2"].to(dt)
     return x + down.to(x.dtype)
 
 
 def embed_local(params, tokens, cfg: TransformerConfig, sp_axis=None):
-    """Token + position embedding of (B, T) tokens, in ``cfg.dtype``."""
-    _no_axes(sp_axis=sp_axis)
+    """Token + position embedding of the local (B, T) token block, in
+    ``cfg.dtype``; under ``sp_axis`` the positions start at this rank's
+    offset (its sp coordinate times T)."""
     T = tokens.shape[1]
+    pos0 = clv.axis_index(sp_axis) * T if sp_axis else 0
     x = params["tok_embed"][tokens.long()]
-    return (x + params["pos_embed"][:T][None]).to(cfg.dtype)
+    return (x + params["pos_embed"][pos0:pos0 + T][None]).to(cfg.dtype)
 
 
 def _lm_head(params, cfg: TransformerConfig):
@@ -378,10 +404,10 @@ def lm_head_loss(params, h, targets, cfg: TransformerConfig,
 def encode_local(params, tokens, cfg: TransformerConfig, *, n_sp: int = 1,
                  sp_axis=None, tp_axis=None,
                  kernels: TrainKernels | None = None):
-    """Final hidden states (B, T, D).  With ``cfg.remat`` each block runs
-    under ``torch.utils.checkpoint`` (its activations are recomputed in
-    the backward instead of stored)."""
-    _no_axes(n_sp, sp_axis, tp_axis)
+    """Final hidden states (B_loc, T_loc, D) of the local token block.
+    With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+    (its activations, collectives included, are recomputed in the
+    backward instead of stored)."""
     T = tokens.shape[1]
     x = embed_local(params, tokens, cfg, sp_axis)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -426,8 +452,6 @@ def init_cls_head(gen: torch.Generator, cfg: TransformerConfig,
 def param_specs(cfg: TransformerConfig) -> dict:
     """PartitionSpecs per leaf: heads and the FFN hidden dim over tp, the
     rest replicated (over a dp-only mesh every one is replicated)."""
-    from ..parallel.mesh import TP, P
-
     layer = {
         "ln1_scale": P(), "ln1_bias": P(),
         **({"wqkv": P(None, None, TP, None)} if cfg.kv_heads == cfg.n_heads
@@ -448,17 +472,19 @@ def param_specs(cfg: TransformerConfig) -> dict:
 
 
 def cls_head_specs():
-    from ..parallel.mesh import P
-
     return {"w_cls": P(), "b_cls": P()}
 
 
 def cls_loss_local(params, head, tokens, labels, cfg: TransformerConfig, *,
                    n_sp: int = 1, sp_axis=None, tp_axis=None):
-    """Softmax cross entropy of the mean-pooled classifier."""
+    """Softmax cross entropy of the mean-pooled classifier.  Pooling is a
+    local mean over T, then a pmean over sp: equal shard sizes make that
+    the global sequence mean."""
     x = encode_local(params, tokens, cfg, n_sp=n_sp, sp_axis=sp_axis,
                      tp_axis=tp_axis)
     pooled = x.float().mean(dim=1)
+    if sp_axis:
+        pooled = clv.pmean(pooled, sp_axis)
     logits = pooled @ head["w_cls"].float() + head["b_cls"]
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, labels.long()[:, None]).mean()
@@ -858,30 +884,45 @@ def _map_specs(fn, tree, specs):
     return fn(tree, specs)
 
 
-def _pmean_tree(grads, clv, axis):
-    """Mean over ``axis`` of every leaf, in one all-reduce of the leaves
-    packed (f32) into one buffer."""
+def _reduce_leaves(grads, specs, axis, mean: bool, select):
+    """psum (``mean``: pmean) over ``axis`` of the leaves of ``grads``
+    whose spec ``select`` takes, in one all-reduce of those leaves packed
+    (f32) into one buffer; the other leaves as they are."""
     leaves = tree_leaves(grads)
-    flat = torch.cat([g.reshape(-1).float() for g in leaves])
-    flat = clv.pmean(flat, axis)
+    picked = [select(sp) for sp in tree_leaves(specs)]
+    chosen = [g for g, p in zip(leaves, picked) if p]
+    if not chosen:
+        return grads
+    flat = torch.cat([g.reshape(-1).float() for g in chosen])
+    flat = clv.pmean(flat, axis) if mean else clv.psum(flat, axis)
     out, off = [], 0
-    for g in leaves:
-        out.append(flat[off:off + g.numel()].reshape(g.shape).to(g.dtype))
-        off += g.numel()
+    for g, p in zip(leaves, picked):
+        if p:
+            out.append(flat[off:off + g.numel()].reshape(g.shape).to(g.dtype))
+            off += g.numel()
+        else:
+            out.append(g)
     return tree_unflatten(grads, out)
 
 
+def _names(spec, axis: str) -> bool:
+    """Whether ``spec`` splits some dim over ``axis``."""
+    return any(axis in _dim_axes(e) for e in spec)
+
+
 class TransformerLM:
-    """The flagship LM: training steps (on one device, or data parallel
-    over the ranks of a dp-only ``parallel.mesh.Mesh``) and decoding.
+    """The flagship LM: training steps (on one device, or SPMD over the
+    ranks of a ``parallel.mesh.Mesh`` with dp, sp and tp axes) and
+    decoding.
 
     With a mesh every rank builds the same steps and calls them with the
-    same GLOBAL batch; each rank computes on its rows (``place`` with
-    ``P('dp')``), the loss is the mean over the ranks' local means and
-    the gradients are averaged over dp.  ``zero1=True`` (with
-    ``init_opt_zero1``) shards the optimizer state: each rank holds its
-    ``(1, ceil(size / n_dp))`` chunk of every state leaf.  Sequence and
-    tensor parallel axes are not ported (``ROADMAP.md`` A10.2)."""
+    same GLOBAL batch; each rank computes on its block of it (``P('dp',
+    'sp')``) with its block of each parameter (``place``: the heads and
+    the FFN hidden dim split over tp).  The loss is averaged over dp and
+    sp, and the gradients over every axis a leaf is replicated on.
+    ``zero1=True`` (with ``init_opt_zero1``) shards the optimizer state
+    over dp: each rank holds its ``(1, ceil(local size / n_dp))`` chunk
+    of every state leaf."""
 
     def __init__(self, cfg: TransformerConfig, mesh=None, *, device=None):
         self.cfg = cfg
@@ -927,8 +968,6 @@ class TransformerLM:
         """``(n_dp, n_sp, n_tp)`` of the mesh (1s without one)."""
         if self.mesh is None:
             return 1, 1, 1
-        from ..parallel.mesh import DP, SP, TP
-
         s = self.mesh.shape
         return s.get(DP, 1), s.get(SP, 1), s.get(TP, 1)
 
@@ -937,22 +976,21 @@ class TransformerLM:
                                                                 "head"}
 
     def _specs(self):
-        """Param-tree PartitionSpecs for this model's layout."""
+        """Param-tree PartitionSpecs for this model's layout (the
+        pipeline's stacked layout overrides it)."""
         return param_specs(self.cfg)
 
     def finetune_specs(self):
         return {"backbone": self._specs(), "head": cls_head_specs()}
 
     def place(self, tree, specs=None):
-        """This rank's part of each leaf of ``tree`` per ``specs``
+        """This rank's block of each leaf of ``tree`` per ``specs``
         (default ``param_specs``), on the model's device: a replicated
-        leaf whole, a ``P('dp', ...)`` leaf its dp block (the rank-level
-        ``device_put`` of the reference's ``place``).  Without a mesh,
-        ``tree`` unchanged."""
+        leaf whole, a leaf split over an axis its block along it (the
+        rank-level ``device_put`` of the reference's ``place``).  Without
+        a mesh, ``tree`` unchanged."""
         if self.mesh is None:
             return tree
-        from ..parallel.mesh import NamedSharding, local_block
-
         specs = specs if specs is not None else self._specs()
 
         def put(x, spec):
@@ -963,44 +1001,108 @@ class TransformerLM:
 
         return _map_specs(put, tree, specs)
 
+    def gather(self, tree, specs=None):
+        """The inverse of ``place``: the global tree, every leaf's blocks
+        all-gathered from the ranks (collective over the mesh; without a
+        mesh, ``tree`` unchanged)."""
+        if self.mesh is None:
+            return tree
+        specs = specs if specs is not None else self._specs()
+
+        def get(x, spec):
+            if not torch.is_tensor(x):
+                return x
+            return global_block(x, NamedSharding(self.mesh, spec))
+
+        return _map_specs(get, tree, specs)
+
     def init_opt(self, params, tx=None, lr: float = 1e-3, specs=None):
         """Optimizer state ``(step_count, tx_state)`` for the steps below,
         for the plain tree and the ``{"backbone", "head"}`` finetune tree
-        alike; ``step_count`` is a Python int.  Over a mesh the state is
-        placed with the transform's state specs (``specs``: the params',
-        inferred by default) — replicated over a dp-only mesh."""
+        alike; ``step_count`` is a Python int.  Over a mesh ``params`` are
+        this rank's blocks (``place``), so the state is this rank's part
+        of the reference's placed state as it stands (``specs`` is
+        accepted for the reference's signature)."""
         tx = tx if tx is not None else self._default_tx(lr)
-        state = (0, tx.init(params))
-        if self.mesh is None:
-            return state
-        if specs is None:
-            specs = (self.finetune_specs() if self._is_finetune_tree(params)
-                     else self._specs())
-        return self.place(state, self.opt_specs(tx, specs))
+        return 0, tx.init(params)
 
     def opt_specs(self, tx, params_specs=None):
-        from ..parallel.mesh import P
-
         ps = params_specs if params_specs is not None else self._specs()
         spec_fn = tx.state_spec or (lambda _: ())
         return (P(), spec_fn(ps))
 
+    def _loss_reduce(self, loss, sp_axis):
+        """The reported loss averaged over the replicas (dp, and sp when
+        live; a subclass with more axes extends this)."""
+        loss = clv.pmean(loss, DP)
+        return clv.pmean(loss, SP) if sp_axis else loss
+
+    def _grad_sync(self, specs, sp_axis, tp_axis, include_dp: bool = True):
+        """``grads -> grads`` averaged over every axis a leaf is
+        REPLICATED on: dp and sp always, tp for the leaves not split over
+        it; each axis one packed all-reduce, in that order (a leaf sees
+        its means in the reference's order).  ``include_dp=False`` leaves
+        dp to the caller (ZeRO-1 reduce-scatters over it)."""
+        plan = []
+        if include_dp:
+            plan.append((DP, lambda sp: True))
+        if sp_axis:
+            plan.append((SP, lambda sp: True))
+        if tp_axis:
+            plan.append((TP, lambda sp: not _names(sp, TP)))
+
+        def sync(grads):
+            for axis, select in plan:
+                grads = _reduce_leaves(grads, specs, axis, True, select)
+            return grads
+
+        return sync
+
     # -- ZeRO-1 weight-update sharding over dp --------------------------
     #
-    # Each rank owns 1/n_dp of every parameter: gradients reduce-scatter
-    # over dp, the transform updates only the local chunk (optimizer
-    # memory / n_dp) and the updated params all-gather back.  A state
-    # leaf is globally (1, n_dp * chunk) placed P(None, DP), so a rank
-    # holds (1, chunk).
+    # Each rank owns 1/n_dp of every (tp-local) parameter: gradients
+    # reduce-scatter over dp, the transform updates only the local chunk
+    # (optimizer memory / n_dp) and the updated params all-gather back.
+    # A state leaf is globally (T, n_dp * chunk) placed P(TP|None, DP):
+    # T = n_tp for tp-split params (their chunks differ per tp rank),
+    # else 1, so a rank holds (1, chunk).
 
     @staticmethod
     def _z1_chunk(size: int, n_dp: int) -> int:
         return -(-size // n_dp)
 
+    def _z1_leaf_is_tp_sharded(self, spec) -> bool:
+        return _names(spec, TP)
+
+    def _z1_row_layout(self, spec):
+        """(row count, the rows' spec entry) of a leaf's ZeRO-1 state."""
+        n_tp = self._axes()[2]
+        if self._z1_leaf_is_tp_sharded(spec) and n_tp > 1:
+            return n_tp, TP
+        return 1, None
+
+    def _z1_template_and_specs(self, params, specs):
+        """(zeros template of the GLOBAL ZeRO-1 state for ``tx.init``,
+        given the global ``params``; the state leaves' PartitionSpecs) —
+        the restore template of a ZeRO-1 checkpoint."""
+        n_dp = self._axes()[0]
+
+        def template(p, spec):
+            rows, _ = self._z1_row_layout(spec)
+            k = self._z1_chunk(p.numel() // rows, n_dp)
+            return torch.zeros((rows, n_dp * k), dtype=p.dtype,
+                               device=self.device)
+
+        tmpl = _map_specs(template, params, specs)
+        tspec = _map_specs(lambda p, spec: P(self._z1_row_layout(spec)[1],
+                                             DP), params, specs)
+        return tmpl, tspec
+
     def init_opt_zero1(self, params, tx, specs=None):
         """Optimizer state with the ZeRO-1 layout for
         ``build_train_step(..., zero1=True)``: every stateful-transform
-        leaf holds only this rank's chunk, ``(1, ceil(size / n_dp))``."""
+        leaf holds only this rank's chunk of this rank's (placed) block,
+        ``(1, ceil(size / n_dp))``."""
         assert self.mesh is not None, "zero1 requires a mesh"
         n_dp = self._axes()[0]
         tmpl = tree_map(lambda p: torch.zeros(
@@ -1009,26 +1111,27 @@ class TransformerLM:
         return 0, tx.init(tmpl)
 
     def opt_specs_zero1(self, tx, params_specs=None, params=None):
-        """Placement specs of a ZeRO-1 ``(count, tx_state)`` tree (every
-        state leaf ``P(None, 'dp')``) — with ``place``, the restore
-        counterpart of ``init_opt_zero1``: restore the global host arrays,
-        then ``place(opt, model.opt_specs_zero1(tx))``."""
-        from ..parallel.mesh import DP, P
-
+        """Placement specs of a ZeRO-1 ``(count, tx_state)`` tree (a state
+        leaf ``P(TP, 'dp')`` for a tp-split param, else ``P(None,
+        'dp')``) — with ``place``, the restore counterpart of
+        ``init_opt_zero1``: restore the global host arrays, then
+        ``place(opt, model.opt_specs_zero1(tx))``."""
         if params_specs is None:
             params_specs = (self.finetune_specs()
                             if params is not None
                             and self._is_finetune_tree(params)
                             else self._specs())
         spec_fn = tx.state_spec or (lambda _: ())
-        return (P(), spec_fn(tree_map(lambda _: P(None, DP), params_specs)))
+        return (P(), spec_fn(self._z1_state_specs(params_specs)))
+
+    def _z1_state_specs(self, specs):
+        """The ZeRO-1 state leaves' specs, from the params' specs."""
+        return _map_specs(lambda _, spec: P(self._z1_row_layout(spec)[1], DP),
+                          specs, specs)
 
     def _z1_scatter_gather(self):
         """(grads -> this rank's chunks, params -> this rank's chunks,
         updated chunks -> full params) over the mesh's dp axis."""
-        from ..parallel import collectives as clv
-        from ..parallel.mesh import DP
-
         n_dp = self._axes()[0]
         my = self.mesh.axis_index(DP)
 
@@ -1051,33 +1154,43 @@ class TransformerLM:
 
         return scatter, pslice, gather
 
-    def _build_step(self, tx, loss_of, zero1: bool = False):
+    def _build_step(self, tx, loss_of, specs, data_specs,
+                    zero1: bool = False):
         """``step(tree, opt, *data) -> (tree, opt, loss)``: value and
-        gradient of ``loss_of(tree, *data)``, the transform chain (weight
-        decay on the leaves ``_decay_mask`` names), then
-        ``apply_updates``.  Functional: the returned tree and state are new
-        tensors and the caller's are not modified (nor marked as requiring
-        grad).  ``loss`` is a 0-d tensor on the device (no host sync).
+        gradient of ``loss_of(tree, *data, axes)``, the cross-replica
+        sync, the transform chain (weight decay on the leaves
+        ``_decay_mask`` names), then ``apply_updates``.  Functional: the
+        returned tree and state are new tensors and the caller's are not
+        modified (nor marked as requiring grad).  ``loss`` is a 0-d tensor
+        on the device (no host sync).
 
-        Over a mesh the data are the GLOBAL batch and each rank takes its
-        rows (a rank outside the mesh returns ``tree`` and ``opt`` as they
-        are, and a NaN loss); the loss and the gradients are averaged over
-        dp (the
-        gradients in one packed all-reduce), or with ``zero1`` the
-        gradients reduce-scatter into this rank's chunks, the transform
-        updates them against its ZeRO-1 state, and the params
-        all-gather.  Over a one-rank mesh in a process group these still
-        run (through the backend), and ``zero1`` holds one chunk: the
-        whole flat leaf (the reference asserts dp > 1 instead)."""
+        Over a mesh ``tree`` and ``opt`` are this rank's blocks, the data
+        the GLOBAL batch, of which each rank takes its block per
+        ``data_specs`` (a rank outside the mesh returns ``tree`` and
+        ``opt`` as they are, and a NaN loss); ``loss_of`` runs with the
+        mesh's sp/tp axes, the loss is reduced by ``_loss_reduce`` and the
+        gradients by ``_grad_sync`` (``specs`` names each leaf's axes), or
+        with ``zero1`` they reduce-scatter over dp into this rank's
+        chunks, the transform updates those against its ZeRO-1 state, and
+        the params all-gather.  Every collective of the step, the
+        backward's included, runs in one order on every rank.  Over a
+        one-rank mesh in a process group these still run (through the
+        backend), and ``zero1`` holds one chunk: the whole flat leaf (the
+        reference asserts dp > 1 instead)."""
         mesh = self.mesh
         if zero1:
             assert mesh is not None, "zero1 needs a mesh to shard state over"
         # without a process group a mesh has one rank: the plain step
         plain = mesh is None or (mesh.group is None and not zero1)
+        axes = {}
         if mesh is not None:
-            from ..parallel import collectives as clv
-            from ..parallel.mesh import DP, NamedSharding, P, local_block
-            rows = NamedSharding(mesh, P(DP))
+            _, n_sp, n_tp = self._axes()
+            sp_axis = SP if n_sp > 1 else None
+            tp_axis = TP if n_tp > 1 else None
+            axes = dict(n_sp=n_sp, sp_axis=sp_axis, tp_axis=tp_axis)
+            blocks = [NamedSharding(mesh, sp) for sp in data_specs]
+            sync = self._grad_sync(specs, sp_axis, tp_axis,
+                                   include_dp=not zero1)
 
         def step(tree, opt, *data):
             count, tx_state = opt
@@ -1086,13 +1199,22 @@ class TransformerLM:
                     # a rank outside the mesh takes no part: it returns
                     # its state as it is, and no loss
                     return tree, opt, torch.full((), float("nan"))
-                data = tuple(local_block(d, rows) for d in data)
+                data = tuple(self._to_device(local_block(d, b))
+                             for d, b in zip(data, blocks))
             leaves = [p.detach().requires_grad_(True)
                       for p in tree_leaves(tree)]
             live = tree_unflatten(tree, leaves)
-            loss = loss_of(live, *data)
-            grads = tree_unflatten(tree, torch.autograd.grad(
-                loss, leaves, allow_unused=True, materialize_grads=True))
+            if mesh is not None and not plain:
+                with mesh:
+                    loss = loss_of(live, *data, axes=axes)
+                    grads = torch.autograd.grad(
+                        loss, leaves, allow_unused=True,
+                        materialize_grads=True)
+            else:
+                loss = loss_of(live, *data, axes={})
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            grads = tree_unflatten(tree, grads)
             loss = loss.detach()
             with torch.no_grad():
                 frozen = tree_unflatten(tree, [p.detach() for p in leaves])
@@ -1103,9 +1225,9 @@ class TransformerLM:
                     new_tree = tx_mod.apply_updates(frozen, updates)
                     return new_tree, (count + 1, tx_state), loss
                 with mesh:
-                    loss = clv.pmean(loss, DP)
+                    loss = self._loss_reduce(loss, axes["sp_axis"])
+                    grads = sync(grads)
                     if not zero1:
-                        grads = _pmean_tree(grads, clv, DP)
                         with tx_mod.decay_mask_override(
                                 self._decay_mask(frozen)):
                             updates, tx_state = tx.update(grads, tx_state,
@@ -1142,10 +1264,11 @@ class TransformerLM:
         cfg = self.cfg
         tx = tx if tx is not None else self._default_tx(lr)
 
-        def loss_of(params, tokens, targets):
-            return lm_loss_local(params, tokens, targets, cfg)
+        def loss_of(params, tokens, targets, axes):
+            return lm_loss_local(params, tokens, targets, cfg, **axes)
 
-        return self._build_step(tx, loss_of, zero1=zero1)
+        return self._build_step(tx, loss_of, self._specs(),
+                                (P(DP, SP), P(DP, SP)), zero1=zero1)
 
     # -- BERT-style sequence-classification fine-tune -------------------
     def init_finetune(self, gen: torch.Generator, n_classes: int,
@@ -1165,11 +1288,12 @@ class TransformerLM:
         cfg = self.cfg
         tx = tx if tx is not None else self._default_tx(lr)
 
-        def loss_of(tree, tokens, labels):
+        def loss_of(tree, tokens, labels, axes):
             return cls_loss_local(tree["backbone"], tree["head"], tokens,
-                                  labels, cfg)
+                                  labels, cfg, **axes)
 
-        return self._build_step(tx, loss_of, zero1=zero1)
+        return self._build_step(tx, loss_of, self.finetune_specs(),
+                                (P(DP, SP), P(DP)), zero1=zero1)
 
     def fit(self, params, opt, batches, *, tx=None, lr: float = 1e-3,
             epochs: int = 1, finetune: bool = False,

@@ -1,18 +1,19 @@
-"""Distributed training over ``torch.distributed``: the data-parallel
-compute plane.
+"""Distributed training over ``torch.distributed``.
 
 - **SPMD compute plane** (``mesh``, ``collectives``, ``zero``,
-  ``trainer``): every rank runs the same train step over a dp-only
-  :class:`~.mesh.Mesh` of process groups; gradients cross in one
-  all-reduce (ZeRO stages 1-3 shard the weight update, hogwild averages
-  replicas periodically), and elastic shrink and grow rebuild the mesh
-  over the live ranks.
+  ``trainer``): every rank runs the same train step over a
+  :class:`~.mesh.Mesh` of process groups, one per axis line (pp, dp, sp,
+  tp, ep); gradients cross in one all-reduce a replication axis (ZeRO
+  stages 1-3 shard the weight update, hogwild averages replicas
+  periodically), and elastic shrink and grow rebuild a dp mesh over the
+  live ranks.  The model-parallel axes live in the models that use them
+  (``models.transformer`` for tp/sp, ``models.pipeline`` for pp,
+  ``text.sharded_embedding`` for ep); ``dryrun`` drives them all.
 - **checkpoint/resume** (``checkpoint``): params + optimizer state + key
-  + data cursor, one on-disk format for every stage and width.
+  + data cursor, one on-disk format for every stage, width and mesh.
 
 The host control plane (``Driver``, the scaleout waves, the process
-runners) and the model-parallel axes come later (``ROADMAP.md`` A10.2,
-A10.3).
+runners) comes later (``ROADMAP.md`` A10.3).
 """
 
 from .checkpoint import CheckpointCorruptError, CheckpointManager

@@ -44,7 +44,12 @@ Several ranks: the trainer gathers what its ranks hold (collective over
 its mesh), then :func:`publish_from_first_rank` has the mesh's first rank
 write while the others wait at a barrier that also carries whether the
 write succeeded, so a failed write fails every rank alike; every rank
-then restores from the same files and keeps its own part.  Same-step
+then restores from the same files and keeps its own part.  A model split
+over tp, pp or sp (and its ZeRO-1 state) goes the same way through
+:func:`save_sharded` / :func:`restore_sharded`: its blocks are gathered
+into the reference's GLOBAL layout (what ``jax.device_get`` of the
+reference's placed trees gives), so the files restore at another mesh,
+at one device and in the JAX package.  Same-step
 republish and rotation move the old dir aside (atomic rename to a
 non-``ckpt_`` name) before deleting it.  ``quarantine(step)`` renames a
 published-but-bad step out of the ``ckpt_*`` namespace.
@@ -577,10 +582,65 @@ def publish_from_first_rank(manager: CheckpointManager, mesh, step: int,
         with mesh:
             ok = torch.full((), 0.0 if err is not None else 1.0,
                             device=clv.collective_device())
-            total = int(clv.psum(ok, DP).item())
+            total = int(clv.psum(ok, mesh.axis_names).item())
         if err is None and total != len(mesh.ranks):
             raise RuntimeError(f"checkpoint step {step}: the write on rank "
                                f"{mesh.ranks[0]} failed")
     if err is not None:
         raise err
     return path
+
+
+def _host_tree(tree):
+    """``tree`` with every tensor leaf copied to the host."""
+    from ..utils.tree_math import tree_map
+
+    return tree_map(lambda x: x.detach().cpu() if torch.is_tensor(x) else x,
+                    tree)
+
+
+def save_sharded(manager: CheckpointManager, model, step: int, params,
+                 tstate=None, specs=None, tstate_specs=None,
+                 **save_kw) -> Path | None:
+    """Checkpoint a model placed over its mesh: ``params`` and ``tstate``
+    (this rank's blocks, placed by ``specs`` / ``tstate_specs``; default
+    the model's param specs and its optimizer specs of a replicated
+    state) are gathered into their global layout (collective over the
+    mesh), and the mesh's first rank writes them
+    (:func:`publish_from_first_rank`).  Returns the directory on the
+    writer, else None."""
+    specs = specs if specs is not None else model._specs()
+    whole = _host_tree(model.gather(params, specs))
+    state = None
+    if tstate is not None:
+        state = _host_tree(model.gather(tstate, tstate_specs))
+    return publish_from_first_rank(manager, model.mesh, step, whole,
+                                   tstate=state, **save_kw)
+
+
+def restore_sharded(manager: CheckpointManager, model, params, tstate=None,
+                    specs=None, tstate_specs=None, step: int | None = None):
+    """The inverse of :func:`save_sharded`: read the global trees (the
+    templates' global shapes follow from this rank's blocks ``params`` /
+    ``tstate`` and their specs) and return this rank's blocks of them,
+    ``(params, tstate)``, on the model's device."""
+    from ..models.transformer import _map_specs
+    from .mesh import NamedSharding, global_shape
+
+    specs = specs if specs is not None else model._specs()
+
+    def meta(x, spec):
+        if not torch.is_tensor(x):
+            return x
+        shape = global_shape(tuple(x.shape), NamedSharding(model.mesh, spec))
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+
+    r = manager.restore(
+        _map_specs(meta, params, specs),
+        tstate_template=(None if tstate is None
+                         else _map_specs(meta, tstate, tstate_specs)),
+        step=step)
+    out = model.place(r["params"], specs)
+    if tstate is None:
+        return out, None
+    return out, model.place(r["tstate"], tstate_specs)

@@ -8,17 +8,19 @@ reference is a rank here (:class:`RankDevice`, whose ``id`` is the global
 rank).  :func:`rank_devices` is the counterpart of ``jax.devices()``: the
 world's ranks, in order.
 
-A :class:`Mesh` names the axes of an array of rank devices and holds one
-process group per axis.  Only the data-parallel axis may be wider than 1
-here: tensor, sequence, pipeline and expert parallelism are the
-model-parallel part of the multi-device tier (``ROADMAP.md`` A10.2), and
-a mesh that needs them raises.  Creating a group is collective over the
-WORLD (``torch.distributed.new_group``), so every rank, member or not,
-builds every mesh, in the same order — the elastic design: the world is
+A :class:`Mesh` names the axes of an array of rank devices, in the
+reference's order (pp, dp, sp, tp, ep), and holds one process group per
+axis LINE: the ranks that differ only in that axis's coordinate (a rank's
+``tp`` group is its tensor-parallel peers, its ``pp`` group its pipeline
+stages).  Creating a group is collective over the WORLD
+(``torch.distributed.new_group``), so every rank, member or not, builds
+every mesh, in the same order, and a mesh builds its lines' groups axis
+by axis, line by line.  That is also the elastic design: the world is
 the device pool, ``shrink_mesh`` builds a group over the survivors, the
 lost ranks stay alive and outside it, and ``grow_mesh`` builds one that
-takes them back.  A rank outside a mesh holds a mesh it is not a
-``member`` of, and code over that mesh skips its work there.
+takes them back (elasticity is dp-only, as in the reference).  A rank
+outside a mesh holds a mesh it is not a ``member`` of, and code over
+that mesh skips its work there.
 
 Without an initialized process group the world is this one process:
 ``rank_devices()`` is ``[RankDevice(0)]`` and every collective over a
@@ -34,7 +36,9 @@ when they stage a CUDA tensor through host memory.
 reference's placement vocabulary: a dim named by a mesh axis is split
 over that axis's ranks in contiguous blocks, and :func:`local_block`
 takes this rank's block of a global tensor (the rank-level
-``device_put``).
+``device_put``); a dim may name a tuple of axes, split with the first
+axis major, as JAX's.  :func:`global_block` is the inverse: the ranks
+all-gather their blocks into the global tensor.
 """
 
 from __future__ import annotations
@@ -196,13 +200,14 @@ def _group_for(ranks: tuple[int, ...]):
 
 class Mesh:
     """Named axes over an array of rank devices, with a process group per
-    axis (only ``dp`` may be wider than 1: ``ROADMAP.md`` A10.2).
+    axis line.
 
     ``devices`` has the mesh's shape; ``shape`` maps each axis to its
     size, as the reference's ``mesh.shape``; ``devices.size`` is the
     mesh's rank count.  ``member`` says whether this process is one of the
-    mesh's ranks.  ``with mesh:`` makes it the mesh the collectives'
-    axis names refer to."""
+    mesh's ranks.  ``group`` is the group over all the mesh's ranks.
+    ``with mesh:`` makes it the mesh the collectives' axis names refer
+    to."""
 
     def __init__(self, devices, axis_names: Sequence[str]):
         arr = np.empty(np.shape(devices), dtype=object)
@@ -215,24 +220,38 @@ class Mesh:
             raise ValueError(f"{len(self.axis_names)} axis names for a "
                              f"{arr.ndim}-d device array")
         self.shape = dict(zip(self.axis_names, arr.shape))
-        wide = {a: n for a, n in self.shape.items() if a != DP and n > 1}
-        if wide:
-            roles = ", ".join(AXIS_ROLES.get(a, a) for a in wide)
-            raise NotImplementedError(
-                f"mesh axes {wide} ({roles}) are model parallelism, not "
-                "ported to "
-                "deeplearning4j_tpu_torch yet (ROADMAP.md A10.2); only dp "
-                "may be wider than 1")
         self.ranks = tuple(d.id for d in arr.flat)
         if len(set(self.ranks)) != len(self.ranks):
             raise ValueError(f"a rank appears twice in the mesh {self.ranks}")
         self.rank = world_rank()
         self.member = self.rank in self.ranks
-        # a process group orders its members by global rank, so a rank's
-        # coordinate (and every block it takes) follows that order
-        self._order = tuple(sorted(self.ranks))
-        # every axis but dp has one member here: dp's group is the mesh's
-        self.group = _group_for(self.ranks)
+        self.group = _group_for(tuple(sorted(self.ranks)))
+        ids = np.array(self.ranks, dtype=np.int64).reshape(arr.shape)
+        # per axis: this rank's line (its peers along the axis, ordered
+        # by global rank, as a process group orders its members) and the
+        # line's group; every line's group is created on every rank, in
+        # one order.  A one-wide axis has no group (its collectives are
+        # the identity), except dp on a mesh whose other axes are all one
+        # wide: its group is the mesh's, so a one-rank data-parallel mesh
+        # in a process group still runs its collectives through the
+        # backend
+        only_dp = all(n == 1 for a, n in self.shape.items() if a != DP)
+        self._lines: dict[str, tuple[int, ...]] = {}
+        self._groups: dict[str, object] = {}
+        for k, axis in enumerate(self.axis_names):
+            lines = np.moveaxis(ids, k, -1).reshape(-1, arr.shape[k])
+            for line in lines:
+                line = tuple(sorted(int(r) for r in line))
+                mine = self.rank in line
+                if mine:
+                    self._lines[axis] = line
+                if axis == DP and only_dp:
+                    if mine:
+                        self._groups[axis] = self.group
+                elif len(line) > 1:
+                    g = _group_for(line)
+                    if mine:
+                        self._groups[axis] = g
 
     # -- axes ------------------------------------------------------------
     def axis_size(self, axis: str) -> int:
@@ -242,18 +261,19 @@ class Mesh:
         """This rank's coordinate along ``axis`` (0 off the mesh)."""
         if not self.member or self.axis_size(axis) == 1:
             return 0
-        return self._order.index(self.rank)
+        return self._lines[axis].index(self.rank)
 
     def axis_group(self, axis: str):
-        """The process group of ``axis``: the mesh's group for ``dp`` (one
-        rank's group too, so its collectives still run through the
-        backend), None for the other axes (one member each) and without
-        a process group."""
-        return self.group if axis == DP and DP in self.shape else None
+        """The process group of this rank's line along ``axis``; None for a
+        one-wide axis (but dp's on a dp-only mesh: the mesh's group) and
+        without a process group."""
+        return self._groups.get(axis)
 
     def axis_ranks(self, axis: str) -> tuple[int, ...]:
-        """The global ranks of ``axis``, by coordinate."""
-        return self._order if self.axis_size(axis) > 1 else (self.rank,)
+        """The global ranks of this rank's line along ``axis``, by
+        coordinate."""
+        return self._lines.get(axis, (self.rank,)) \
+            if self.axis_size(axis) > 1 else (self.rank,)
 
     # -- the active mesh -------------------------------------------------
     def __enter__(self) -> "Mesh":
@@ -384,30 +404,76 @@ def batch_sharding(mesh: Mesh, axis: str = DP, ndim: int = 2) -> NamedSharding:
     return NamedSharding(mesh, P(axis, *([None] * (ndim - 1))))
 
 
+def _dim_axes(entry) -> tuple[str, ...]:
+    """The axes a spec entry names: None, one axis or a tuple of axes."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _split(mesh: "Mesh", axes: tuple[str, ...]) -> tuple[int, int]:
+    """(block count, this rank's block index) of a dim split over ``axes``
+    (the first axis major)."""
+    n, i = 1, 0
+    for axis in axes:
+        n, i = n * mesh.axis_size(axis), i * mesh.axis_size(axis) \
+            + mesh.axis_index(axis)
+    return n, i
+
+
 def local_block(x, sharding: NamedSharding):
     """This rank's block of the global tensor or array ``x`` under
-    ``sharding`` (each dim named by an axis split into equal contiguous
-    blocks; a replicated spec gives ``x``; trailing ``None`` dims past
-    ``x``'s rank are ignored).  A rank outside the mesh gets ``x``
-    unsplit."""
+    ``sharding``: each dim named by an axis (or a tuple of axes, the first
+    major) is split into equal contiguous blocks; a replicated spec gives
+    ``x``; trailing ``None`` dims past ``x``'s rank are ignored.  A rank
+    outside the mesh gets ``x`` unsplit."""
     mesh = sharding.mesh
     if not mesh.member:
         return x
-    for dim, axis in enumerate(sharding.spec):
-        if axis is None or mesh.axis_size(axis) == 1:
+    for dim, entry in enumerate(sharding.spec):
+        n, i = _split(mesh, _dim_axes(entry))
+        if n == 1:
             continue
         if dim >= x.ndim:
             raise ValueError(f"spec {sharding.spec} splits dim {dim} of a "
                              f"{x.ndim}-d array")
-        n = mesh.axis_size(axis)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not "
-                             f"split over {n} ranks of {axis!r}")
+                             f"split over {n} ranks of {entry!r}")
         k = x.shape[dim] // n
-        i = mesh.axis_index(axis)
         index = [slice(None)] * x.ndim
         index[dim] = slice(i * k, (i + 1) * k)
         x = x[tuple(index)]
+    return x
+
+
+def global_shape(shape, sharding: NamedSharding) -> tuple[int, ...]:
+    """The global shape of a block of ``shape`` placed by ``sharding``."""
+    mesh = sharding.mesh
+    out = list(shape)
+    for dim, entry in enumerate(sharding.spec):
+        if dim < len(out):
+            out[dim] *= _split(mesh, _dim_axes(entry))[0]
+    return tuple(out)
+
+
+def global_block(x, sharding: NamedSharding):
+    """The inverse of :func:`local_block`: every member's block of a
+    tensor placed by ``sharding``, all-gathered into the global tensor
+    (collective over the axes the spec names, innermost axis first, in
+    one order on every rank).  A rank outside the mesh gets ``x``."""
+    from . import collectives as clv
+
+    mesh = sharding.mesh
+    if not mesh.member:
+        return x
+    with mesh:
+        for dim, entry in enumerate(sharding.spec):
+            for axis in reversed(_dim_axes(entry)):
+                if mesh.axis_size(axis) == 1:
+                    continue
+                moved = x.movedim(dim, 0).contiguous()
+                x = clv.all_gather(moved, axis, tiled=True).movedim(0, dim)
     return x
 
 

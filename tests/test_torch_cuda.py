@@ -615,6 +615,35 @@ def test_attention_kernel_matches_plain(dev, B, T, H, Dh, causal, frontier,
     assert (lse - ref_lse).abs().max().item() < 1e-5
 
 
+@pytest.mark.parametrize("packed", [6, 12])
+@pytest.mark.parametrize("causal,frontier", [(False, False), (True, True)])
+def test_attention_kernel_on_tp_local_views(dev, packed, causal, frontier):
+    """Tensor parallelism at tp=2 gives a rank of the 12-head flagship 6
+    heads: q/k/v are the strided views of its (B, T, 3, 6, 64) projection,
+    or of heads 0-5 and 6-11 of a packed H=12 one (a T stride of 3 x 12 x
+    64 and a base offset of 6 heads)."""
+    from deeplearning4j_tpu_torch.ops.cuda import attention as tat
+    B, T, H, Dh = 2, 512, 6, 64
+    g = torch.Generator(device=dev).manual_seed(packed)
+    qkv = torch.randn((B, T, 3, packed, Dh), generator=g,
+                      device=dev).to(torch.bfloat16)
+    wrapper = tat.fused_attention if frontier else tat.flash_attention
+    for h0 in range(0, packed, H):
+        q, k, v = (qkv[:, :, i, h0:h0 + H] for i in range(3))
+        before = wrapper.launches
+        out, lse = tat.attention_fwd(q, k, v, causal=causal,
+                                     frontier=frontier)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        ref, ref_lse = tat.reference_flash_fwd(q.float(), k.float(),
+                                               v.float(), causal)
+        ref_abs, _ = tat.reference_flash_fwd(q.float(), k.float(),
+                                             v.float().abs(), causal)
+        err = (out.float() - ref).abs()
+        assert (err <= 1e-5 + 2 ** -8 * (ref_abs + ref.abs())).all().item()
+        assert (lse - ref_lse).abs().max().item() < 1e-5
+
+
 @pytest.mark.parametrize("N,D", [(37, 768), (4096, 768), (8, 64), (5, 2048)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_residual_layernorm_kernel_matches_plain(dev, N, D, dtype):

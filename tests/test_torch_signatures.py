@@ -134,6 +134,12 @@ MODULES = [
                 "vectorizers", "lm_dataset", "windows", "index", "tree",
                 "treeparser", "annotator", "sentiwordnet")],
     ("deeplearning4j_tpu_torch.models.rntn", "deeplearning4j_tpu.models.rntn"),
+    ("deeplearning4j_tpu_torch.models.pipeline",
+     "deeplearning4j_tpu.models.pipeline"),
+    ("deeplearning4j_tpu_torch.parallel.dryrun",
+     "deeplearning4j_tpu.parallel.dryrun"),
+    ("deeplearning4j_tpu_torch.text.sharded_embedding",
+     "deeplearning4j_tpu.text.sharded_embedding"),
     *[(f"deeplearning4j_tpu_torch.{m}", f"deeplearning4j_tpu.{m}")
       for m in ("clustering", "clustering.kdtree", "clustering.kmeans",
                 "clustering.quadtree", "clustering.vptree", "plot",
@@ -169,6 +175,16 @@ ALLOWED = {
     },
     "models.transformer:TransformerLM.init_finetune": {
         "key": _SEED, "gen": _SEED,
+    },
+    "models.pipeline:PipelinedTransformerLM.__init__": {
+        "device": _DEVICE + "; keyword-only",
+    },
+    "models.pipeline:PipelinedTransformerLM.init": {
+        "key": _SEED, "gen": _SEED,
+    },
+    "parallel.dryrun:dryrun_multichip": {
+        "device": "the device every rank's model runs on (the reference "
+                  "forces JAX's CPU platform in-process; kept)",
     },
     "models.transformer:TransformerLM.sample": {
         "key": _SEED, "seed": _SEED,
@@ -288,6 +304,8 @@ ALLOWED_CLI = {
                         "(`train --platform cpu`), as the README writes it "
                         "(kept)",
     "evaluate --platform": "as train's (kept)",
+    "dryrun --platform": "as train's: the ranks run on the card unless "
+                         "the CPU is asked for (kept)",
 }
 
 

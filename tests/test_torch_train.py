@@ -362,23 +362,26 @@ def test_forward_and_score_match_jax():
 
 
 def test_sequence_and_tensor_axes_raise():
+    """The sp and tp axes run over a mesh of ranks (their runs against the
+    JAX package are in test_torch_model_parallel.py): outside an active
+    mesh ring attention over sp and a block over tp raise, and a mesh
+    with an sp or tp axis wider than 1 needs an initialized process
+    group."""
     _, tcfg = _cfgs()
     x = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no active mesh"):
         ttr.ring_attention(x, x, x, n_sp=2, sp_axis="sp", causal=True,
                            t_local=4)
     tp = ttr.init_params(torch.Generator().manual_seed(0), tcfg, CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no active mesh"):
         ttr._block(tp["layers"][0], torch.zeros((1, 4, 32)), tcfg,
                    tp_axis="tp")
-    # a dp-only mesh trains (test_torch_parallel.py); one with an sp or
-    # tp axis wider than 1 raises, naming the model-parallel item
     from deeplearning4j_tpu_torch.parallel.mesh import (MeshSpec as TSpec,
                                                         RankDevice,
                                                         make_mesh as tmake)
 
     for spec in (TSpec(dp=1, sp=2), TSpec(dp=1, tp=2)):
-        with pytest.raises(NotImplementedError, match="A10.2"):
+        with pytest.raises(RuntimeError, match="process group"):
             ttr.TransformerLM(tcfg, device=CPU, mesh=tmake(
                 spec, devices=[RankDevice(0), RankDevice(1)]))
 

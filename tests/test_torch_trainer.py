@@ -339,7 +339,8 @@ def test_hot_loop_has_no_host_sync():
 
 
 def test_multi_device_options_raise():
-    """Model-parallel axes raise naming their roadmap item; the
+    """Model-parallel axes need a process group of ranks (their runs are
+    in test_torch_model_parallel.py and test_torch_pipeline.py); the
     data-parallel options (hogwild, ZeRO) build over the one-rank mesh
     (their multi-rank runs are in test_torch_parallel.py); bad options
     are ValueErrors, as in the reference."""
@@ -349,10 +350,12 @@ def test_multi_device_options_raise():
 
     two = [RankDevice(0), RankDevice(1)]
     for spec in (TSpec(dp=1, tp=2), TSpec(dp=1, sp=2), TSpec(dp=1, pp=2)):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(RuntimeError, match="process group"):
             tmake(spec, devices=two)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ttr._no_axes(n_sp=2)
+    x = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(RuntimeError, match="no active mesh"):
+        ttr.ring_attention(x, x, x, n_sp=2, sp_axis="sp", causal=True,
+                           t_local=4)
     for kw in ({"router": "hogwild"}, {"zero_stage": 1}):
         tr = DataParallelTrainer(tloss, TT.sgd_lr(0.1), device=CPU, **kw)
         assert tr.n_dp == 1 and tr.member

@@ -14,7 +14,9 @@ results do not depend on the machine.
 The jobs import the port only (no JAX): the tests hold their results
 against the JAX package in the test process.  The fixtures follow the
 reference's tests: ``tests/test_zero.py`` (D=6, ragged batch sizes) and
-``tests/test_elastic_reshard.py`` (D=16, batch 32).
+``tests/test_elastic_reshard.py`` (D=16, batch 32); the model-parallel
+jobs (``mp_*``, ``ep_*``) take the reference's transformer and embedding
+fixtures from the test as numpy arrays.
 """
 
 from __future__ import annotations
@@ -519,6 +521,241 @@ def job_mesh_helpers():
             "survivors": [d.id for d in small.devices.flat],
             "member_of_small": small.member, "psum_small": psum_small,
             "empty": empty}
+
+
+# ------------------------------------------------------------- model parallel
+
+TXS = {
+    "adamw_cosine": lambda T: T.adamw(T.warmup_cosine(0.1, 0, 100),
+                                      weight_decay=0.01),
+    "adamw": lambda T: T.adamw(0.01),
+    "momentum": lambda T: T.chain(T.momentum(0.9), T.sgd_lr(1e-2)),
+    "sgd": lambda T: T.sgd_lr(1e-2),
+}
+
+
+def mp_mesh(spec: dict):
+    """The world's first ranks as a mesh of ``spec`` ({axis: size})."""
+    from deeplearning4j_tpu_torch.parallel.mesh import (MeshSpec, make_mesh,
+                                                        rank_devices)
+
+    n = int(np.prod(list(spec.values())))
+    return make_mesh(MeshSpec(**spec), devices=rank_devices()[:n])
+
+
+def mp_model(spec, cfg_kw, n_micro=0):
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+
+    cfg = ttr.TransformerConfig(dtype=torch.float32, **cfg_kw)
+    mesh = mp_mesh(spec) if spec is not None else None
+    if n_micro:
+        from deeplearning4j_tpu_torch.models.pipeline import \
+            PipelinedTransformerLM
+        return PipelinedTransformerLM(cfg, mesh, n_micro=n_micro,
+                                      device="cpu")
+    return ttr.TransformerLM(cfg, mesh, device="cpu")
+
+
+def job_mp_train(spec, params, batches, cfg_kw, tx="momentum", zero1=False,
+                 finetune=False, n_micro=0, ckpt=None, resume=None):
+    """Steps of ``TransformerLM`` (``n_micro``: ``PipelinedTransformerLM``)
+    over the mesh ``spec`` from the GLOBAL numpy ``params`` on the global
+    ``batches`` (``finetune``: classifier steps on (tokens, labels)).
+    Returns the losses, the global params gathered back, the step count
+    and this rank's state shapes; ``ckpt``: after the steps, the params
+    and the optimizer state are gathered and written there by the first
+    rank; ``resume``: restore from there first (the checkpoint test)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.convert import params_from_numpy
+    from deeplearning4j_tpu_torch.optimize import transforms as T
+    from deeplearning4j_tpu_torch.parallel import CheckpointManager
+    from deeplearning4j_tpu_torch.parallel.checkpoint import save_sharded
+
+    model = mp_model(spec, cfg_kw, n_micro)
+    specs = model.finetune_specs() if finetune else model._specs()
+    tree = model.place(params_from_numpy(params, "cpu"), specs)
+    t = TXS[tx](T)
+    step = (model.build_finetune_step(t) if finetune
+            else model.build_train_step(t, zero1=zero1))
+    opt = model.init_opt_zero1(tree, t) if zero1 else model.init_opt(tree, t)
+    ospecs = (model.opt_specs_zero1(t, specs) if zero1
+              else model.opt_specs(t, specs))
+    if resume is not None:
+        from deeplearning4j_tpu_torch.parallel.checkpoint import \
+            restore_sharded
+
+        tree, opt = restore_sharded(CheckpointManager(resume), model, tree,
+                                    opt, specs, ospecs)
+    losses = []
+    for a, b in batches:
+        tree, opt, loss = step(tree, opt, torch.as_tensor(a),
+                               torch.as_tensor(b))
+        losses.append(loss.item())
+    if ckpt is not None:
+        save_sharded(CheckpointManager(ckpt, keep=2), model, opt[0], tree,
+                     opt, specs, ospecs)
+    shapes = [tuple(x.shape) for x in _leaves(opt[1])]
+    whole = model.gather(tree, specs)
+    if not model.mesh.member:
+        return None
+    return {"losses": losses, "params": _np_tree(whole), "count": opt[0],
+            "state_shapes": shapes}
+
+
+def job_mp_collectives(spec):
+    """psum/pmean/all_gather/ppermute/ring_shift/axis_index over each
+    wide axis of ``spec`` on rank-dependent inputs, and the tp pair's and
+    ppermute's gradients."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import collectives as C
+
+    mesh = mp_mesh(spec)
+    if not mesh.member:
+        return None
+    out = {}
+    with mesh:
+        for axis, n in spec.items():
+            if n == 1:
+                continue
+            r = C.axis_index(axis)
+            x = torch.arange(8, dtype=torch.float32) * (r + 1) + 10 * r
+            out[axis] = {
+                "psum": C.psum(x, axis), "pmean": C.pmean(x, axis),
+                "all_gather": C.all_gather(x, axis),
+                "ring_shift": C.ring_shift(x, axis, n, 1),
+                "ppermute_back": C.ppermute(x, axis,
+                                            [(i, (i - 1) % n)
+                                             for i in range(n)]),
+                "axis_index": torch.tensor(r)}
+            w = x.clone().requires_grad_(True)
+            y = C.ppermute(w * w, axis, [(i, (i + 1) % n) for i in range(n)])
+            (y * (r + 1)).sum().backward()
+            out[axis]["ppermute_grad"] = w.grad
+            w = x.clone().requires_grad_(True)
+            (C.reduce_from_tp(C.copy_to_tp(w, axis) * (r + 1), axis)
+             * x).sum().backward()
+            out[axis]["tp_pair_grad"] = w.grad
+    return {a: {k: v.detach().numpy() for k, v in d.items()}
+            for a, d in out.items()}
+
+
+def job_ep_embedding(kind, corpus, kw, n_ep=4, similarity=None):
+    """``ShardedWord2Vec`` (``kind`` "w2v") or ``ShardedGlove`` over an
+    ep mesh: the embeddings (and syn1 for Word2Vec), three nearest words
+    of "cat", and with ``similarity=(a, b, c)`` the similarities a-b and
+    a-c."""
+    from deeplearning4j_tpu_torch.text.sharded_embedding import (
+        ShardedGlove, ShardedWord2Vec)
+
+    mesh = mp_mesh({"dp": 1, "ep": n_ep})
+    cls = ShardedWord2Vec if kind == "w2v" else ShardedGlove
+    m = cls(corpus, mesh=mesh, device="cpu", **kw).fit()
+    if not mesh.member:
+        return None
+    out = {"nearest": m.words_nearest("cat", 3)}
+    if similarity is not None:
+        a, b, c = similarity
+        out["similarity"] = (m.similarity(a, b), m.similarity(a, c))
+    if kind == "w2v":
+        out["emb"] = m.embeddings
+        out["syn1"] = m.syn1.numpy()
+    else:
+        out["emb"] = m.syn0.numpy()
+    return out
+
+
+def job_pp_forward(spec, params, tokens, cfg_kw, n_micro):
+    """``PipelinedTransformerLM.forward`` of the global tokens: the
+    global logits, on every member."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.convert import params_from_numpy
+
+    model = mp_model(spec, cfg_kw, n_micro)
+    tree = model.place(params_from_numpy(params, "cpu"))
+    logits = model.forward(tree, torch.as_tensor(tokens))
+    return logits.numpy() if model.mesh.member else None
+
+
+def job_pp_guards(cfg_kw):
+    """The pipeline's refusals at pp=2: n_layers not divisible by pp, and
+    the decode entry points on the stacked layout; then the suggested
+    path (gather, unstack, a one-device ``sample``) runs."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.models.pipeline import (
+        PipelinedTransformerLM, unstack_layers)
+
+    mesh = mp_mesh({"dp": 1, "pp": 2})
+    cfg = ttr.TransformerConfig(dtype=torch.float32, **cfg_kw)
+    out = {}
+    try:
+        PipelinedTransformerLM(ttr.TransformerConfig(
+            dtype=torch.float32, **dict(cfg_kw, n_layers=3)), mesh,
+            device="cpu")
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    model = PipelinedTransformerLM(cfg, mesh, n_micro=2, device="cpu")
+    params = model.place(model.init())
+    for name in ("sample", "beam_search", "score"):
+        try:
+            getattr(model, name)(params, [1, 2], 4)
+        except NotImplementedError as e:
+            out[name] = str(e)
+    flat = unstack_layers(model.gather(params), cfg.n_layers)
+    out["sampled"] = ttr.TransformerLM(cfg, device="cpu").sample(
+        flat, [1, 2], 4, temperature=0.0)
+    return out if mesh.member else None
+
+
+def job_pp_one_device(ckpt, spec, cfg_kw, n_micro, batches, tx="momentum"):
+    """A pipelined ZeRO-1 checkpoint restored into a one-device
+    ``TransformerLM``: the global params unstacked, the state put back in
+    its natural layout, then steps on ``batches``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.models.pipeline import (
+        unstack_layers, zero1_state_to_natural)
+    from deeplearning4j_tpu_torch.optimize import transforms as T
+    from deeplearning4j_tpu_torch.parallel import CheckpointManager
+
+    model = mp_model(spec, cfg_kw, n_micro)
+    t = TXS[tx](T)
+    tmpl = model.init()
+    z1, _ = model._z1_template_and_specs(tmpl, model._specs())
+    r = CheckpointManager(ckpt).restore(tmpl, (0, t.init(z1)))
+    count, st = zero1_state_to_natural(model, t, r["tstate"], r["params"])
+    cfg = ttr.TransformerConfig(dtype=torch.float32, **cfg_kw)
+    solo = ttr.TransformerLM(cfg, device="cpu")
+    tree = unstack_layers(r["params"], cfg.n_layers)
+    st = _unstack_state(st, cfg.n_layers)
+    step = solo.build_train_step(t)
+    opt, losses = (count, st), []
+    for a, b in batches:
+        tree, opt, loss = step(tree, opt, torch.as_tensor(a),
+                               torch.as_tensor(b))
+        losses.append(loss.item())
+    return {"losses": losses, "params": _np_tree(tree), "count": opt[0]}
+
+
+def _unstack_state(st, n_layers):
+    """Unstack every params-shaped subtree (a dict with ``layers``) of an
+    optimizer state."""
+    from deeplearning4j_tpu_torch.models.pipeline import unstack_layers
+
+    if isinstance(st, dict):
+        if "layers" in st and isinstance(st["layers"], dict):
+            return unstack_layers(st, n_layers)
+        return {k: _unstack_state(v, n_layers) for k, v in st.items()}
+    if isinstance(st, (list, tuple)):
+        return type(st)(_unstack_state(v, n_layers) for v in st)
+    return st
 
 
 JOBS = {name.removeprefix("job_"): fn for name, fn in dict(globals()).items()
