@@ -225,6 +225,30 @@ paths through the entry points a user calls:
    beside ``python -m deeplearning4j_tpu_torch dryrun --devices 8`` (exit
    0 and the ``dryrun_multichip OK`` line).  #1 at the tp shape has its own
    case among phase 2's;
+15i. the host control plane (``run_control_plane``): a. the ``Driver``
+   (leg A's config, SGD with momentum, 16 x 512, 6 steps, a checkpoint
+   every 3 and a status port) joining one NCCL rank through the launch
+   contract (MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK), stopped after 3
+   steps with ``/status`` and ``/metrics`` answered mid-run, a second
+   Driver resuming from its save over the whole stream, and a supervised
+   one (``RetryPolicy``) through an injected step-4 fault: every run's
+   losses and params bitwise those of ``DataParallelTrainer.fit`` on its
+   mesh (p50
+   step ms, tokens/s, save and restore s, the checkpoint's bytes, peak
+   memory); b. the scaleout word2vec with its steps on the card, three
+   hogwild worker threads, HS and NS: the reference test's corpus (its
+   similarity ordering) and a seeded 50k-token topic corpus
+   (within-topic above cross-topic, s a fit, words/s), and one
+   iterative-reduce worker against the CPU within ``TOL_CTL_W2V``; c./d.
+   the process legs at once: ``ProcessDistributedRunner`` with two host
+   worker processes on the word count (exact) while ``wave_actuators``
+   grows the wave by a third process and retires an idle worker, and on
+   the svmlight superstep (equal to the thread runner's); a ``python -m
+   deeplearning4j_tpu_torch scaleout`` master (one worker) stopped by
+   ``scaleout -t kill``; ``provision --dry-run-apply`` with a stub
+   ``gcloud`` that must not run; every worker recording that it imported
+   no ``jax`` or ``deeplearning4j_tpu`` and initialised no CUDA.  The
+   Driver runs' launches of #1/#3/#4 join the kernels line;
 16. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
    0 just before it runs, read just after; #7 has a row per page type,
    ``paged_attention_int8`` and ``paged_attention_fp8``), then the card's
@@ -5391,6 +5415,623 @@ def mp_report(torch, wrappers, card, ranks, run, ranks_s,
     return rep
 
 
+# ------------------------------------------------------------------ control plane
+
+#: phase 15i (run_control_plane): the Driver at leg A's config over one
+#: NCCL rank, CTL_STEPS steps of CTL_BATCH x DP_SEQ, a checkpoint every
+#: CTL_EVERY (3, not 2: a save of the 0.88 GB state takes ~2.8 s on the
+#: card's host), the first Driver's stop after CTL_HALF steps (the second
+#: resumes from it) and the injected step fault of the supervised leg
+CTL_BATCH = 16
+CTL_STEPS = 6
+CTL_EVERY = 3
+CTL_HALF = 3
+CTL_FAULT_STEP = 4
+#: the scaleout word2vec on the card: a seeded topic corpus (tokens,
+#: words, topics), sentences a job, three hogwild worker threads
+CTL_W2V_TOKENS, CTL_W2V_VOCAB, CTL_W2V_TOPICS = 50_000, 1_000, 10
+CTL_W2V_CHUNK = 8
+#: the reference test's corpus (tests/test_sharded_embedding.py), for its
+#: similarity ordering and the one-worker card-against-CPU run
+CTL_W2V_CORPUS = [
+    "the cat sat on the mat", "the dog sat on the rug",
+    "a cat and a dog played", "the king ruled the land",
+    "the queen ruled the kingdom", "a king and a queen reigned",
+    "cats chase mice in the barn", "dogs chase cats in the yard"] * 6
+# the one-worker iterative-reduce word2vec, card against CPU, every table
+# entry: the same float32 steps but for the order of the scatter-adds'
+# sums (the CPU tests hold the port against the reference at the same
+# 1e-5, measured 1.1e-6)
+TOL_CTL_W2V = 1e-5
+#: seconds a scaleout process run or CLI call of 15i may take
+CTL_TIMEOUT_S = 120
+
+
+class _ProbedPerformer:
+    """A performer of the scaleout workers that also records, in the state
+    directory, what its worker process imported (``modules/<pid>.json``):
+    any ``jax`` / ``deeplearning4j_tpu`` module and whether CUDA was
+    initialised."""
+
+    def __init__(self, inner, tracker, sleep_s=0.0):
+        self.inner, self.tracker, self.sleep_s = inner, tracker, sleep_s
+
+    def perform(self, job) -> None:
+        if self.sleep_s:
+            time.sleep(self.sleep_s)
+        self.inner.perform(job)
+        import torch
+
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "deeplearning4j_tpu"))
+        out = self.tracker.dir / "modules"
+        out.mkdir(exist_ok=True)
+        (out / f"{os.getpid()}.json").write_text(json.dumps({
+            "forbidden": bad, "cuda_initialized": torch.cuda.is_initialized(),
+            "main": sys.modules["__main__"].__spec__.name}))
+
+    def update(self, *args) -> None:
+        self.inner.update(*args)
+
+
+def probed_slow_word_count(tracker):
+    """The word count with 0.1 s a job: jobs stay in flight while the wave
+    grows and shrinks."""
+    from deeplearning4j_tpu_torch.parallel import performers
+
+    return _ProbedPerformer(performers.WordCountPerformer(tracker), tracker,
+                            sleep_s=0.1)
+
+
+def probed_svmlight(tracker):
+    from deeplearning4j_tpu_torch.parallel import performers
+
+    return _ProbedPerformer(performers.SVMLightTrainPerformer(tracker),
+                            tracker)
+
+
+def _worker_records(state) -> list:
+    return [json.loads(p.read_text())
+            for p in sorted((Path(state) / "modules").glob("*.json"))]
+
+
+def _clean_workers(state, n_min, label) -> list:
+    recs = _worker_records(state)
+    bad = [r for r in recs if r["forbidden"] or r["cuda_initialized"]
+           or r["main"] != "deeplearning4j_tpu_torch.parallel.worker_main"]
+    if len(recs) < n_min or bad:
+        fail(f"15i {label}: worker records {recs}")
+    return recs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ckpt_bytes(directory) -> int:
+    """Bytes of the newest checkpoint under ``directory``."""
+    newest = max(Path(directory).rglob("params.npz"),
+                 key=lambda p: p.stat().st_mtime).parent
+    return sum(p.stat().st_size for p in newest.rglob("*") if p.is_file())
+
+
+def ctl_driver(torch, wrappers, cfg, dev, tmp, label="15i"):
+    """15i a: the Driver at ``cfg``'s width over one rank (NCCL on the card,
+    gloo on the CPU), joining the group itself (``multihost=True``) through
+    the launch contract ``provision`` sets (MASTER_ADDR/MASTER_PORT/
+    WORLD_SIZE/RANK), stopping after CTL_HALF steps with ``/status`` and
+    ``/metrics`` answered mid-run; a second Driver on the same directory
+    resuming over the whole stream; and a supervised Driver under an
+    injected step fault.  Each run's losses and params are held bitwise
+    to a bare ``DataParallelTrainer.fit`` on the Driver's mesh with the
+    same params and batches.  Returns the report and the Driver runs' launches."""
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.observability import METRICS
+    from deeplearning4j_tpu_torch.optimize import transforms as TT
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer, Driver
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    from deeplearning4j_tpu_torch.resilience import (FaultSpec, RetryPolicy,
+                                                     inject_faults)
+
+    def loss_fn(p, x, y, gen=None):
+        return ttr.lm_loss_local(p, x, y, cfg)
+
+    def tx():
+        return TT.chain(TT.momentum(0.9), TT.sgd_lr(DP_LR))
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": "1", "RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    rep: dict = {}
+    try:
+        params, batches = dp_inputs(torch, ttr, cfg, dev, CTL_STEPS,
+                                    batch=CTL_BATCH)
+        answers = {}
+        d = Driver(loss_fn, tx(), multihost=True,
+                   checkpoint_dir=Path(tmp) / "run",
+                   checkpoint_every=CTL_EVERY, status_port=0, device=dev)
+        rep["backend"] = pmesh.backend()
+        if d.mesh.group is None or rep["backend"] != backend:
+            fail(f"{label}: the Driver joined {rep['backend']}, not "
+                 f"{backend}, or its mesh has no group")
+        # the bare trainer on the Driver's mesh (one rank of the group),
+        # its params after CTL_HALF steps and after all of them
+        bare = DataParallelTrainer(loss_fn, tx(), mesh=d.mesh, device=dev)
+        s0, want = bare.fit(bare.init_state(params), batches[:CTL_HALF])
+        p_half = bare.final_params(s0)
+        s0, more = bare.fit(s0, batches)
+        want = want + more
+        p0 = bare.final_params(s0)
+        del bare, s0
+        reset_counts(wrappers)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+        class Asked(list):
+            """The batch stream, asking the status server mid-run."""
+
+            def __iter__(self):
+                for i, b in enumerate(list.__iter__(self)):
+                    if i == CTL_HALF // 2:
+                        base = f"http://127.0.0.1:{d.status_server.port}"
+                        for path in ("/status", "/metrics"):
+                            answers[path] = json.loads(urllib.request.urlopen(
+                                base + path, timeout=30).read())
+                    yield b
+
+        # the Driver stops after CTL_HALF steps (saved there); a second
+        # Driver on the same directory resumes over the whole stream
+        METRICS.reset()
+        t0 = time.perf_counter()
+        state, got = d.run(params, Asked(batches[:CTL_HALF]))
+        rep["driver_s"] = time.perf_counter() - t0
+        snap = METRICS.snapshot()
+        d.close()
+        pd = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+            _leaves(d.final_params(state)), _leaves(p_half)))
+        if got != want[:CTL_HALF] or pd != 0.0:
+            fail(f"{label}: Driver losses {got} != DataParallelTrainer.fit "
+                 f"{want[:CTL_HALF]}, params off by {pd}")
+        if answers.get("/status") != {} or "counters" not in answers.get(
+                "/metrics", {}):
+            fail(f"{label}: status server mid-run answered {answers}")
+        ex = snap["timers"]["train_step.execute"]
+        rep.update(
+            losses=got, status_mid_run=sorted(answers),
+            p50_step_ms=1e3 * ex["p50_s"],
+            save_s=snap["timers"]["checkpoint.save"]["p50_s"],
+            saves=snap["timers"]["checkpoint.save"]["count"],
+            ckpt_bytes=_ckpt_bytes(Path(tmp) / "run"),
+            driver_steps=snap["counters"]["driver.steps"])
+        rep["tokens_per_s"] = CTL_BATCH * DP_SEQ / (rep["p50_step_ms"] / 1e3)
+        del d, state
+        METRICS.reset()
+        d2 = Driver(loss_fn, tx(), checkpoint_dir=Path(tmp) / "run",
+                    device=dev)
+        s2, rest = d2.run(params, batches)
+        rep["restore_s"] = METRICS.snapshot()["timers"][
+            "checkpoint.restore"]["p50_s"]
+        pd = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+            _leaves(d2.final_params(s2)), _leaves(p0)))
+        if s2.step != CTL_STEPS or rest != want[CTL_HALF:] or pd != 0.0:
+            fail(f"{label}: resumed Driver at step {s2.step} losses {rest} "
+                 f"!= {want[CTL_HALF:]}, params off by {pd}")
+        del d2, s2
+
+        # supervised: a transient step fault, retried from the newest save
+        METRICS.reset()
+        d3 = Driver(loss_fn, tx(), checkpoint_dir=Path(tmp) / "sup",
+                    checkpoint_every=CTL_EVERY, device=dev,
+                    retry_policy=RetryPolicy(max_attempts=3,
+                                             backoff_base_s=0.0))
+        with inject_faults(FaultSpec("train.step", at_step=CTL_FAULT_STEP)):
+            s3, sup = d3.run(params, batches)
+        retries = METRICS.snapshot()["counters"].get("resilience.retries", 0)
+        resumed_at = (CTL_FAULT_STEP - 1) // CTL_EVERY * CTL_EVERY
+        pd3 = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+            _leaves(d3.final_params(s3)), _leaves(p0)))
+        if s3.step != CTL_STEPS or sup != want[resumed_at:] or pd3 != 0.0 \
+                or retries < 1:
+            fail(f"{label}: supervised Driver at step {s3.step}, losses "
+                 f"{sup} vs {want[resumed_at:]}, params off by {pd3}, "
+                 f"retries {retries}")
+        rep["supervised"] = {"losses": sup, "retries": retries,
+                             "resumed_at": resumed_at}
+        rep["peak_mem_gb"] = _peak_gb(torch, dev)
+        launches = _counts(wrappers)
+        del d3, s3, params, batches, p0
+    finally:
+        pmesh.shutdown_multihost()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rep, launches
+
+
+def _leaves(tree) -> list:
+    from deeplearning4j_tpu_torch.utils.tree_math import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _w2v_tables(np, corpus, dev, negative, layer_size=100, window=5):
+    """A vocab-initialised Word2Vec on ``dev``, its tables, the corpus as
+    index arrays and the Huffman arrays."""
+    from deeplearning4j_tpu_torch.text import scaleout_embeddings as tse
+    from deeplearning4j_tpu_torch.text.word2vec import Word2Vec
+
+    w2v = Word2Vec(corpus, layer_size=layer_size, window=window,
+                   negative=negative, use_hierarchic_softmax=negative == 0,
+                   seed=3, device=dev)
+    w2v.build_vocab()
+    w2v.reset_weights()
+    fac = w2v.tokenizer_factory
+    sents = []
+    for s in corpus:
+        idx = np.array([i for i in (w2v.vocab.index_of(t) for t in
+                                    fac.create(s).get_tokens()) if i >= 0],
+                       np.int32)
+        if idx.size >= 2:
+            sents.append(idx)
+    return w2v, tse.EmbeddingTables.from_model(w2v), sents, \
+        w2v.huffman.code_arrays()
+
+
+def _w2v_run(np, tables, sents, huffman, negative, dev, n_workers, router,
+             chunk, alpha, window, seed=5):
+    """The scaleout word2vec: ``n_workers`` threads of Word2VecPerformer on
+    ``dev`` under ``router``, RowDeltaAggregator into ``tables``.  Returns
+    (seconds, words trained)."""
+    from deeplearning4j_tpu_torch.parallel import scaleout as tso
+    from deeplearning4j_tpu_torch.text import scaleout_embeddings as tse
+
+    codes, points, lengths = huffman
+    hs = negative == 0
+    tracker = tso.StateTracker()
+    it = tse.Word2VecJobIterator(sents, tables, window=window, chunk=chunk,
+                                 negative=negative, alpha=alpha,
+                                 tracker=tracker, seed=seed)
+    runner = tso.DistributedRunner(
+        it, lambda tr: tse.Word2VecPerformer(
+            tr, window=window, negative=negative,
+            codes=codes.astype(np.float32) if hs else None,
+            points=points if hs else None, lengths=lengths if hs else None,
+            device=dev),
+        n_workers=n_workers, router_cls=router, tracker=tracker)
+    runner.router.aggregator_factory = lambda: tse.RowDeltaAggregator(tables)
+    t0 = time.perf_counter()
+    runner.run(max_wall_s=CTL_TIMEOUT_S)
+    return time.perf_counter() - t0, tracker.count(tse.WORDS_KEY)
+
+
+def ctl_word2vec(torch, dev, label="15i"):
+    """15i b: the scaleout word2vec with its steps on ``dev``: three hogwild
+    worker threads, HS then NS, on the reference test's corpus (its
+    similarity ordering) and on a seeded ~50k-token topic corpus
+    (within-topic similarity above cross-topic); one iterative-reduce
+    worker on ``dev`` against the same run on the CPU."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.parallel import scaleout as tso
+
+    out = {}
+    topic, _, topic_words = topic_corpus(
+        np, n_tokens=CTL_W2V_TOKENS, vocab=CTL_W2V_VOCAB,
+        topics=CTL_W2V_TOPICS)
+    # negatives: the reference test's 3 on its corpus, word2vec's usual 5
+    # on the topic corpus
+    for mode, negative, neg_topic in (("hs", 0, 0), ("ns", 3, 5)):
+        rep = {}
+        w2v, tables, sents, huff = _w2v_tables(np, CTL_W2V_CORPUS, dev,
+                                               negative, layer_size=24,
+                                               window=3)
+        s, words = _w2v_run(np, tables, sents * 12, huff, negative, dev, 3,
+                            tso.HogWildWorkRouter, 6, 0.05, 3)
+        w2v.syn0 = torch.as_tensor(tables.syn0, device=dev)
+        order = (w2v.similarity("king", "queen"),
+                 w2v.similarity("king", "mat"), w2v.similarity("cat", "dog"),
+                 w2v.similarity("cat", "kingdom"))
+        if not (order[0] > order[1] and order[2] > order[3]):
+            fail(f"{label} word2vec {mode}: similarity ordering {order}")
+        rep["reference_corpus"] = {"fit_s": s, "words": words,
+                                   "similarities": order}
+        w2v, tables, sents, huff = _w2v_tables(np, topic, dev, neg_topic)
+        s, words = _w2v_run(np, tables, sents, huff, neg_topic, dev, 3,
+                            tso.HogWildWorkRouter, CTL_W2V_CHUNK, 0.025, 5)
+        if not np.isfinite(tables.syn0).all():
+            fail(f"{label} word2vec {mode}: non-finite table")
+        w2v.syn0 = torch.as_tensor(tables.syn0, device=dev)
+        within, across = topic_similarity(w2v, topic_words)
+        if not within > across:
+            fail(f"{label} word2vec {mode}: within-topic {within} <= "
+                 f"cross-topic {across}")
+        rep["topic_corpus"] = {"fit_s": s, "words": words,
+                               "words_per_s": words / s,
+                               "within": within, "across": across}
+        # one iterative-reduce worker: the card against the CPU
+        runs = []
+        for where in (dev, "cpu"):
+            _, tables, sents, huff = _w2v_tables(
+                np, CTL_W2V_CORPUS, "cpu", negative, layer_size=24, window=3)
+            _w2v_run(np, tables, sents * 4, huff, negative, where, 1,
+                     tso.IterativeReduceWorkRouter, 6, 0.05, 3)
+            runs.append(tables)
+        err = max(float(np.abs(getattr(runs[0], n) - getattr(runs[1], n))
+                        .max()) for n in ("syn0", "syn1", "syn1neg")
+                  if getattr(runs[0], n) is not None)
+        if err > TOL_CTL_W2V:
+            fail(f"{label} word2vec {mode}: one worker on {dev} vs CPU "
+                 f"max |diff| {err}")
+        rep["one_worker_vs_cpu"] = err
+        out[mode] = rep
+        print(f"{label} scaleout word2vec {mode}: 3 hogwild workers, "
+              f"reference corpus fit_s={rep['reference_corpus']['fit_s']:.2f}"
+              f" king~queen {order[0]:.3f} > king~mat {order[1]:.3f}, "
+              f"cat~dog {order[2]:.3f} > cat~kingdom {order[3]:.3f}; topic "
+              f"corpus ({CTL_W2V_TOKENS} tokens) fit_s={s:.2f} words_per_s="
+              f"{words / s:.0f} within {within:.3f} > across {across:.3f}; "
+              f"one worker vs CPU max |diff|={err:.3g}", flush=True)
+    return out
+
+
+def _svmlight_superstep_jobs(np, tmp):
+    """The reference test's svmlight superstep (tests/test_multiprocess.py):
+    a seeded two-class file, two byte-range splits x 6 epochs of jobs."""
+    from deeplearning4j_tpu_torch.datasets.svmlight import save_svmlight
+
+    rng = np.random.default_rng(3)
+    n, d, c = 200, 6, 2
+    labels = rng.integers(0, c, n)
+    feats = rng.standard_normal((n, d)).astype(np.float32)
+    feats += 2.5 * labels[:, None] * np.eye(d, dtype=np.float32)[0]
+    feats[:, -1] = 1.0
+    path = Path(tmp) / "corpus.svmlight"
+    save_svmlight(path, feats, labels)
+    size = path.stat().st_size
+    splits = [(0, size // 2), (size // 2, size)]
+    return path, [f"{path}::{s}::{e}::{d}::{c}" for _ in range(6)
+                  for (s, e) in splits], d, c
+
+
+def _in_thread(fn, out, key):
+    """``fn()`` on a daemon thread, its value under ``out[key]``."""
+    import threading
+
+    th = threading.Thread(target=lambda: out.update({key: fn()}),
+                          daemon=True)
+    th.start()
+    return th
+
+
+def ctl_processes(tmp, root, label="15i"):
+    """15i c/d: the OS-process legs at once (each worker's start-up, ~8 s
+    on the card's host, and each CLI process's ``import torch`` overlap):
+    ``ProcessDistributedRunner`` with two host workers on the slow word
+    count (its count exact) while ``wave_actuators`` grows the wave by a
+    third process and then retires an idle worker, and on the svmlight
+    superstep (its averaged model equal to the thread runner's); a
+    ``scaleout`` CLI master with one worker, stopped mid-run by
+    ``scaleout -t kill``; ``provision`` as a dry run with a stub ``gcloud``
+    that must not run.  The ``scaleout.*`` counters are printed (an
+    eviction or a requeue would reshape the superstep's waves)."""
+    from collections import Counter
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.control.autoscaler import wave_actuators
+    from deeplearning4j_tpu_torch.datasets.svmlight import load_svmlight
+    from deeplearning4j_tpu_torch.observability import METRICS
+    from deeplearning4j_tpu_torch.parallel import performers as tperf
+    from deeplearning4j_tpu_torch.parallel import scaleout as tso
+    from deeplearning4j_tpu_torch.parallel.procrunner import (
+        ProcessDistributedRunner)
+    from deeplearning4j_tpu_torch.parallel.procstate import FileStateTracker
+
+    rep, out = {}, {}
+    env = {"OMP_NUM_THREADS": "1"}
+    cli_env = {**os.environ, **env}
+    METRICS.reset()
+    t0 = time.perf_counter()
+
+    def cli(*argv, **kw):
+        return subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch", *argv],
+            cwd=str(root), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, **{"env": cli_env, **kw})
+
+    # ---- the CLI master (400 slow jobs: still running when the kill
+    # comes) and the provision dry run, with a gcloud that must not run
+    jobs_file = Path(tmp) / "jobs.txt"
+    jobs_file.write_text("\n".join(f"a b{i % 5} c" for i in range(400)))
+    cli_state = Path(tmp) / "cli"
+    bindir = Path(tmp) / "bin"
+    bindir.mkdir()
+    log = Path(tmp) / "gcloud.log"
+    (bindir / "gcloud").write_text(f'#!/bin/sh\necho "$@" >> {log}\n')
+    (bindir / "gcloud").chmod(0o755)
+    procs = [cli("scaleout", "--state-dir", str(cli_state), "--jobs",
+                 str(jobs_file), "--workers", "1", "--performer",
+                 "chip_smoke:probed_slow_word_count"),
+             cli("provision", "--repo-url", "https://example.com/r.git",
+                 "--dry-run-apply", env={**cli_env, "PATH": f"{bindir}:"
+                                          f"{os.environ.get('PATH', '')}"})]
+    try:
+        # ---- the svmlight superstep: two workers, two splits a wave
+        path, jobs, d, c = _svmlight_superstep_jobs(np, tmp)
+        svm_state = Path(tmp) / "svm"
+        th_svm = _in_thread(lambda: (np.asarray(ProcessDistributedRunner(
+            tso.CollectionJobIterator(jobs), "chip_smoke:probed_svmlight",
+            state_dir=svm_state, n_workers=2, worker_env=env).run(
+                max_wall_s=CTL_TIMEOUT_S)),
+            time.perf_counter() - t0), out, "svm")
+        # ---- the word count, with the wave grown and shrunk under it
+        lines = [f"w{i % 7} w{i % 3} x" for i in range(30)]
+        state = Path(tmp) / "wc"
+        runner = ProcessDistributedRunner(
+            tso.CollectionJobIterator(lines),
+            "chip_smoke:probed_slow_word_count", state_dir=state,
+            n_workers=2, router_cls=tperf.WordCountRouter, worker_env=env)
+        up, down, size = wave_actuators(runner)
+        th = _in_thread(lambda: runner.run(max_wall_s=CTL_TIMEOUT_S), out,
+                        "wc")
+        deadline = time.time() + CTL_TIMEOUT_S
+        while not runner.tracker.current_jobs() and time.time() < deadline:
+            time.sleep(0.02)
+        boot_s = time.perf_counter() - t0
+        up()
+        grown = size()
+        new = runner._spawned_wids[-1]
+        while not (state / "boot" / new).exists() \
+                and time.time() < deadline:
+            time.sleep(0.05)
+        retired, tries = None, 0
+        while retired is None and time.time() < deadline:
+            try:
+                down()
+                retired = True
+            except RuntimeError:      # every worker mid-job: next window
+                tries += 1
+                time.sleep(0.05)
+        # kill the CLI master once a wave of it has been aggregated
+        while time.time() < deadline and not (
+                (cli_state / "current").exists()
+                and FileStateTracker(cli_state).get_current()):
+            time.sleep(0.1)
+        killed = cli("scaleout", "-t", "kill", "--state-dir", str(cli_state))
+        procs.append(killed)
+        th.join(timeout=CTL_TIMEOUT_S)
+        wc_s = time.perf_counter() - t0
+        th_svm.join(timeout=CTL_TIMEOUT_S)
+        outs = [pr.communicate(timeout=CTL_TIMEOUT_S) for pr in procs]
+        stop_s = time.perf_counter() - t0
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    counters = {k: v for k, v in METRICS.snapshot()["counters"].items()
+                if k.startswith("scaleout.")}
+    want = Counter(" ".join(lines).split())
+    if th.is_alive() or out.get("wc") != want or grown != 3 \
+            or not retired or size() != 2 \
+            or new not in runner.tracker.workers():
+        fail(f"{label} wave: count {out.get('wc')} vs {want}, sizes "
+             f"{grown} then {size()}, retired {retired}, workers "
+             f"{runner.tracker.workers()}, {counters}")
+    recs = _clean_workers(state, 3, "word count")
+    rep["word_count"] = {"s": wc_s, "boot_s": boot_s, "jobs": len(lines),
+                         "workers_seen": len(recs),
+                         "wave": [2, grown, size()],
+                         "retire_windows_refused": tries}
+    if "svm" not in out:
+        fail(f"{label} svmlight superstep did not finish: {counters}")
+    w, svm_s = out["svm"]
+    ref = tso.DistributedRunner(
+        tso.CollectionJobIterator(jobs), tperf.SVMLightTrainPerformer,
+        n_workers=2).run(max_wall_s=CTL_TIMEOUT_S)
+    x, y = load_svmlight(path, d, c)
+    acc = float((np.argmax(x @ w.reshape(d, c), -1) == y.argmax(-1)).mean())
+    diff = float(np.abs(w - ref).max())
+    if diff > 1e-12 or acc <= 0.9:
+        fail(f"{label} svmlight superstep: |processes - threads| {diff}, "
+             f"accuracy {acc}, {counters}")
+    _clean_workers(svm_state, 2, "svmlight")
+    rep["svmlight"] = {"s": svm_s, "accuracy": acc, "vs_threads": diff}
+    (mout, merr), (pout, perr), (_, kerr) = outs
+    master, prov = procs[0], procs[1]
+    counted = (json.loads(mout.strip().splitlines()[-1]) if mout.strip()
+               else None) or {}
+    if killed.returncode != 0 or master.returncode != 0 \
+            or not FileStateTracker(cli_state).is_done() \
+            or not 0 < counted.get("a", 0) < 400:
+        fail(f"{label} CLI: kill rc {killed.returncode} ({kerr[-300:]}), "
+             f"master rc {master.returncode} ({merr[-500:]}), counted "
+             f"{counted.get('a')} of 400")
+    _clean_workers(cli_state, 1, "CLI master")
+    recs = [json.loads(ln) for ln in pout.splitlines() if ln.startswith("{")]
+    if prov.returncode != 0 or log.exists() or [r["step"] for r in recs] != [
+            "create", "bootstrap", "resolve_coordinator", "launch"] \
+            or any(r["rc"] is not None for r in recs):
+        fail(f"{label} provision dry run: rc {prov.returncode}, executed "
+             f"{log.exists()}, records {recs} {perr[-300:]}")
+    rep["cli"] = {"master_counted_a": counted.get("a"), "of": 400,
+                  "provision_steps": [r["step"] for r in recs]}
+    rep["scaleout_counters"] = counters
+    rep["s"] = stop_s
+    print(f"{label} processes (the legs at once, s={stop_s:.2f}): word "
+          f"count over 2 workers, wave 2->{grown}->{size()} (retire refused "
+          f"{tries} windows while every worker was mid-job), exact, s="
+          f"{wc_s:.2f} (boot {boot_s:.2f}); svmlight superstep s="
+          f"{svm_s:.2f} accuracy={acc:.3f} |processes - threads|="
+          f"{diff:.3g}; CLI master killed after {counted.get('a')}/400 "
+          f"jobs; provision dry run {len(recs)} steps, nothing executed; "
+          f"no worker imported jax or deeplearning4j_tpu or initialised "
+          f"CUDA; {counters}", flush=True)
+    return rep
+
+
+def run_control_plane(torch, wrappers, card, root=ROOT, dev="cuda",
+                      cfg_kw=None, expect_launches=True):
+    """Phase 15i: the host control plane.  a. the ``Driver`` at leg A's
+    width over one rank (``ctl_driver``); b. the scaleout
+    word2vec on ``dev`` (``ctl_word2vec``); c./d. the process runner, the
+    wave and the CLI (``ctl_processes``).  The Driver runs' launches of
+    #1/#3/#4 are counted from 0 and returned as a leg of the kernels
+    line."""
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+
+    import shutil
+
+    t_phase = time.perf_counter()
+    cfg = dp_config(torch, ttr, cfg_kw)
+    tmp = tempfile.mkdtemp(prefix="dl4j_ctl_")
+    try:
+        rep, launches = ctl_driver(torch, wrappers, cfg, dev, tmp)
+        rep["driver_part_s"] = time.perf_counter() - t_phase
+        names = ("flash_attention", "fused_residual_layernorm",
+                 "blocked_cross_entropy")
+        if expect_launches and not all(launches[k] > 0 for k in names):
+            fail(f"15i: the Driver did not run through its kernels: "
+                 f"{launches}")
+        print(f"15i Driver ({rep['backend']}, one rank, leg A's config, "
+              f"{CTL_BATCH} x {DP_SEQ}, {CTL_STEPS} steps): losses "
+              f"bitwise DataParallelTrainer.fit's, /status and /metrics "
+              f"answered mid-run, resumed at step {CTL_HALF} and supervised"
+              f" through a step-{CTL_FAULT_STEP} fault to the same losses; "
+              f"p50_step_ms={rep['p50_step_ms']:.2f} tokens_per_s="
+              f"{rep['tokens_per_s']:.1f} save_s={rep['save_s']:.3f} "
+              f"restore_s={rep['restore_s']:.3f} ckpt_bytes="
+              f"{rep['ckpt_bytes']} peak_mem_gb={rep['peak_mem_gb']:.2f} "
+              f"launches={launches}", flush=True)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep["word2vec"] = ctl_word2vec(torch, dev)
+        rep["word2vec_s"] = time.perf_counter() - t0
+        rep["processes"] = ctl_processes(tmp, root)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep["launches"] = launches
+    rep["legs"] = [{"batch": CTL_BATCH, "seq": DP_SEQ, "causal": cfg.causal,
+                    "launches": launches}]
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"control plane: {card} | phase_s={rep['phase_s']:.1f} (Driver "
+          f"{rep['driver_part_s']:.1f}, word2vec {rep['word2vec_s']:.1f}, "
+          f"processes {rep['processes']['s']:.1f}) launches={launches}",
+          flush=True)
+    return rep
+
+
 def print_ptxas(usage) -> None:
     """Registers, spills and static shared memory of the bf16 kernels,
     from the builds' ``ptxas -v`` reports (every kernel's are in the
@@ -5709,6 +6350,13 @@ def main() -> int:
         mp_run.close()
     torch.cuda.empty_cache()
 
+    # ---- 8k. the host control plane: the Driver at leg A's width over one
+    # NCCL rank (bitwise the bare trainer's fit, status mid-run, resume,
+    # supervised retry), the scaleout word2vec on the card, the process
+    # runner with the elastic wave, and the scaleout / provision CLI
+    ctl = run_control_plane(torch, wrappers, card, root)
+    torch.cuda.empty_cache()
+
     # ---- 9. one line per kernel: its numbers weighted by this run's
     # launches at each main-path shape, and every shape measured
     kernels = kernel_rows(
@@ -5716,7 +6364,7 @@ def main() -> int:
                 prefix["float"]["cache"], prefix["int8"]["cache"], beam,
                 router, ckpt["serve"], ckpt["reload"], online["serve"]],
         [leg_a, leg_b, sample["bfloat16"], scorer, ckpt["leg"],
-         online["leg"], dl4j_leg] + dp["legs"] + mp["legs"],
+         online["leg"], dl4j_leg] + dp["legs"] + mp["legs"] + ctl["legs"],
         mcfg, rates)
     if args.report:
         path = Path(args.report)
@@ -5735,7 +6383,7 @@ def main() -> int:
             "checkpoints": ckpt, "dl4j": dl4j, "resnet": resnet,
             "lstm": lstm, "text": text, "trees": trees, "embed": embed,
             "data_parallel": dp, "model_parallel": mp,
-            "kernels": kernels}, indent=1))
+            "control_plane": ctl, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

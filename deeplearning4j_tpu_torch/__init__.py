@@ -10,8 +10,11 @@ Ported so far:
   KV-cached, paged and speculative decoding, ``sample`` and
   ``beam_search``; ``serving`` (``InferenceEngine``, ``ModelServer``,
   ``ServingClient``, ``BatchScorer``, hot reload);
-- ``parallel`` (checkpoints, the data-parallel trainer on one device),
-  ``resilience`` (the supervisor, fault injection) and ``observability``;
+- ``parallel`` (checkpoints; the data-, tensor-, sequence- and
+  pipeline-parallel trainers over ``torch.distributed``; the host control
+  plane: the ``Driver``, the scaleout runners with their elastic wave and
+  file state plane, storage and H100 provisioning), ``resilience`` (the
+  supervisor, fault injection) and ``observability``;
 - the DL4J network stack: ``ops`` (activations, losses, convolution,
   linalg, sampling, rng, dtypes), ``nn`` (configurations, layers,
   ``MultiLayerNetwork``), ``optimize`` (transforms, solvers, listeners),

@@ -12,12 +12,19 @@ Port of ``deeplearning4j_tpu/__main__.py``:
                  train step each over a dp/pp/tp(/sp) mesh, ZeRO-1 and
                  the ring; prints the reference's ``dryrun_multichip OK``
                  line.
-- ``scaleout``, ``provision`` parse as in the reference and exit naming
-  their ``ROADMAP.md`` item, A10.3 (the host control plane).
+- ``scaleout``  — the master role of the multi-process scaleout runtime
+                 (jobs from a text file, one per line), a single worker
+                 joining an existing state directory, or ``-t kill``
+                 (raise the state directory's DONE flag).
+- ``provision`` — render (or, with ``--apply``, run) the commands that
+                 bring up a cluster of H100 hosts and start the port on
+                 every card (``parallel.provision``).
 
 ``--platform`` (before the command or after it) is the torch device and
 defaults to ``cuda``: without a card the run raises, it never falls back
-to the CPU.  ``--platform cpu`` runs on the CPU.
+to the CPU.  ``--platform cpu`` runs on the CPU.  ``scaleout`` and
+``provision`` touch no device themselves (a performer that computes picks
+its own device), so they ignore it.
 """
 
 from __future__ import annotations
@@ -98,11 +105,62 @@ def _cmd_dryrun(args) -> int:
     return 0
 
 
-def _not_ported(args) -> int:
-    raise SystemExit(
-        f"python -m deeplearning4j_tpu_torch {args.command}: the host "
-        "control plane (scaleout, provisioning) is not ported yet "
-        "(ROADMAP.md A10.3); use the JAX package's CLI")
+def _cmd_scaleout(args) -> int:
+    if args.type == "kill":
+        # the YARN Kill CLI analog: raise the DONE flag so the master loop
+        # and every worker process wind down at their next poll
+        from .parallel.procstate import FileStateTracker
+        FileStateTracker(args.state_dir).finish()
+        print(f"kill signalled in {args.state_dir}")
+        return 0
+    if args.type == "worker":
+        from .parallel.procrunner import worker_loop
+        worker_loop(args.state_dir, args.worker_id, args.performer)
+        return 0
+    from .parallel.performers import WordCountRouter
+    from .parallel.procrunner import ProcessDistributedRunner
+    from .parallel.scaleout import CollectionJobIterator
+    if not args.jobs:
+        raise SystemExit("--jobs is required for the master role")
+    lines = [ln for ln in Path(args.jobs).read_text().splitlines() if ln.strip()]
+    router = (WordCountRouter if args.router == "wordcount" else None)
+    kw = {"router_cls": router} if router else {}
+    runner = ProcessDistributedRunner(
+        CollectionJobIterator(lines), args.performer,
+        state_dir=args.state_dir, n_workers=args.workers, **kw)
+    result = runner.run(max_wall_s=args.max_wall_s)
+    print(json.dumps(result if not hasattr(result, "items")
+                     else dict(result), default=str))
+    return 0
+
+
+def _cmd_provision(args) -> int:
+    from .parallel.provision import PodSliceProvisioner, PodSliceSpec
+    prov = PodSliceProvisioner(PodSliceSpec(
+        name=args.name, accelerator_type=args.accelerator_type,
+        zone=args.zone, spot=args.spot))
+    if args.kill:
+        rec = prov.teardown(dry_run=not args.apply)
+        print(json.dumps(rec))
+        return 0
+    if not args.repo_url:
+        raise SystemExit("--repo-url is required unless --kill")
+    if args.apply or args.dry_run_apply:
+        records = prov.apply(args.repo_url, args.train_argv,
+                             dry_run=not args.apply)
+        for rec in records:
+            print(json.dumps(rec))
+        return 0
+    if args.out:
+        path = prov.write_script(args.out, args.repo_url, args.train_argv)
+        print(f"wrote {path}")
+    else:
+        print(prov.render_script(args.repo_url, args.train_argv))
+    return 0
+
+
+#: the commands that touch no device: --platform is not resolved for them
+_HOST_COMMANDS = (_cmd_scaleout, _cmd_provision)
 
 
 def main(argv=None) -> int:
@@ -132,20 +190,20 @@ def main(argv=None) -> int:
                    help=platform_help)
     e.set_defaults(fn=_cmd_evaluate)
 
-    s = sub.add_parser("scaleout", help="multi-process scaleout runtime "
-                                        "(not ported: ROADMAP.md A10.3)")
+    s = sub.add_parser("scaleout", help="multi-process scaleout runtime")
     s.add_argument("-t", "--type", choices=("master", "worker", "kill"),
                    default="master")
     s.add_argument("--state-dir", required=True)
     s.add_argument("--performer",
-                   default="deeplearning4j_tpu.parallel.performers:WordCountPerformer")
+                   default="deeplearning4j_tpu_torch.parallel.performers:"
+                           "WordCountPerformer")
     s.add_argument("--router", default="wordcount",
                    choices=("wordcount", "average"))
     s.add_argument("--jobs", help="master: text file, one job per line")
     s.add_argument("--workers", type=int, default=2)
     s.add_argument("--worker-id", default="worker-0")
     s.add_argument("--max-wall-s", type=float, default=300.0)
-    s.set_defaults(fn=_not_ported)
+    s.set_defaults(fn=_cmd_scaleout)
 
     d = sub.add_parser("dryrun", help="multi-rank sharding dryrun")
     d.add_argument("--devices", type=int, default=8)
@@ -154,23 +212,26 @@ def main(argv=None) -> int:
     d.set_defaults(fn=_cmd_dryrun)
 
     p = sub.add_parser("provision",
-                       help="render or execute a pod-slice bring-up "
-                            "(not ported: ROADMAP.md A10.3)")
-    p.add_argument("--name", default="dl4j-tpu-slice")
-    p.add_argument("--accelerator-type", default="v5litepod-64")
-    p.add_argument("--zone", default="us-west4-a")
+                       help="render or execute an H100 cluster bring-up")
+    p.add_argument("--name", default="dl4j-h100")
+    p.add_argument("--accelerator-type", default="h100-64",
+                   help="h100-<cards>, eight cards a host")
+    p.add_argument("--zone", default="us-central1-a")
     p.add_argument("--spot", action="store_true")
     p.add_argument("--repo-url", default="")
-    p.add_argument("--train-argv", default="-m deeplearning4j_tpu train")
+    p.add_argument("--train-argv", default="-m deeplearning4j_tpu_torch train")
     p.add_argument("--out", help="write the script here instead of stdout")
-    p.add_argument("--apply", action="store_true")
-    p.add_argument("--dry-run-apply", action="store_true")
-    p.add_argument("--kill", action="store_true")
-    p.set_defaults(fn=_not_ported)
+    p.add_argument("--apply", action="store_true",
+                   help="actually run gcloud (default is dry-run/render)")
+    p.add_argument("--dry-run-apply", action="store_true",
+                   help="print the apply command sequence without running")
+    p.add_argument("--kill", action="store_true",
+                   help="tear the hosts down instead of bringing them up")
+    p.set_defaults(fn=_cmd_provision)
 
     ap.add_argument("--platform", default="cuda", help=platform_help)
     args = ap.parse_args(argv)
-    if args.fn is not _not_ported:
+    if args.fn not in _HOST_COMMANDS:
         from .device import resolve_device
         args.device = resolve_device(args.platform)
     return args.fn(args)

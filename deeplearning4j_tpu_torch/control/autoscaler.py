@@ -266,11 +266,21 @@ def router_actuators(router, replica_factory,
 
 
 def wave_actuators(runner):
-    """``(scale_up, scale_down, pool_size)`` over an elastic training
-    runner (``register_worker`` / ``retire_worker``).  The elastic runner
-    is the host control plane's (the scaleout waves), not ported to
-    deeplearning4j_tpu_torch yet, so this raises (``ROADMAP.md`` A10.3)."""
-    raise NotImplementedError(
-        "wave_actuators: the elastic training runner (register_worker / "
-        "retire_worker) is not ported to deeplearning4j_tpu_torch yet "
-        "(ROADMAP.md A10.3)")
+    """Build ``(scale_up, scale_down, pool_size)`` over an elastic
+    training runner (``parallel.scaleout.DistributedRunner`` or its
+    process runner): grow with ``register_worker``, shrink with the
+    idle-only ``retire_worker`` (a no-eligible-worker window raises so
+    the attempt is visible in ``control.scale_errors`` and retried
+    after cooldown)."""
+    def up() -> None:
+        runner.register_worker()
+
+    def down() -> None:
+        if runner.retire_worker() is None:
+            raise RuntimeError("no idle worker eligible to retire")
+
+    def size() -> int:
+        return len([w for w in runner.tracker.workers()
+                    if runner.tracker.is_enabled(w)])
+
+    return up, down, size

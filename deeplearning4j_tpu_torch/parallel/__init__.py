@@ -11,9 +11,15 @@
   ``text.sharded_embedding`` for ep); ``dryrun`` drives them all.
 - **checkpoint/resume** (``checkpoint``): params + optimizer state + key
   + data cursor, one on-disk format for every stage, width and mesh.
-
-The host control plane (``Driver``, the scaleout waves, the process
-runners) comes later (``ROADMAP.md`` A10.3).
+- **host control plane**: ``Driver`` (``driver``), the single-controller
+  entry point over the mesh, the trainer, checkpoints, the supervisor and
+  the status server; the scaleout SPI (``scaleout``: jobs, performers,
+  ``StateTracker``, the iterative-reduce and hogwild routers,
+  ``DistributedRunner`` with heartbeats, eviction, re-routing, respawn and
+  the elastic wave), its file state plane (``procstate``) and OS-process
+  workers (``procrunner``, ``worker_main``), example performers
+  (``performers``), artifact storage and the config registry
+  (``storage``), and the cluster bring-up commands (``provision``).
 """
 
 from .checkpoint import CheckpointCorruptError, CheckpointManager
@@ -21,11 +27,12 @@ from .compile_cache import setup_compile_cache
 from .mesh import (DP, MeshMismatchError, MeshSpec, elastic_mesh, grow_mesh,
                    local_mesh, make_mesh, shrink_mesh)
 from .trainer import DataParallelTrainer, LazyLoss, TrainState
+from .driver import Driver
 
 __all__ = [
     "MeshSpec", "local_mesh", "make_mesh",
     "MeshMismatchError", "elastic_mesh", "shrink_mesh", "grow_mesh",
     "DataParallelTrainer", "LazyLoss", "TrainState",
-    "CheckpointManager", "CheckpointCorruptError", "DP",
+    "CheckpointManager", "CheckpointCorruptError", "DP", "Driver",
     "setup_compile_cache",
 ]

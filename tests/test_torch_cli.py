@@ -1,9 +1,13 @@
 """The port's CLI, ``python -m deeplearning4j_tpu_torch train|evaluate``,
-on the CPU (``--platform cpu``), against the JAX package's CLI."""
+on the CPU (``--platform cpu``), against the JAX package's CLI; and its
+host commands, ``scaleout`` (master, worker and kill roles over the file
+state plane) and ``provision`` (``test_torch_provision.py`` runs it
+against a stub ``gcloud``), which touch no device."""
 
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -81,21 +85,97 @@ def test_usage_errors(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["scaleout", "--state-dir", "/nonexistent"], ["dryrun", "--devices", "4"],
-    ["provision", "--repo-url", "x"]])
+    pytest.param(["dryrun", "--devices", "4"], id="argv1")])
 def test_multi_device_commands_parse_and_name_the_roadmap_item(argv,
                                                               monkeypatch):
-    """scaleout and provision (the host control plane) exit naming their
-    roadmap item; dryrun is ported (test_torch_dryrun.py runs it): it
-    parses, and on its default platform without a card it raises asking
-    for the CPU, as every entry point does."""
-    if argv[0] == "dryrun":
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            tcli.main(argv)
-        return
-    with pytest.raises(SystemExit, match="A10.3"):
+    """dryrun is ported (test_torch_dryrun.py runs it): it parses, and on
+    its default platform without a card it raises asking for the CPU, as
+    every entry point does.  (scaleout and provision, which named their
+    roadmap item here before they ran, are held below.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main(argv)
+
+
+def _scaleout_cli(*argv, timeout=120):
+    return subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch", "scaleout", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+
+
+def test_cli_scaleout_word_count(tmp_path):
+    """The reference CLI test's case: a master with two worker processes
+    counts the words of a jobs file; the count equals the reference's
+    runner's on the same lines."""
+    import json
+    from collections import Counter
+
+    from deeplearning4j_tpu.parallel import performers as jperf
+    from deeplearning4j_tpu.parallel import scaleout as jso
+
+    jobs = tmp_path / "jobs.txt"
+    jobs.write_text("a b a\nb c\n")
+    p = _scaleout_cli("--state-dir", str(tmp_path / "state"),
+                      "--jobs", str(jobs), "--workers", "2")
+    assert p.returncode == 0, p.stderr[-1500:]
+    assert '"a": 2' in p.stdout, p.stdout
+    got = Counter(json.loads(p.stdout.strip().splitlines()[-1]))
+    want = jso.DistributedRunner(
+        jso.CollectionJobIterator(["a b a", "b c"]),
+        jperf.WordCountPerformer, n_workers=2,
+        router_cls=jperf.WordCountRouter).run(max_wall_s=60.0)
+    assert got == want
+
+
+def test_cli_scaleout_worker_joins_a_state_dir(tmp_path):
+    """``-t worker`` joins an existing state directory as the given
+    worker, performs its job through the default (the port's) performer,
+    and exits when ``-t kill`` raises DONE."""
+    from deeplearning4j_tpu_torch.parallel.procstate import FileStateTracker
+    from deeplearning4j_tpu_torch.parallel.scaleout import Job
+
+    state = tmp_path / "state"
+    t = FileStateTracker(state)
+    t.add_worker("w7")
+    t.add_job(Job(work="x y x", worker_id="w7"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch", "scaleout",
+         "-t", "worker", "--state-dir", str(state), "--worker-id", "w7"],
+        cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 60.0
+        while "w7" not in t.updates() and time.time() < deadline:
+            time.sleep(0.05)
+        assert t.updates()["w7"] == {"x": 2, "y": 1}
+        assert t.job_for("w7") is None
+        k = _scaleout_cli("-t", "kill", "--state-dir", str(state))
+        assert k.returncode == 0 and "kill signalled" in k.stdout
+        assert proc.wait(timeout=60) == 0
+    finally:
+        proc.kill()
+        proc.communicate(timeout=30)
+
+
+def test_cli_host_commands_need_no_card(tmp_path, monkeypatch, capsys):
+    """scaleout and provision touch no device: without a card they run
+    (the train/evaluate/dryrun commands ask for --platform cpu); the
+    master role needs --jobs; the performer default is the port's."""
+    from deeplearning4j_tpu_torch.parallel.procstate import FileStateTracker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--jobs is required"):
+        tcli.main(["scaleout", "--state-dir", str(tmp_path / "s")])
+    assert tcli.main(["scaleout", "-t", "kill", "--state-dir",
+                      str(tmp_path / "s")]) == 0
+    assert FileStateTracker(tmp_path / "s").is_done()
+    assert tcli.main(["provision", "--repo-url", "x"]) == 0
+    out = capsys.readouterr().out
+    assert "python -m deeplearning4j_tpu_torch train" in out
+    assert "a3-highgpu-8g" in out
+    with pytest.raises(SystemExit, match="--repo-url is required"):
+        tcli.main(["provision"])
 
 
 def test_default_platform_is_the_card_and_raises_without_one(monkeypatch):

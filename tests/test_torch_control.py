@@ -8,7 +8,9 @@ Every decision test drives a controller with an injected clock and
 hand-written ``ControlSignals`` — no threads, no sleeps, no engine.  Each
 battery test runs once per package (``P``) with the same expectations;
 the ``*_equal_the_reference`` tests replay seeded random sequences
-through both and hold the decisions equal, step by step.
+through both and hold the decisions equal, step by step.  The wave tests
+(those of ``tests/test_elastic_reshard.py`` and ``wave_actuators``) run a
+live scaleout runner's worker threads, once per package.
 """
 
 import threading
@@ -22,6 +24,7 @@ import deeplearning4j_tpu.control as jctl
 import deeplearning4j_tpu.control.autoscaler as jauto
 import deeplearning4j_tpu.control.overload as jover
 import deeplearning4j_tpu.observability as jobs
+import deeplearning4j_tpu.parallel.scaleout as jso
 import deeplearning4j_tpu.resilience.faults as jfaults
 import deeplearning4j_tpu.serving.batcher as jbatch
 import deeplearning4j_tpu.serving.router.replicas as jrep
@@ -30,6 +33,7 @@ import deeplearning4j_tpu_torch.control as tctl
 import deeplearning4j_tpu_torch.control.autoscaler as tauto
 import deeplearning4j_tpu_torch.control.overload as tover
 import deeplearning4j_tpu_torch.observability as tobs
+import deeplearning4j_tpu_torch.parallel.scaleout as tso
 import deeplearning4j_tpu_torch.resilience.faults as tfaults
 import deeplearning4j_tpu_torch.serving.batcher as tbatch
 import deeplearning4j_tpu_torch.serving.router.replicas as trep
@@ -37,8 +41,9 @@ import deeplearning4j_tpu_torch.serving.router.router as trouter
 from torch_port_obs import port_obs  # noqa: F401  (autouse)
 
 
-def _pkg(ctl, auto, over, obs, faults, batch, rep, router):
+def _pkg(ctl, auto, over, obs, faults, batch, rep, router, so):
     return SimpleNamespace(
+        so=so, wave_actuators=auto.wave_actuators,
         Autoscaler=ctl.Autoscaler, AutoscalerConfig=ctl.AutoscalerConfig,
         ControlSignals=ctl.ControlSignals, BrownoutConfig=ctl.BrownoutConfig,
         BrownoutController=ctl.BrownoutController,
@@ -53,8 +58,10 @@ def _pkg(ctl, auto, over, obs, faults, batch, rep, router):
 
 
 PKGS = {
-    "port": _pkg(tctl, tauto, tover, tobs, tfaults, tbatch, trep, trouter),
-    "ref": _pkg(jctl, jauto, jover, jobs, jfaults, jbatch, jrep, jrouter),
+    "port": _pkg(tctl, tauto, tover, tobs, tfaults, tbatch, trep, trouter,
+                 tso),
+    "ref": _pkg(jctl, jauto, jover, jobs, jfaults, jbatch, jrep, jrouter,
+                jso),
 }
 
 
@@ -696,6 +703,180 @@ def test_router_signals_reads_real_evaluators(P):
     assert fore.ttb_seconds("no-such-objective") is None
 
 
-def test_wave_actuators_name_the_multi_device_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tauto.wave_actuators(object())
+# ------------------------------------------------------------- the wave
+# (the wave tests of tests/test_elastic_reshard.py, and wave_actuators
+# over a live scaleout runner, once per package)
+
+class _SumPerformer:
+    """current model + the job's delta (each job once -> a known sum)."""
+
+    def __init__(self, tracker):
+        self.tracker = tracker
+
+    def perform(self, job):
+        current = self.tracker.get_current()
+        base = np.zeros(4) if current is None else np.asarray(current)
+        job.result = base + np.full(4, float(job.work))
+
+    def update(self, *args):
+        pass
+
+
+def _shrink_run(P):
+    """A worker dies with max_respawns=0: the wave shrinks to the live
+    count and the run completes."""
+
+    class DieOnce(_SumPerformer):
+        died = []
+        _lock = threading.Lock()
+
+        def perform(self, job):
+            with DieOnce._lock:
+                if not DieOnce.died:
+                    DieOnce.died.append(job.worker_id)
+                    raise SystemExit  # thread exits, heartbeats stop
+            super().perform(job)
+
+    tracker = P.so.StateTracker()
+    tracker.set_current(np.zeros(4))
+    runner = P.so.DistributedRunner(
+        P.so.CollectionJobIterator([1.0, 2.0, 3.0, 4.0]), DieOnce,
+        n_workers=2, tracker=tracker, eviction_timeout_s=0.3,
+        max_respawns=0)
+    P.METRICS.reset()
+    return runner, runner.run(max_wall_s=60.0)
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_wave_shrinks_when_respawn_budget_exhausted(P):
+    """A worker dies with max_respawns=0: the wave shrinks to the live
+    count (counter + gauge + bundle) and the run still completes."""
+    runner, result = _shrink_run(P)
+    assert result is not None and runner.tracker.is_done()
+    assert runner.n_workers == 1
+    snap = P.METRICS.snapshot()
+    assert snap["counters"]["scaleout.wave_shrinks"] >= 1
+    assert snap["gauges"]["elastic.wave_size"] == 1
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_register_worker_grows_live_wave(P):
+    gate = threading.Event()
+
+    class Gated(_SumPerformer):
+        def perform(self, job):
+            gate.wait(timeout=30.0)
+            super().perform(job)
+
+    tracker = P.so.StateTracker()
+    tracker.set_current(np.zeros(4))
+    runner = P.so.DistributedRunner(
+        P.so.CollectionJobIterator([1.0, 2.0, 3.0]), Gated,
+        n_workers=1, tracker=tracker)
+    P.METRICS.reset()
+    out = {}
+
+    def run():
+        out["result"] = runner.run(max_wall_s=60.0)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    wid = runner.register_worker()          # grow while jobs are gated
+    gate.set()
+    t.join(timeout=60.0)
+    assert not t.is_alive() and out["result"] is not None
+    assert runner.n_workers == 2
+    assert wid in tracker.workers()
+    snap = P.METRICS.snapshot()
+    assert snap["counters"]["scaleout.wave_grows"] == 1
+
+
+def test_wave_actuators_grow_and_retire_an_idle_worker(P):
+    """``wave_actuators`` over a live runner: up() admits a worker, down()
+    refuses while every worker holds a job (raises, for the autoscaler's
+    scale_errors) and retires an idle one once they drain; size() counts
+    the enabled workers.  The final model is every job's delta once."""
+    gate = threading.Event()
+
+    class Gated(_SumPerformer):
+        def perform(self, job):
+            gate.wait(timeout=30.0)
+            super().perform(job)
+
+    tracker = P.so.StateTracker()
+    tracker.set_current(np.zeros(4))
+    runner = P.so.DistributedRunner(
+        P.so.CollectionJobIterator([1.0, 2.0, 3.0, 4.0]), Gated,
+        n_workers=1, tracker=tracker, router_cls=P.so.HogWildWorkRouter)
+    up, down, size = P.wave_actuators(runner)
+    P.METRICS.reset()
+    out = {}
+    t = threading.Thread(target=lambda: out.update(
+        result=runner.run(max_wall_s=60.0)), daemon=True)
+    t.start()
+    deadline = time.time() + 30.0
+    while not tracker.current_jobs() and time.time() < deadline:
+        time.sleep(0.01)
+    up()
+    assert size() == 2
+    while len(tracker.current_jobs()) < 2 and time.time() < deadline:
+        time.sleep(0.01)
+    with pytest.raises(RuntimeError, match="no idle worker"):
+        down()                              # both mid-job: drain, never abandon
+    gate.set()
+    t.join(timeout=60.0)
+    assert not t.is_alive() and tracker.is_done()
+    down()                                  # idle now
+    assert size() == 1 and runner.n_workers == 1
+    with pytest.raises(RuntimeError, match="no idle worker"):
+        down()                              # never the last worker
+    snap = P.METRICS.snapshot()
+    assert snap["counters"]["scaleout.wave_grows"] == 1
+    assert snap["counters"]["scaleout.wave_shrinks"] == 1
+    assert snap["gauges"]["elastic.wave_size"] == 1
+
+
+def test_autoscaler_drives_the_wave(P):
+    """The autoscaler over ``wave_actuators``: a burning window grows the
+    wave by one worker, quiet windows retire one again."""
+    tracker = P.so.StateTracker()
+    runner = P.so.DistributedRunner(
+        P.so.CollectionJobIterator([]), _SumPerformer, n_workers=1,
+        tracker=tracker)
+    runner._spawn_workers()
+    try:
+        clock = _Clock()
+        feed = [burning(P), quiet(P), quiet(P), quiet(P)]
+        scaler = P.Autoscaler(
+            lambda: feed.pop(0), *P.wave_actuators(runner),
+            cfg=P.AutoscalerConfig(interval_s=0.01, cooldown_s=1.0,
+                                   down_consecutive=3), clock=clock)
+        decisions = []
+        for _ in range(4):
+            clock.tick(2.0)
+            decisions.append(scaler.step())
+        assert decisions[0] == "up" and decisions[-1] == "down"
+        assert len([w for w in tracker.workers()
+                    if tracker.is_enabled(w)]) == 1
+        assert len(tracker.workers()) == 2
+    finally:
+        runner._shutdown_workers()
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_render_elasticity_over_the_ports_wave_metrics():
+    """``tools/metrics_dump.py``'s elasticity table, as it is, over the
+    port's metrics of a shrunk wave: the same rows as over the
+    reference's."""
+    from tools.metrics_dump import render_elasticity
+
+    tables = []
+    for P in (PKGS["port"], PKGS["ref"]):
+        _shrink_run(P)
+        tables.append(render_elasticity(P.METRICS.snapshot()))
+    assert tables[0] == tables[1]
+    assert "1 workers" in tables[0] and "wave_shrinks" in tables[0]
+    assert render_elasticity({"gauges": {}, "counters": {}}) is None

@@ -73,7 +73,11 @@ def test_port_imports_no_jax_and_no_jax_package():
             *(f"clustering/{m}.py" for m in (
                 "__init__", "kdtree", "kmeans", "quadtree", "vptree")),
             *(f"plot/{m}.py" for m in (
-                "__init__", "tsne", "render_app", "renderers"))} <= mods
+                "__init__", "tsne", "render_app", "renderers")),
+            *(f"parallel/{m}.py" for m in (
+                "scaleout", "procstate", "procrunner", "worker_main",
+                "performers", "storage", "provision", "driver")),
+            "text/scaleout_embeddings.py"} <= mods
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -162,8 +166,11 @@ def _entry_points(tmp_path):
     from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.datasets import prefetch_to_device
     from deeplearning4j_tpu_torch.optimize import transforms as tx
-    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer, Driver
+    from deeplearning4j_tpu_torch.parallel.scaleout import StateTracker
     from deeplearning4j_tpu_torch.serving import InferenceEngine
+    from deeplearning4j_tpu_torch.text.scaleout_embeddings import (
+        Word2VecPerformer)
 
     cfg = ttr.TransformerConfig(vocab_size=11, d_model=8, n_heads=2,
                                 n_layers=1, d_ff=16, max_len=8)
@@ -238,6 +245,8 @@ def _entry_points(tmp_path):
         "DataParallelTrainer": lambda: DataParallelTrainer(
             lambda p, x, y, g: x.sum(), tx.sgd_lr(0.1)),
         "prefetch_to_device": lambda: prefetch_to_device([]),
+        "Driver": lambda: Driver(lambda p, x, y, g: x.sum(), tx.sgd_lr(0.1)),
+        "Word2VecPerformer": lambda: Word2VecPerformer(StateTracker()),
     }
 
 
@@ -257,7 +266,8 @@ def _saved(net, tmp_path) -> str:
     "LSTMSequenceModel", "ResNet", "resnet.init_params",
     "resnet.init_batch_stats", "Word2Vec", "Glove", "ParagraphVectors",
     "LMTokenBatchIterator", "RNTN", "KMeansClustering", "Tsne",
-    "render_word_vectors", "Viterbi", "viterbi_decode", "pos_tag_viterbi"]))
+    "render_word_vectors", "Viterbi", "viterbi_decode", "pos_tag_viterbi",
+    "Driver", "Word2VecPerformer"]))
 def test_entry_points_raise_without_cuda(name, monkeypatch, tmp_path):
     """Without ``device="cpu"`` an entry point asks for CUDA; with no GPU
     (forced here, so the test means the same on any machine) it raises."""
@@ -265,6 +275,31 @@ def test_entry_points_raise_without_cuda(name, monkeypatch, tmp_path):
     fn = _entry_points(tmp_path)[name]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fn()
+
+
+def test_a_spawned_worker_imports_no_jax_and_no_cuda(tmp_path):
+    """A worker process of the port (``python -m
+    deeplearning4j_tpu_torch.parallel.worker_main``, spawned by
+    ``ProcessDistributedRunner``) has neither ``jax`` nor
+    ``deeplearning4j_tpu`` in ``sys.modules`` once it has performed a job,
+    and a host performer never initialised CUDA there."""
+    from deeplearning4j_tpu_torch.parallel.procrunner import (
+        ProcessDistributedRunner)
+    from deeplearning4j_tpu_torch.parallel.scaleout import (
+        CollectionJobIterator)
+    from chip_smoke import _worker_records as read_records
+
+    state = tmp_path / "state"
+    runner = ProcessDistributedRunner(
+        CollectionJobIterator(["a b", "b c"]),
+        "chip_smoke:probed_slow_word_count", state_dir=state, n_workers=1,
+        worker_env={"OMP_NUM_THREADS": "1"})
+    runner.run(max_wall_s=60.0)
+    recs = read_records(state)
+    assert recs and all(r["forbidden"] == [] for r in recs), recs
+    assert not any(r["cuda_initialized"] for r in recs)
+    assert {r["main"] for r in recs} == {
+        "deeplearning4j_tpu_torch.parallel.worker_main"}
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():

@@ -140,6 +140,12 @@ MODULES = [
      "deeplearning4j_tpu.parallel.dryrun"),
     ("deeplearning4j_tpu_torch.text.sharded_embedding",
      "deeplearning4j_tpu.text.sharded_embedding"),
+    *[(f"deeplearning4j_tpu_torch.parallel.{m}",
+       f"deeplearning4j_tpu.parallel.{m}")
+      for m in ("scaleout", "procstate", "procrunner", "performers",
+                "storage", "provision", "driver")],
+    ("deeplearning4j_tpu_torch.text.scaleout_embeddings",
+     "deeplearning4j_tpu.text.scaleout_embeddings"),
     *[(f"deeplearning4j_tpu_torch.{m}", f"deeplearning4j_tpu.{m}")
       for m in ("clustering", "clustering.kdtree", "clustering.kmeans",
                 "clustering.quadtree", "clustering.vptree", "plot",
@@ -153,6 +159,11 @@ _SEED = ("the port draws from a torch.Generator or an int seed: torch "
 _DEVICE = ("the port's entry points take the device and default to CUDA "
            "(device.py; kept)")
 _GEN_DEVICE = "the generator's draw is placed on `device` (kept)"
+_ONLY_MERGED = ("the routers clear only the updates they just merged: the "
+                "reference's clear-all drops an update that lands during a "
+                "merge (a repair; kept)")
+_H100 = ("provisioning is aimed at H100 hosts (parallel/provision.py's "
+         "docstring lists each difference; kept)")
 _KERNELS = ("the port's hook to run the same function through its plain "
             "versions, for chip_smoke.py's kernels-vs-plain checks (kept)")
 
@@ -204,6 +215,31 @@ ALLOWED = {
     "models.transformer:lm_loss_local": {"kernels": _KERNELS},
     "parallel.trainer:DataParallelTrainer.__init__": {
         "device": _DEVICE + "; keyword-only",
+    },
+    "parallel.scaleout:StateTracker.clear_updates": {
+        "worker_ids": _ONLY_MERGED,
+    },
+    "parallel.procstate:FileStateTracker.clear_updates": {
+        "worker_ids": _ONLY_MERGED,
+    },
+    "parallel.driver:Driver.__init__": {
+        "device": _DEVICE + "; keyword-only (the trainer's)",
+    },
+    "text.scaleout_embeddings:Word2VecPerformer.__init__": {
+        "device": _DEVICE + "; keyword-only (where the worker's steps run)",
+    },
+    "parallel.provision:PodSliceSpec.__init__": {
+        "name": _H100 + ": the hosts' name prefix",
+        "accelerator_type": _H100 + ": h100-<cards>, not a TPU slice type",
+        "zone": _H100 + ": a zone that offers a3-highgpu hosts",
+        "runtime_version": _H100 + ": the Deep Learning VM image family "
+                           "(CUDA toolkit included), not a TPU runtime",
+        "coordinator_port": _H100 + ": MASTER_PORT, torch's customary "
+                            "29500, not the JAX coordinator's 8476",
+    },
+    "parallel.provision:PodSliceProvisioner.render_script": {
+        "coordinator_host": _H100 + ": host 0's internal IP from "
+                            "`gcloud compute instances describe`",
     },
     "datasets.iterator:prefetch_to_device": {
         "device": _DEVICE + "; keyword-only (`sharding` picks this rank's "
@@ -304,6 +340,14 @@ ALLOWED_CLI = {
                         "(`train --platform cpu`), as the README writes it "
                         "(kept)",
     "evaluate --platform": "as train's (kept)",
+    "scaleout --performer": "the port's WordCountPerformer: a worker "
+                            "spawned with the reference's would import the "
+                            "JAX package (kept)",
+    "provision --name": _H100,
+    "provision --accelerator-type": _H100,
+    "provision --zone": _H100,
+    "provision --train-argv": "the launched program is the port's CLI, "
+                              "python -m deeplearning4j_tpu_torch (kept)",
     "dryrun --platform": "as train's: the ranks run on the card unless "
                          "the CPU is asked for (kept)",
 }
@@ -335,6 +379,9 @@ def _default(value):
     by their class's name."""
     if value is inspect.Parameter.empty:
         return "<required>"
+    if isinstance(value, type) and value.__module__.split(".")[0] in (
+            "deeplearning4j_tpu", "deeplearning4j_tpu_torch"):
+        return "class " + value.__qualname__   # a package's own class
     text = repr(value)
     if " object at 0x" in text:      # a package's own singleton (METRICS)
         return "instance of " + type(value).__qualname__
@@ -383,7 +430,15 @@ def test_the_comparison_covers_the_ported_surface():
                  "parallel.zero:ZeroLayout.__init__",
                  "parallel.compile_cache:setup_compile_cache",
                  "optimize.transforms:init_sharded",
-                 "models.transformer:TransformerLM.init_opt_zero1"):
+                 "models.transformer:TransformerLM.init_opt_zero1",
+                 "parallel.driver:Driver.__init__", "parallel.driver:Driver.run",
+                 "parallel.scaleout:DistributedRunner.__init__",
+                 "parallel.scaleout:DistributedRunner.retire_worker",
+                 "parallel.procrunner:ProcessDistributedRunner.__init__",
+                 "parallel.procstate:FileStateTracker.evict_stale",
+                 "parallel.storage:ConfigRegistry.register",
+                 "parallel.provision:PodSliceProvisioner.apply",
+                 "text.scaleout_embeddings:Word2VecJobIterator.__init__"):
         assert must in keys
     assert len(PAIRS) >= 50
     assert set(ALLOWED) <= keys, set(ALLOWED) - keys
@@ -486,10 +541,7 @@ def test_cli_options_match_the_reference():
 
 #: names the reference's ``parallel`` package exports that the port's
 #: does not: name -> reason (-> ROADMAP.md item)
-PARALLEL_EXPORTS_ALLOWED = {
-    "Driver": "the host control plane's checkpointing driver, with the "
-              "scaleout waves and process runners (-> A10.3)",
-}
+PARALLEL_EXPORTS_ALLOWED: dict = {}
 
 
 def test_parallel_exports_match_the_reference():
