@@ -46,7 +46,7 @@ paths through the entry points a user calls:
 4. ``ModelServer`` over engine A answering 2 requests via ``ServingClient``;
 5. engine B: as A with ``kv_quant="int8", paged_attention_impl=
    "pallas_int8"`` and 8 requests;
-5a. engine F: as B with ``kv_quant="fp8"`` (e4m3 pages), on A's first 8
+5a. engine F: as B with ``kv_quant="fp8"`` (e4m3 pages), on A's first 4
    prompts (not all 16: the script's time limit), with B's teacher-forced
    comparison;
 5b. the disaggregated tier (``run_disagg``): a ``DisaggScheduler`` over
@@ -60,17 +60,17 @@ paths through the entry points a user calls:
    ``ServingClient.migrate_probe`` / ``migrate``) with full bytes and as
    probed; pages moved and deduped, bytes moved and migration ms;
 6. engine S: as A with ``speculative=True, spec_k=3`` and the random
-   one-layer ``zoo.draft_lm`` draft, on A's first 8 prompts (tokens/s, TTFT, the
+   one-layer ``zoo.draft_lm`` draft, on A's first 4 prompts (tokens/s, TTFT, the
    step, ``serving.spec_accept_len``, its served tokens against A's), and
    teacher-forced verify windows (``decode_window_paged``, ``int8_matmul``
    at M=32) against sequential steps through the plain versions, in bf16
    and float32;
 7. the prefix cache: 8 requests sharing a 128-token system prompt (with
-   suffixes of 16-128 tokens, 16 new tokens each) on A's and on B's
+   suffixes of 16-64 tokens, 16 new tokens each) on A's and on B's
    config with ``prefix_cache=True`` against the same with ``False`` on
    the first 4 of them: the hit rate, and float pages' tokens equal;
 8. ``beam_search`` at width 4, 8 tokens, over the int8 serving tree;
-8b. the router phase (``run_router``): 16 requests of 4 tenants (a
+8b. the router phase (``run_router``): 12 requests of 4 tenants (a
    128-token system prompt each) through two engines (A's config with the
    prefix cache) behind ``PrefixRouter`` and ``RouterServer`` over HTTP,
    held to one engine's tokens and hit rate, with affinity, one trace id
@@ -157,7 +157,7 @@ paths through the entry points a user calls:
    then to 110 epochs on the card, beam search continuing "abc" with
    "defg", and 200 sampled tokens (tokens/s);
 15d. the text pipeline (``run_text``): the native host library must
-   load; a seeded ~1M-token, ~10k-word Zipfian topic corpus; Word2Vec
+   load; a seeded ~800k-token, ~10k-word Zipfian topic corpus; Word2Vec
    at the reference's defaults but subsampling 1e-3 (without it both
    packages diverge there) with hierarchical softmax and with 5
    negatives, GloVe on a fifth of it and ParagraphVectors on 4000
@@ -183,7 +183,7 @@ paths through the entry points a user calls:
    process: ``KMeansClustering(k=20)`` (sweeps, ms a sweep; inertia
    and labels against the CPU within ``TOL_KMEANS``), exact ``Tsne()``
    at its defaults over the 5,000 most frequent words (the host's
-   perplexity search, ms an iteration, KL; P and 20 float64 iterations
+   perplexity search, ms an iteration, KL; P and 10 float64 iterations
    against the CPU; one topic's words closer in 2-D than two topics'),
    and ``render_word_vectors(model)``'s ``/api/coords``, 500 finite
    points.  No kernel of the port lies on 15b-15f: their launch counts
@@ -249,6 +249,30 @@ paths through the entry points a user calls:
    ``gcloud`` that must not run; every worker recording that it imported
    no ``jax`` or ``deeplearning4j_tpu`` and initialised no CUDA.  The
    Driver runs' launches of #1/#3/#4 join the kernels line;
+15j. the analysis tier's runtime guards (``run_guards``, after beam
+   search, on the flagship model).  Every serving and training phase
+   already runs under ``hot_loop_guard()`` (the guard is on by
+   default): each engine's decode segments are counted and any refusal
+   fails the run (engine A's line prints them, and engine A's
+   dispatches run under ``SHARDGUARD`` with 0 violations, as do 15g's
+   stages here and on the dp=2 ranks, enabled there by
+   ``DL4J_TPU_SHARDGUARD=1``; the disaggregated tier runs under the
+   port's ``LOCKGUARD`` with the decode engine watched, 0 violations).
+   15j itself: on one thread inside the guard ``.item()``,
+   ``float``/``bool`` of a CUDA tensor, ``nonzero``, ``.cpu()``,
+   ``.tolist()`` and a pageable upload raise at their call site, a
+   pinned ``non_blocking`` upload passes, ``allow_transfers()``
+   re-allows them all and ``log`` mode counts them; meanwhile a second
+   thread makes the same reads unguarded and passes; two engines
+   (engine A's config) serve 4 requests each from their own threads at
+   once under the guard, tokens equal to their unguarded runs, no
+   refusal; the guard's cost: engine A's decode step p50 on 8 short
+   prompts (32 new tokens) and ``fit``'s p50 step at 15i's Driver
+   config (16 x 512, 5 steps), the guard off and on (off, on, on, off
+   in turn, the tokens and losses equal in every mode; ``guard_probe.py``
+   times the dispatch-mode alternative the same way); a parameter placed
+   on the host fed to ``train.sync_step``: exactly one
+   ``resharded-input`` violation and the gauge at 1;
 16. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
    0 just before it runs, read just after; #7 has a row per page type,
    ``paged_attention_int8`` and ``paged_attention_fp8``), then the card's
@@ -594,6 +618,9 @@ def check_int8_one_launch(torch, tmm, dev, tries: int = 3):
 #: tokens each; so a row attends over 16-288 positions in a decode step
 PROMPT_TOKENS = (16, 256)
 NEW_TOKENS = 32
+#: engines F and S serve engine A's first FS_PROMPTS prompts (8 before
+#: phase 15j; the disaggregated tier's DISAGG_PROMPTS are among them)
+FS_PROMPTS = 4
 ENGINE_LENGTHS = (PROMPT_TOKENS[0], PROMPT_TOKENS[1] + NEW_TOKENS)
 #: the long-context paged cases: lengths over the whole 128-page table
 LONG_LENGTHS = (1, 2048)
@@ -1381,6 +1408,7 @@ def run_engine(eng, tmodel, params, scfg, prompts, wrappers, label,
     """Serve ``prompts`` as concurrent greedy requests; returns the engine
     (still running) and the report with the served tokens and the launch
     counts of this run alone (reset after warm-up, read at the end)."""
+    from deeplearning4j_tpu_torch.analysis import runtime as rt
     from deeplearning4j_tpu_torch.observability import METRICS
 
     mcfg = tmodel.cfg
@@ -1389,11 +1417,15 @@ def run_engine(eng, tmodel, params, scfg, prompts, wrappers, label,
     engine.start()                     # builds/loads the kernels, warms up
     reset_counts(wrappers)             # counts of THIS path only
     METRICS.reset()                    # and the registry's (process-wide)
+    rt.reset_counts()                  # and the transfer guard's
     t0 = time.perf_counter()
     handles = [engine.submit(p, max_new) for p in prompts]
     comps = [h.result(timeout=600) for h in handles]
     wall = time.perf_counter() - t0
     counts = {w.__name__: w.launches for w in wrappers}
+    guard = rt.counts()
+    if guard["refused"] or (rt.guard_mode() and not guard["guarded"]):
+        fail(f"{label}: the decode segments ran {guard} under the guard")
     for c in comps:
         if len(c.tokens) != max_new or c.finish_reason != "length":
             fail(f"{label}: a request ended {c.finish_reason} with "
@@ -1424,7 +1456,9 @@ def run_engine(eng, tmodel, params, scfg, prompts, wrappers, label,
                               else 0),
               "slots": scfg.slots, "kv_quant": scfg.kv_quant,
               "served": [c.tokens for c in comps],
-              "launches": counts, "config": str(scfg)}
+              "launches": counts, "config": str(scfg),
+              "guard": {"segments": guard["guarded"],
+                        "refused": guard["refused"]}}
     if scfg.speculative:
         acc = timers["serving.spec_accept_len"]
         report["spec_accept_len"] = {
@@ -1446,6 +1480,10 @@ def engine_line(label, rep) -> str:
         extra += f" spec_accept_len={rep['spec_accept_len']}"
     if "prefix" in rep:
         extra += f" prefix={rep['prefix']}"
+    if "shardguard_violations" in rep:
+        extra += (f" guarded_segments={rep['guard']['segments']} "
+                  f"refusals={rep['guard']['refused']} shardguard_violations"
+                  f"={rep['shardguard_violations']}")
     return (f"{label}: {rep['completed']}/{rep['requests']} requests, "
             f"tokens/s={rep['tokens_per_s']:.1f} "
             f"ttft_p50_s={rep['ttft_p50_s']:.4f} "
@@ -1528,8 +1566,8 @@ def window_vs_steps(torch, ttr, tmm, tpa, mcfg, params, dev="cuda", B=8,
 
 
 #: the prefix-cache phase: 16 requests share a 128-token system prompt,
-#: each with a suffix of 16-128 tokens, 16 new tokens each
-PREFIX_SYSTEM, PREFIX_SUFFIX, PREFIX_NEW = 128, (16, 128), 16
+#: each with a suffix of 16-64 tokens, 16 new tokens each
+PREFIX_SYSTEM, PREFIX_SUFFIX, PREFIX_NEW = 128, (16, 64), 16
 #: the uncached baseline engines serve the first 4 of the phase's
 #: requests (a request's tokens do not depend on its batch): their
 #: token-by-token prefill was ~57 s of the script at 8
@@ -1686,17 +1724,28 @@ def run_disagg(eng, serving, tmodel, params, prompts, want, label, extra,
        decode side's probe (``ServingClient.migrate_probe``) plans it,
        with no page on the wire; both give the in-process tokens.  (A
        fully cached prompt prefills nothing, so on quantized pages too
-       the tokens cannot move with the prefix cache.)"""
+       the tokens cannot move with the prefix cache.)
+
+    The whole phase runs with the port's ``LOCKGUARD`` installed (its
+    threads: the scheduler's prefill workers, the decode engine's serve
+    thread, the HTTP handlers) and the decode engine under Eraser watch
+    after ``start()``: the instrumented locks are counted and any
+    violation fails the run."""
+    from deeplearning4j_tpu_torch.analysis.lockguard import LOCKGUARD
     from deeplearning4j_tpu_torch.observability import METRICS
 
     mcfg = tmodel.cfg
     common = dict(slots=slots, paged=True, page_size=page_size,
                   int8_decode=True, prefix_cache=True, **extra)
+    LOCKGUARD.reset()
+    LOCKGUARD.install()                # before the engines build their locks
+    made0 = LOCKGUARD.instrumented()
     pf = eng.InferenceEngine(tmodel, params, cfg=eng.ServingConfig(
         role="prefill", **common), device=dev)
     dec = eng.InferenceEngine(tmodel, params, cfg=eng.ServingConfig(
         role="decode", **common), device=dev)
     sched = serving.DisaggScheduler([pf], dec).start()   # warms both
+    LOCKGUARD.watch(dec)               # after the start handoff
     try:
         reset_counts(wrappers)
         METRICS.reset()
@@ -1793,7 +1842,13 @@ def run_disagg(eng, serving, tmodel, params, prompts, want, label, extra,
                  f"health role {health['role']}")
         report["http"] = http
     finally:
+        LOCKGUARD.unwatch(dec)
         sched.stop()
+        LOCKGUARD.uninstall()
+    report["lockguard"] = {"locks": LOCKGUARD.instrumented() - made0,
+                           "violations": len(LOCKGUARD.violations())}
+    if LOCKGUARD.violations():
+        fail(f"disagg {label}: {LOCKGUARD.report()}")
     print(f"disagg {label}: {report['completed']}/{report['requests']} "
           f"requests, tokens equal the unified engine's, tokens/s="
           f"{report['tokens_per_s']:.1f} ttft_p50_s="
@@ -1804,16 +1859,20 @@ def run_disagg(eng, serving, tmodel, params, prompts, want, label, extra,
           f"{report['bytes_moved']} migrate_ms_p50="
           f"{report['migrate_ms_p50']:.3f} migrate_ms_mean="
           f"{report['migrate_ms_mean']:.3f} repeat={[(m['disagg.pages_moved'], m['disagg.pages_deduped'], m['disagg.bytes_moved']) for m in moves]} "
-          f"http={report['http']} launches={counts}", flush=True)
+          f"http={report['http']} launches={counts} lockguard "
+          f"{report['lockguard']['locks']} locks instrumented, "
+          f"{report['lockguard']['violations']} violations (the numbers "
+          f"above taken under it)", flush=True)
     return report
 
 
 # ------------------------------------------------------------------ router
 
-#: the router phase: 4 tenants x 4 requests, each a tenant's 128-token
-#: system prompt, a 16-64-token suffix and 16 new tokens; engine A's
-#: serving config with the prefix cache; weights from ROUTER_SEED
-ROUTER_TENANTS, ROUTER_PER_TENANT = 4, 4
+#: the router phase: 4 tenants x 3 requests (4 before phase 15j), each a
+#: tenant's 128-token system prompt, a 16-64-token suffix and 16 new
+#: tokens; engine A's serving config with the prefix cache; weights from
+#: ROUTER_SEED
+ROUTER_TENANTS, ROUTER_PER_TENANT = 4, 3
 ROUTER_SYSTEM, ROUTER_SUFFIX, ROUTER_NEW = 128, (16, 64), 16
 ROUTER_SEED = 5
 ROUTER_SERVING = dict(slots=8, paged=True, page_size=16, int8_decode=True,
@@ -1864,7 +1923,7 @@ def run_router(torch, eng, wrappers, card, dev="cuda", cfg_kw=None,
     """The prefix-affinity router, observability and the control plane on
     the flagship (``cfg_kw`` narrows it for a CPU rehearsal):
 
-    1. one engine (``ROUTER_SERVING``) serves the phase's 16 requests, 4
+    1. one engine (``ROUTER_SERVING``) serves the phase's 12 requests, 4
        tenants on 4 threads: the single-replica tokens and hit rate;
     2. two ``EngineReplica`` s behind ``PrefixRouter(RouterConfig(
        page_size=16, affinity_pages=4))`` and a ``RouterServer``, the same
@@ -3448,7 +3507,9 @@ TOL_RESNET_BF16 = 0.02
 TOL_LSTM = 1e-4
 # a small Word2Vec HS fit, card against CPU, every table entry
 TOL_W2V_CARD = 1e-4
-LSTM_TEXT = "abcdefg " * 60
+#: 30 repeats (60 before phase 15j): the beam reads "defg" after as many
+#: epochs at either length (90 on the CPU), each epoch half the steps
+LSTM_TEXT = "abcdefg " * 30
 #: the card's fit (110 epochs: the CPU's beam first reads "defg" at 100;
 #: 150 before phase 15h, ~18 s more)
 LSTM_EPOCHS = 110
@@ -3459,7 +3520,7 @@ LSTM_CMP_EPOCHS = 20
 # pairs a batch, their updates summed; tests/test_torch_text.py pins it);
 # 1e-3 is the original word2vec's setting
 WORD2VEC_SAMPLE = 1e-3
-TEXT_TOKENS = 1_000_000
+TEXT_TOKENS = 800_000          # 1M before phase 15j
 TEXT_VOCAB = 10_000
 TEXT_TOPICS = 20
 
@@ -3772,7 +3833,7 @@ def _timed_fit(torch, model, build_first=True):
 def run_text(torch, wrappers, card, dev="cuda"):
     """The text pipeline on the card.  The native host library must load
     (a missing one fails here rather than passing on the Python
-    parsers).  A seeded topic corpus of ~1M tokens over a ~10k-word
+    parsers).  A seeded topic corpus of ~800k tokens over a ~10k-word
     Zipfian vocabulary (``topic_corpus``); Word2Vec at the reference's
     defaults (layer 100, window 5, batch 4096) but for subsampling
     (``WORD2VEC_SAMPLE``) with hierarchical softmax, then with 5
@@ -3985,7 +4046,7 @@ TAG_SENTENCES = 200
 #: frequent words
 KMEANS_K = 20
 TSNE_WORDS = 5000
-TSNE_CMP_ITERS = 20
+TSNE_CMP_ITERS = 10          # 20 before phase 15j
 # k-means, card against CPU from one seed: the inertia, relative; the
 # labels equal but where a point's two nearest centroids lie within this
 # of each other, relative
@@ -4691,8 +4752,12 @@ def dp_width_job(torch, rank, world, ckpt_dir, cfg_kw=None, dev="cuda"):
     reset_counts(wrappers)
     rep = dp_stages(torch, local_mesh(), cfg, params, batches, dev,
                     f"dp={world} gloo", (0, 1, 2, 3, "hogwild"), ckpt_dir)
+    from deeplearning4j_tpu_torch.analysis.shardguard import SHARDGUARD
+
     return {"stages": rep, "launches": _counts(wrappers),
-            "peak_mem_gb": _peak_gb(torch, dev)}
+            "peak_mem_gb": _peak_gb(torch, dev),
+            "shardguard": {"enabled": SHARDGUARD.enabled,
+                           "violations": len(SHARDGUARD.violations())}}
 
 
 def dp_elastic_job(torch, rank, world, root, cfg_kw=None, dev="cuda",
@@ -4820,6 +4885,8 @@ def run_data_parallel(torch, wrappers, card, dev="cuda", cfg_kw=None,
     ``MPRun``) the four elastic ranks then run phase 15h's legs: their
     results are under "mp_ranks" and their seconds under "mp_s", not in
     this phase's."""
+    from deeplearning4j_tpu_torch.analysis.shardguard import (ENV_SHARDGUARD,
+                                                              SHARDGUARD)
     from deeplearning4j_tpu_torch.models import transformer as ttr
     from deeplearning4j_tpu_torch.observability import METRICS
     from deeplearning4j_tpu_torch.optimize import transforms as TT
@@ -4840,8 +4907,14 @@ def run_data_parallel(torch, wrappers, card, dev="cuda", cfg_kw=None,
         rep["backend_one_rank"] = pmesh.backend()
         params, batches = dp_inputs(torch, ttr, cfg, dev, 1 + DP_STEPS + 1)
         reset_counts(wrappers)
+        SHARDGUARD.reset()             # the stages' dispatches, checked
+        SHARDGUARD.enable()
         one = dp_stages(torch, mesh, cfg, params, batches, dev,
                         f"dp=1 {backend}", (0, 1, 2, 3, "hogwild"))
+        SHARDGUARD.disable()
+        rep["shardguard_dp1"] = len(SHARDGUARD.violations())
+        if rep["shardguard_dp1"]:
+            fail(f"15g dp=1: {SHARDGUARD.report()}")
         model = ttr.TransformerLM(cfg, mesh, device=dev)
         z1 = {}
         for zero1 in (False, True):
@@ -4879,9 +4952,19 @@ def run_data_parallel(torch, wrappers, card, dev="cuda", cfg_kw=None,
         # gloo, and the checkpoint back at dp=1 here
         ckpt = Path(tmp) / "zero2"
         on_card = torch.device(dev).type == "cuda"
-        two = spawn_ranks(2, "dp_width_job", "15g dp=2",
-                          ckpt_dir=str(ckpt), cfg_kw=cfg_kw, dev=dev,
-                          nccl_first=on_card)
+        os.environ[ENV_SHARDGUARD] = "1"   # the ranks guard their steps
+        try:
+            two = spawn_ranks(2, "dp_width_job", "15g dp=2",
+                              ckpt_dir=str(ckpt), cfg_kw=cfg_kw, dev=dev,
+                              nccl_first=on_card)
+        finally:
+            os.environ.pop(ENV_SHARDGUARD, None)
+        guarded = [r["shardguard"] for r in two]
+        if not all(g["enabled"] and g["violations"] == 0 for g in guarded):
+            fail(f"15g dp=2: shardguard on the ranks {guarded}")
+        print(f"15g shardguard: dp=1 stages {rep['shardguard_dp1']} "
+              f"violations; dp=2 ranks {[g['violations'] for g in guarded]}"
+              f" violations (enabled from {ENV_SHARDGUARD}=1)", flush=True)
         if on_card:
             msgs = [r["nccl_refusal"] for r in two]
             if not all("NCCL cannot run several ranks on one GPU" in m
@@ -6032,6 +6115,333 @@ def run_control_plane(torch, wrappers, card, root=ROOT, dev="cuda",
     return rep
 
 
+#: phase 15j (run_guards): the analysis tier's runtime guards.  The cost
+#: pairs run engine A's serving config on GUARD_PROMPTS prompts of
+#: GUARD_PROMPT_LEN tokens (NEW_TOKENS new), and fit at 15i's Driver
+#: config (CTL_BATCH x DP_SEQ) for GUARD_FIT_STEPS steps, each mode in
+#: turn; two engines then serve GUARD_CONCURRENT requests each at once
+GUARD_PROMPTS, GUARD_PROMPT_LEN, GUARD_FIT_STEPS = 8, 8, 5
+GUARD_CONCURRENT, GUARD_CONCURRENT_NEW = 4, 8
+#: the modes a cost pair runs, in order: the guard off and on, twice;
+#: and the guard's own enter/exit, timed alone over GUARD_ENTRIES entries
+GUARD_MODES = ("off", "on", "on", "off")
+GUARD_ENTRIES = 2000
+
+
+@contextlib.contextmanager
+def transfer_guard_as(rt, mode):
+    """``DL4J_TPU_TRANSFER_GUARD`` for one run: "off" opts out, "on" is
+    the default."""
+    saved = os.environ.get(rt.ENV_FLAG)
+    if mode == "off":
+        os.environ[rt.ENV_FLAG] = "0"
+    else:
+        os.environ.pop(rt.ENV_FLAG, None)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(rt.ENV_FLAG, None)
+        else:
+            os.environ[rt.ENV_FLAG] = saved
+
+
+def guard_refusals(torch, rt, dev):
+    """On this thread inside ``hot_loop_guard()``: the syncs raise at
+    their call site, an async upload from pinned memory passes,
+    ``allow_transfers()`` re-allows every sync, ``log`` mode counts them
+    without raising; meanwhile a second thread reads unguarded and
+    passes.  Returns the report."""
+    import threading
+
+    x = torch.arange(4096, device=dev, dtype=torch.float32)
+    host = torch.arange(4096, dtype=torch.float32)          # pageable
+    on_card = torch.device(dev).type == "cuda"
+    pinned = host.pin_memory() if on_card else host
+    syncs = {"item": lambda: x.sum().item(), "float": lambda: float(x[7]),
+             "bool": lambda: bool((x > 5).any()),
+             "nonzero": lambda: x.nonzero(), "cpu": lambda: x.cpu(),
+             "tolist": lambda: x[:4].tolist(),
+             "pageable upload": lambda: host.to(dev)}
+    # a CPU tensor's copies wait for nothing (the CPU rehearsal)
+    expect = set(syncs) if on_card else {"item", "float", "bool", "nonzero"}
+    rt.reset_counts()
+    refused = set()
+    with transfer_guard_as(rt, "on"), rt.hot_loop_guard() as mode:
+        for name, fn in syncs.items():
+            try:
+                fn()
+            except rt.HostSyncError:
+                refused.add(name)
+        up = pinned.to(dev, non_blocking=True)
+        with rt.allow_transfers():
+            for fn in syncs.values():
+                fn()
+            up_ok = torch.equal(up.cpu(), host)
+    if mode != "disallow" or refused != expect or not up_ok:
+        fail(f"15j: the guard ({mode}) refused {sorted(refused)}, not "
+             f"{sorted(expect)}, or the pinned upload went wrong ({up_ok})")
+    # log mode: counted, not raised
+    saved = os.environ.get(rt.ENV_FLAG)
+    os.environ[rt.ENV_FLAG] = "log"
+    rt.reset_counts()
+    try:
+        with rt.hot_loop_guard():
+            for fn in syncs.values():
+                fn()
+    finally:
+        if saved is None:
+            os.environ.pop(rt.ENV_FLAG, None)
+        else:
+            os.environ[rt.ENV_FLAG] = saved
+    logged = rt.counts()
+    if logged["logged"] != len(expect) or logged["refused"]:
+        fail(f"15j: log mode counted {logged}, not {len(expect)} syncs")
+    # scope: while this thread is inside the guard, another thread makes
+    # the same reads unguarded (they pass); then this thread's is refused
+    inside, read, out = threading.Event(), threading.Event(), {}
+
+    def plain():
+        inside.wait(30)
+        try:
+            out["plain"] = [fn() is not None for fn in syncs.values()]
+        except Exception as e:      # reported below, a failure
+            out["plain"] = repr(e)
+        read.set()
+
+    th = threading.Thread(target=plain, daemon=True)
+    th.start()
+    rt.reset_counts()
+    with transfer_guard_as(rt, "on"), rt.hot_loop_guard():
+        inside.set()
+        read.wait(60)
+        try:
+            x.sum().item()
+            out["guarded"] = "passed"
+        except rt.HostSyncError:
+            out["guarded"] = "refused"
+    th.join(60)
+    if out.get("plain") != [True] * len(syncs) \
+            or out.get("guarded") != "refused" \
+            or rt.counts()["refused"] != 1:
+        fail(f"15j: the guard is not scoped to its thread: {out}, "
+             f"{rt.counts()}")
+    return {"refused": sorted(refused), "pinned_upload": "passed",
+            "allow_transfers": "re-allowed all", "log_mode": logged,
+            "second_thread": "passed", "guarded_thread": out["guarded"]}
+
+
+def guard_costs(torch, eng, tmodel, params, scfg, rng, dev, cfg_kw=None,
+                modes=GUARD_MODES, guard_as=transfer_guard_as):
+    """The transfer guard's cost, each of ``modes`` in turn (``guard_as(rt,
+    mode)`` sets one up): engine A's decode step p50 on GUARD_PROMPTS
+    prompts, ``fit``'s step p50 at 15i's Driver config, the tokens and
+    losses equal in every mode and nothing refused; and the guard's own
+    enter and exit in each mode but "off".  Returns the report and
+    ``(trainer, state, batches)`` of the fit runs."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.analysis import runtime as rt
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.observability import METRICS
+    from deeplearning4j_tpu_torch.optimize import transforms as TT
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
+
+    # ---- the decode step: one engine, each mode in turn
+    prompts = [rng.integers(0, tmodel.cfg.vocab_size,
+                            GUARD_PROMPT_LEN).tolist()
+               for _ in range(GUARD_PROMPTS)]
+    engine = eng.InferenceEngine(tmodel, params, cfg=scfg, device=dev).start()
+    decode, served = {m: [] for m in modes}, None
+    try:
+        for mode in modes:
+            with guard_as(rt, mode):
+                METRICS.reset()
+                rt.reset_counts()
+                hs = [engine.submit(p, NEW_TOKENS) for p in prompts]
+                toks = [h.result(timeout=600).tokens for h in hs]
+                snap = METRICS.snapshot()["timers"]
+                c = rt.counts()
+            if served is None:
+                served = toks
+            if toks != served or c["refused"]:
+                fail(f"15j: decode under {mode}: tokens differ or {c}")
+            decode[mode].append(snap["serving.decode_step"]["p50_s"] * 1e3)
+    finally:
+        engine.stop()
+    del engine
+
+    # ---- fit's step: 15i's Driver config, each mode in turn from one state
+    cfg = dp_config(torch, ttr, cfg_kw)
+    fparams, batches = dp_inputs(torch, ttr, cfg, dev, GUARD_FIT_STEPS,
+                                 batch=CTL_BATCH)
+    trainer = DataParallelTrainer(
+        lambda p, x, y, gen=None: ttr.lm_loss_local(p, x, y, cfg),
+        TT.chain(TT.momentum(0.9), TT.sgd_lr(DP_LR)), device=dev)
+    state0 = trainer.init_state(fparams)
+    with guard_as(rt, "off"):     # the first bucket's cost count, warm-up
+        trainer.fit(dataclasses.replace(state0), batches[:1])
+    fit_ms, losses = {m: [] for m in modes}, None
+
+    class Timed(list):
+        """The batch stream, stamping each pull on the host clock."""
+
+        def __iter__(self):
+            for b in list.__iter__(self):
+                self.stamps.append(time.perf_counter())
+                yield b
+
+    for mode in modes:
+        stream = Timed(batches)
+        stream.stamps = []
+        with guard_as(rt, mode):
+            rt.reset_counts()
+            _, got = trainer.fit(dataclasses.replace(state0), stream,
+                                 async_dispatch=False)
+            c = rt.counts()
+        if losses is None:
+            losses = got
+        if got != losses or c["refused"] or (mode != "off"
+                                             and c["guarded"] != 1):
+            fail(f"15j: fit under {mode}: losses {got} vs {losses}, {c}")
+        gaps = sorted(b - a for a, b in zip(stream.stamps,
+                                            stream.stamps[1:]))
+        fit_ms[mode].append(gaps[len(gaps) // 2] * 1e3)
+
+    def pair(d):
+        return {m: round(sum(v) / len(v), 5) for m, v in d.items()}
+
+    # the guard's own cost, a decode segment's enter and exit (no sync)
+    entry_us = {}
+    for mode in dict.fromkeys(m for m in modes if m != "off"):
+        with guard_as(rt, mode):
+            t0 = time.perf_counter()
+            for _ in range(GUARD_ENTRIES):
+                with rt.hot_loop_guard():
+                    pass
+            entry_us[mode] = round(
+                (time.perf_counter() - t0) / GUARD_ENTRIES * 1e6, 3)
+    rep = {"decode_step_p50_ms": pair(decode), "fit_step_p50_ms": pair(fit_ms),
+           "decode_step_runs_ms": decode, "fit_step_runs_ms": fit_ms,
+           "guard_entry_us": entry_us}
+    return rep, (trainer, state0, batches)
+
+
+def run_guards(torch, eng, tmodel, params, wrappers, card, dev="cuda",
+               cfg_kw=None):
+    """Phase 15j: the analysis tier's runtime guards at the flagship's
+    width — refusal and scope (``guard_refusals``); two engines (engine
+    A's config) serving GUARD_CONCURRENT requests each from their own
+    threads at once under the guard, tokens equal to their unguarded
+    runs and no refusal; the guard's cost on engine A's decode step and
+    on ``fit``'s step at 15i's Driver config (``guard_costs``); a planted
+    ``resharded-input`` at ``train.sync_step``."""
+    import threading
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.analysis import runtime as rt
+    from deeplearning4j_tpu_torch.analysis.shardguard import SHARDGUARD
+    from deeplearning4j_tpu_torch.observability import METRICS
+    from deeplearning4j_tpu_torch.utils.tree_math import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    rep = {"card": card}
+    rep["refusals"] = guard_refusals(torch, rt, dev)
+    mcfg = tmodel.cfg
+    rng = np.random.default_rng(17)
+    scfg = eng.ServingConfig(slots=8, paged=True, page_size=16,
+                             int8_decode=True, paged_attention_impl="pallas")
+
+    # ---- two engines at once, guarded, against their unguarded runs
+    sets = [[rng.integers(0, mcfg.vocab_size, GUARD_PROMPT_LEN).tolist()
+             for _ in range(GUARD_CONCURRENT)] for _ in range(2)]
+    engines = [eng.InferenceEngine(tmodel, params, cfg=scfg,
+                                   device=dev).start() for _ in range(2)]
+    try:
+        with transfer_guard_as(rt, "off"):
+            want = [[e.generate(p, GUARD_CONCURRENT_NEW, timeout=600).tokens
+                     for p in ps] for e, ps in zip(engines, sets)]
+        rt.reset_counts()
+        got = [None, None]
+
+        def serve(i):
+            hs = [engines[i].submit(p, GUARD_CONCURRENT_NEW)
+                  for p in sets[i]]
+            got[i] = [h.result(timeout=600).tokens for h in hs]
+
+        with transfer_guard_as(rt, "on"):
+            ths = [threading.Thread(target=serve, args=(i,), daemon=True)
+                   for i in range(2)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(900)
+    finally:
+        for e in engines:
+            e.stop()
+    both = rt.counts()
+    if got != want or both["refused"] or both["guarded"] < 2:
+        fail(f"15j: two guarded engines served {got} against {want}, "
+             f"counts {both}")
+    rep["two_engines"] = {"requests_each": GUARD_CONCURRENT,
+                          "guarded_segments": both["guarded"],
+                          "refused": both["refused"], "tokens_equal": True}
+    del engines
+
+    # ---- the guard's cost on the decode step and on fit's step
+    costs, (trainer, state0, batches) = guard_costs(
+        torch, eng, tmodel, params, scfg, rng, dev, cfg_kw)
+    rep.update(costs)
+    print(f"guards 15j: {card} | refused {rep['refusals']['refused']}, a "
+          f"pinned upload passed, allow_transfers re-allowed, log mode "
+          f"counted {rep['refusals']['log_mode']['logged']}, a second "
+          f"thread read unguarded meanwhile; two engines x "
+          f"{GUARD_CONCURRENT} requests at once: {both['guarded']} guarded "
+          f"segments, {both['refused']} refusals, tokens equal | "
+          f"decode_step_p50_ms {rep['decode_step_p50_ms']} "
+          f"fit_step_p50_ms {rep['fit_step_p50_ms']} (off / on; means of "
+          f"the runs {rep['decode_step_runs_ms']} / "
+          f"{rep['fit_step_runs_ms']}) guard enter+exit us "
+          f"{rep['guard_entry_us']}", flush=True)
+
+    # ---- shardguard: one parameter placed on the host, at the sync step
+    SHARDGUARD.reset()
+    SHARDGUARD.enable()
+    try:
+        step = trainer._step_for(CTL_BATCH)
+        target = next(t for t in tree_leaves(state0.params) if t.dim() == 2)
+        # the host off the card (the meta device in a CPU rehearsal)
+        wrong = "cpu" if torch.device(dev).type == "cuda" else "meta"
+        bad = tree_map(lambda t: t.to(wrong) if t is target else t,
+                       state0.params)
+        x, y = batches[0]
+        err = None
+        try:
+            step(bad, state0.tstate, x, y, torch.Generator(device=dev),
+                 0, CTL_BATCH)
+        except RuntimeError as e:     # the step cannot run on it: expected
+            err = type(e).__name__
+        vs = SHARDGUARD.violations()
+        SHARDGUARD.emit_metrics()
+        gauge = METRICS.snapshot()["gauges"].get(
+            "shardguard.violations.resharded_input")
+    finally:
+        SHARDGUARD.disable()
+        SHARDGUARD.reset()
+    if [(v.kind, v.site) for v in vs] != [("resharded-input",
+                                          "train.sync_step")] or gauge != 1:
+        fail(f"15j: the planted placement gave {vs}, gauge {gauge}")
+    rep["shardguard_planted"] = {"violations": [str(v) for v in vs],
+                                 "gauge": gauge, "step_error": err}
+    del trainer, state0, batches
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"guards 15j: shardguard planted a host-placed parameter: "
+          f"{vs[0]} (gauge {gauge}, the step then raised {err}) | "
+          f"phase_s={rep['phase_s']:.1f}", flush=True)
+    return rep
+
+
 def print_ptxas(usage) -> None:
     """Registers, spills and static shared memory of the bf16 kernels,
     from the builds' ``ptxas -v`` reports (every kernel's are in the
@@ -6112,6 +6522,7 @@ def main() -> int:
     import numpy as np
 
     from deeplearning4j_tpu_torch import serving
+    from deeplearning4j_tpu_torch.analysis.shardguard import SHARDGUARD
     from deeplearning4j_tpu_torch.models import transformer as ttr
     from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.ops.cuda import attention as tat
@@ -6166,8 +6577,14 @@ def main() -> int:
     cfg_a = eng.ServingConfig(slots=8, paged=True, page_size=16,
                               int8_decode=True, paged_attention_impl="pallas")
     prompts_a = make_prompts(rng, 16, mcfg.vocab_size)
+    SHARDGUARD.reset()                 # engine A's dispatches, checked
+    SHARDGUARD.enable()
     engine_a, rep_a = run_engine(eng, tmodel, params, cfg_a, prompts_a,
                                  wrappers, "engine A")
+    SHARDGUARD.disable()
+    rep_a["shardguard_violations"] = len(SHARDGUARD.violations())
+    if rep_a["shardguard_violations"]:
+        fail(f"engine A: {SHARDGUARD.report()}")
     la = rep_a["launches"]
     if la["int8_matmul"] <= 0 or la["paged_attention"] <= 0:
         fail(f"engine A did not run through its kernels: {la}")
@@ -6208,13 +6625,14 @@ def main() -> int:
           flush=True)
     del engine_b
 
-    # ---- 5a. engine F: B's config on fp8 pages, on A's first 8 prompts
-    # (so the disaggregated fp8 leg below has a unified engine to equal;
-    # not all 16: the script's time limit)
+    # ---- 5a. engine F: B's config on fp8 pages, on A's first FS_PROMPTS
+    # prompts (so the disaggregated fp8 leg below has a unified engine to
+    # equal; not all 16: the script's time limit)
     cfg_f = eng.ServingConfig(slots=8, paged=True, page_size=16,
                               int8_decode=True, kv_quant="fp8",
                               paged_attention_impl="pallas_int8")
-    engine_f, rep_f = run_engine(eng, tmodel, params, cfg_f, prompts_a[:8],
+    engine_f, rep_f = run_engine(eng, tmodel, params, cfg_f,
+                                 prompts_a[:FS_PROMPTS],
                                  wrappers, "engine F")
     engine_f.stop()
     del engine_f
@@ -6242,13 +6660,14 @@ def main() -> int:
                                paged_attention_impl="pallas_int8"), rep_f))}
 
     # ---- 5b. the speculative engine S: engine A's config and its first
-    # 8 prompts (not all 16: the script's time limit), a random one-layer
-    # draft proposing 3 tokens a verify window
+    # FS_PROMPTS prompts (not all 16: the script's time limit), a random
+    # one-layer draft proposing 3 tokens a verify window
     draft_model, draft_params = zoo.draft_lm(mcfg, device="cuda")
     cfg_s = eng.ServingConfig(slots=8, paged=True, page_size=16,
                               int8_decode=True, paged_attention_impl="pallas",
                               speculative=True, spec_k=3)
-    engine_s, rep_s = run_engine(eng, tmodel, params, cfg_s, prompts_a[:8],
+    engine_s, rep_s = run_engine(eng, tmodel, params, cfg_s,
+                                 prompts_a[:FS_PROMPTS],
                                  wrappers, "engine S",
                                  draft_model=draft_model,
                                  draft_params=draft_params)
@@ -6257,7 +6676,7 @@ def main() -> int:
     if rep_s["launches"]["int8_matmul"] <= 0:
         fail(f"engine S did not run through its kernels: {rep_s['launches']}")
     rep_s["agreement_with_a"] = token_agreement(rep_s["served"],
-                                                rep_a["served"][:8])
+                                                rep_a["served"][:FS_PROMPTS])
     rep_s["teacher_forced"] = window_vs_steps(torch, ttr, tmm, tpa, mcfg,
                                               params)
     print(engine_line("engine S", rep_s) + " agreement with engine A: "
@@ -6268,6 +6687,10 @@ def main() -> int:
     # script's time limit); 5d. beam search
     prefix = run_prefix(eng, tmodel, params, rng, wrappers, n_req=8)
     beam = run_beam(torch, ttr, tmm, tmodel, params, wrappers)
+
+    # ---- 5e'. the analysis tier's runtime guards (15j): refusal and
+    # scope, two engines at once, the guard's cost, a planted placement
+    guards = run_guards(torch, eng, tmodel, params, wrappers, card)
     del tmodel, params
     torch.cuda.empty_cache()
 
@@ -6383,7 +6806,8 @@ def main() -> int:
             "checkpoints": ckpt, "dl4j": dl4j, "resnet": resnet,
             "lstm": lstm, "text": text, "trees": trees, "embed": embed,
             "data_parallel": dp, "model_parallel": mp,
-            "control_plane": ctl, "kernels": kernels}, indent=1))
+            "control_plane": ctl, "guards": guards, "kernels": kernels},
+            indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

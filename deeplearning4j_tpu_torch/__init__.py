@@ -27,6 +27,10 @@ Ported so far:
   (Word2Vec, GloVe, ParagraphVectors, vectorizers, the LM corpus);
 - ``ops.cuda``: the kernel registry, the ``nvcc`` build and the seven
   hand-written Hopper kernels, each beside its plain PyTorch version.
+- ``analysis``: graftlint for torch code (``python -m
+  deeplearning4j_tpu_torch.analysis``) and the runtime guards the trainer
+  and the serving engine run under (transfer guard, shardguard,
+  lockguard).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -74,8 +74,8 @@ class LSTMSequenceModel:
         losses = []
         for _ in range(epochs):
             self.params, loss = self._step(self.params, x, y)
-            losses.append(float(loss))
-        return losses
+            losses.append(loss)   # stays on the device; read once below
+        return [float(v) for v in losses]
 
     # ------------------------------------------------------------------ decode
     def _logp(self, h) -> np.ndarray:

@@ -352,6 +352,9 @@ def zero1_state_to_natural(model: TransformerLM, tx, opt_global, params):
     count, st = opt_global
     p_leaves = tree_leaves(params)
     p_specs = tree_leaves(model._specs())
+    # marker specs, never placed: state_spec echoes each one back beside
+    # the state leaves of its parameter
+    # graftlint: disable=SH02
     marks = tree_unflatten(params, [P(("param", i))
                                     for i in range(len(p_leaves))])
     s_specs = tree_leaves(tx.state_spec(marks) if tx.state_spec else ())

@@ -243,10 +243,10 @@ class RNTN:
         if self._step is None:
             self._step = self._build_step()
         rng = np.random.default_rng(self.seed)
-        losses = []
+        per_epoch = []   # the batches' device losses, read once below
         for ep in range(epochs):
             order = rng.permutation(len(trees))
-            ep_loss, nb = 0.0, 0
+            batch_losses = []
             for off in range(0, len(trees), batch_size):
                 batch_trees = [trees[i] for i in order[off:off + batch_size]]
                 batch = self._batch_arrays(batch_trees)
@@ -254,9 +254,16 @@ class RNTN:
                     continue
                 self.params, self._hist, loss = self._step(
                     self.params, self._hist, batch)
-                ep_loss += float(loss)
-                nb += 1
-            losses.append(ep_loss / max(1, nb))
+                batch_losses.append(loss)
+            per_epoch.append(batch_losses)
+        losses = []
+        for batch_losses in per_epoch:
+            # the host floats summed in batch order, as a read per batch
+            ep_loss = 0.0
+            for v in (torch.stack(batch_losses).tolist()
+                      if batch_losses else []):
+                ep_loss += v
+            losses.append(ep_loss / max(1, len(batch_losses)))
         return losses
 
     # ------------------------------------------------------------------ predict

@@ -1321,25 +1321,30 @@ class TransformerLM:
             r = checkpoint_manager.restore(params, tstate_template=opt)
             params, opt = r["params"], r["tstate"]
 
-        def save():
-            checkpoint_manager.save(int(opt[0]), params, tstate=opt,
-                                    data_cursor=int(opt[0]))
+        def save(step):
+            checkpoint_manager.save(step, params, tstate=opt,
+                                    data_cursor=step)
 
         losses = []
         start, total = int(opt[0]), epochs * len(batches)
         feed = (tuple(batches[k % len(batches)]) for k in range(start, total))
-        saved = None
+        # a host mirror of the optimizer's count decides the saves, as the
+        # reference's does (reading the count back would sync each step);
+        # a rank outside the mesh steps nothing, so it saves nothing
+        saving = checkpoint_manager is not None and (
+            self.mesh is None or self.mesh.member)
+        step, saved = start, None
         for a, b in prefetch_to_device(feed, size=2, device=self.device):
             params, opt, loss = step_fn(params, opt, a, b)
             losses.append(loss)   # stays on the device; read once below
-            if (checkpoint_manager is not None and checkpoint_every > 0
-                    and int(opt[0]) % checkpoint_every == 0):
-                save()
-                saved = int(opt[0])
+            step += 1
+            if saving and checkpoint_every > 0 \
+                    and step % checkpoint_every == 0:
+                save(step)
+                saved = step
         losses = [float(x) for x in losses]
-        if checkpoint_manager is not None and losses \
-                and saved != int(opt[0]):
-            save()
+        if saving and losses and saved != step:
+            save(step)
         return params, opt, losses
 
     def sample(self, params, prime, length: int, temperature: float = 1.0,

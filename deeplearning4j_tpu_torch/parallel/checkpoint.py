@@ -582,6 +582,9 @@ def publish_from_first_rank(manager: CheckpointManager, mesh, step: int,
         with mesh:
             ok = torch.full((), 0.0 if err is not None else 1.0,
                             device=clv.collective_device())
+            # the barrier's verdict: every rank learns whether the write
+            # landed (a save is a fence)
+            # graftlint: disable=HS01
             total = int(clv.psum(ok, mesh.axis_names).item())
         if err is None and total != len(mesh.ranks):
             raise RuntimeError(f"checkpoint step {step}: the write on rank "

@@ -53,6 +53,14 @@ loop reads a device value on the host.  Three rules keep it so:
    batches through :func:`~..datasets.iterator.prefetch_to_device`, which
    copies this rank's rows from pinned memory on a side stream.
 
+The steady-state ``fit`` loop runs under
+:func:`~..analysis.runtime.hot_loop_guard`: a host sync in it raises at
+its call site (opt out: ``DL4J_TPU_TRANSFER_GUARD=0``).  Its deliberate
+syncs — the ring's resolution, checkpoints, the setup and the final pull
+— are ``allow_transfers()`` fences, and the step callables dispatch
+through ``SHARDGUARD.wrap`` (``train.sync_step`` with the declared
+placements, ``train.zero_step`` against its first call's).
+
 Checkpoints fence the ring before reading params (``checkpoint``), so a
 snapshot never races in-flight steps; ZeRO state is gathered to natural
 shapes (or flat, ``layout="flat"``), the mesh's first rank writes, and
@@ -71,6 +79,8 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
+from ..analysis.runtime import allow_transfers, hot_loop_guard
+from ..analysis.shardguard import SHARDGUARD
 from ..datasets.dataset import DataSet
 from ..device import resolve_device
 from ..observability import COSTS, METRICS, NOOP_SPAN, enabled as _obs_enabled
@@ -253,6 +263,8 @@ class DataParallelTrainer:
         setup_compile_cache()  # the kernel build cache (env-gated no-op)
 
     # ------------------------------------------------------------------ state
+    # one-shot setup: the params' upload is a sanctioned sync point
+    @allow_transfers()
     def init_state(self, params, key=None) -> TrainState:
         """Params on the trainer's device (numpy leaves converted; under
         ZeRO stage 3 this rank's flat chunks), the transform's fresh state
@@ -410,7 +422,15 @@ class DataParallelTrainer:
                 params = tfm.apply_updates(frozen, updates)
             return params, tstate, loss
 
-        return step
+        # explicit mode: the params, state and loss replicated on this
+        # rank's device, the batch split over dp — a drifted placement
+        # upstream (a leaf left on the host, a global batch where this
+        # rank's rows belong) is counted instead of silently computed on
+        rep, bat = self._rep_sh, self._batch_sh
+        return SHARDGUARD.wrap("train.sync_step", step,
+                               in_shardings=(rep, rep, bat, bat),
+                               out_shardings=(rep, rep, rep),
+                               device=self.device)
 
     def _build_zero_step(self):
         """The ZeRO sharded weight update (zero_stage >= 1):
@@ -484,7 +504,10 @@ class DataParallelTrainer:
                         pchunk = self._unpack(full, nat_t, "all")
                     return z.unflatten_like(pchunk, nat_t), tstate, loss
 
-        return step
+        # baseline mode: the ZeRO placements are emergent (stage-dependent
+        # chunks), so the first dispatch captures them and later drift is
+        # the violation
+        return SHARDGUARD.wrap("train.zero_step", step)
 
     def _build_local_step(self):
         """Hogwild local step: this rank's replica on its own real rows
@@ -587,8 +610,8 @@ class DataParallelTrainer:
                 seed = _splitmix64(seed ^ self.mesh.axis_index(DP))
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            x = torch.as_tensor(self._local_rows(x, bucket)).to(self.device)
-            y = torch.as_tensor(self._local_rows(y, bucket)).to(self.device)
+            x = self._upload(self._local_rows(x, bucket))
+            y = self._upload(self._local_rows(y, bucket))
             if first and obs and not self._coll:
                 # counted on fake copies of the arguments: nothing runs
                 # (a multi-rank step's collectives cannot run on them)
@@ -618,6 +641,16 @@ class DataParallelTrainer:
             self._resolve_pending()  # ring full: self-fence (bounded queue)
         return TrainState(params, tstate, state.step + 1, state.key), lazy
 
+    def _upload(self, a) -> torch.Tensor:
+        """A batch array on the trainer's device.  A host array crosses
+        from pinned memory, asynchronously (a pageable copy makes the
+        host wait, which the hot loop's guard refuses); a batch
+        ``prefetch_to_device`` already staged passes as it is."""
+        t = torch.as_tensor(a)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def _resolve_pending(self) -> list[float]:
         """Fence: wait for the newest pending step (the device runs them in
         dispatch order), read the whole window in ONE copy, then publish
@@ -630,14 +663,17 @@ class DataParallelTrainer:
         # a handle the caller already read keeps its value
         unread = [lz for lz, _n, _s in entries if not lz.resolved]
         if unread:
-            unread[-1].block()
-            window = torch.stack([lz._dev.float() for lz in unread])
-            if self.router == "hogwild" and self._coll:
-                # the replicas' losses, averaged: one all-reduce a window
-                with self.mesh:
-                    window = clv.pmean(window, DP)
-            for lz, v in zip(unread, window.cpu().tolist()):
-                lz._set(v)
+            # the ring's one read: a fence inside the guarded fit loop
+            with allow_transfers():
+                unread[-1].block()
+                window = torch.stack([lz._dev.float() for lz in unread])
+                if self.router == "hogwild" and self._coll:
+                    # the replicas' losses, averaged: one all-reduce a
+                    # window
+                    with self.mesh:
+                        window = clv.pmean(window, DP)
+                for lz, v in zip(unread, window.cpu().tolist()):
+                    lz._set(v)
         vals = [lz.value() for lz, _n, _s in entries]
         if obs:
             now = time.perf_counter()
@@ -762,45 +798,49 @@ class DataParallelTrainer:
             handles: list[LazyLoss] = []
             draining = False
             saved = None  # the step the loop last checkpointed
-            stream = iter(self._host_stream(
-                data, epochs, state.step + extra_skip, prefetch_size))
-            while True:
-                if goodput is not None:
-                    t_fetch = time.perf_counter()
-                try:
-                    x, y, n_valid, bucket = next(stream)
-                except StopIteration:
-                    break
-                if goodput is not None:
-                    goodput.data_wait(t_fetch, time.perf_counter())
-                state, lazy = self._dispatch(state, x, y, n_valid, bucket)
-                if self.member:
-                    handles.append(lazy)
-                if not async_dispatch:
-                    self._resolve_pending()  # synchronous path
-                elif resolve_every and len(self._pending) >= resolve_every:
-                    self._resolve_pending()
-                if should_stop is not None and should_stop(state.step):
-                    # preemption: drain in-flight steps, snapshot, leave
-                    # (goodput: everything from the stop signal to the
-                    # return — the emergency save included — is drain)
+            # steady state runs under the transfer guard: a host sync in
+            # the loop raises unless it sits in an allow_transfers() fence
+            # (opt out via DL4J_TPU_TRANSFER_GUARD=0; see analysis.runtime)
+            with hot_loop_guard():
+                stream = iter(self._host_stream(
+                    data, epochs, state.step + extra_skip, prefetch_size))
+                while True:
                     if goodput is not None:
-                        goodput.transition("drain")
-                    draining = True
-                    self._resolve_pending()
-                    if checkpoint_manager is not None:
-                        self.checkpoint(state, checkpoint_manager)
-                        saved = state.step
-                    METRICS.increment("resilience.emergency_checkpoints")
-                    break
-                if (checkpoint_manager is not None and checkpoint_every > 0
-                        and state.step % checkpoint_every == 0):
+                        t_fetch = time.perf_counter()
+                    try:
+                        x, y, n_valid, bucket = next(stream)
+                    except StopIteration:
+                        break
                     if goodput is not None:
-                        with goodput.phase("checkpoint"):
+                        goodput.data_wait(t_fetch, time.perf_counter())
+                    state, lazy = self._dispatch(state, x, y, n_valid, bucket)
+                    if self.member:
+                        handles.append(lazy)
+                    if not async_dispatch:
+                        self._resolve_pending()  # synchronous path
+                    elif resolve_every and len(self._pending) >= resolve_every:
+                        self._resolve_pending()
+                    if should_stop is not None and should_stop(state.step):
+                        # preemption: drain in-flight steps, snapshot, leave
+                        # (goodput: everything from the stop signal to the
+                        # return — the emergency save included — is drain)
+                        if goodput is not None:
+                            goodput.transition("drain")
+                        draining = True
+                        self._resolve_pending()
+                        if checkpoint_manager is not None:
                             self.checkpoint(state, checkpoint_manager)
-                    else:
-                        self.checkpoint(state, checkpoint_manager)
-                    saved = state.step
+                            saved = state.step
+                        METRICS.increment("resilience.emergency_checkpoints")
+                        break
+                    if (checkpoint_manager is not None and checkpoint_every > 0
+                            and state.step % checkpoint_every == 0):
+                        if goodput is not None:
+                            with goodput.phase("checkpoint"):
+                                self.checkpoint(state, checkpoint_manager)
+                        else:
+                            self.checkpoint(state, checkpoint_manager)
+                        saved = state.step
             self._resolve_pending()
             losses = [h.value() for h in handles]
             # the end-of-run save, unless the loop just saved this step
@@ -816,6 +856,9 @@ class DataParallelTrainer:
         return state, losses
 
     # ------------------------------------------------------------------ ckpt
+    # the save pulls every leaf to the host: a sanctioned sync point,
+    # also when called inside the guarded fit loop
+    @allow_transfers()
     def checkpoint(self, state: TrainState, manager,
                    layout: str = "natural") -> None:
         """Fence-then-save: resolve the pending-loss ring, gather what the
@@ -920,6 +963,9 @@ class DataParallelTrainer:
         return TrainState(tree_map(mine, r["params"], template.params),
                           tstate, r["step"], key)
 
+    # restore is a sanctioned sync point like save: loading the leaves
+    # and re-placing them is setup, not the hot loop
+    @allow_transfers()
     def _restore_zero(self, template: TrainState, manager,
                       reshard: bool = True) -> TrainState:
         """Load a natural-layout checkpoint against the layout's natural
@@ -946,6 +992,7 @@ class DataParallelTrainer:
         return TrainState(params=params, tstate=tstate, step=r["step"],
                           key=key)
 
+    @allow_transfers()   # the one-shot post-fit pull
     def final_params(self, state: TrainState):
         """One natural param set: the replicas averaged under hogwild, the
         chunks gathered and unflattened under zero_stage 3 (both

@@ -108,6 +108,7 @@ class Tsne:
     def _input_probs(self, x: np.ndarray) -> np.ndarray:
         # once a fit: the distances on the device, the perplexity search
         # on the host over the copied matrix
+        # graftlint: disable=HS01
         d2 = _pairwise_sq_dists(torch.as_tensor(
             np.asarray(x, np.float32), device=self.device)).cpu().numpy()
         with trace.span("tsne.perplexity_search", n=d2.shape[0]):

@@ -10,9 +10,16 @@ cache, then one scatter into the pool), and a finished sequence (EOS or
 length budget) frees its row for the next arrival.
 
 Hot-loop rule: ``_decode_segment`` launches ``resolve_every`` steps
-back-to-back with no ``.item()``, ``.cpu()`` or ``.tolist()``; the emitted
-tokens stay on the device until ``_resolve`` pulls the whole segment in
-ONE copy, where EOS/length bookkeeping, admissions and metrics happen.
+back-to-back under :func:`~..analysis.runtime.hot_loop_guard` — no
+``.item()``, ``.cpu()``, ``.tolist()`` or pageable upload; a host sync
+there raises at its call site (opt out: ``DL4J_TPU_TRANSFER_GUARD=0``).
+The emitted tokens stay on the device until ``_resolve`` pulls the whole
+segment in ONE copy under an ``allow_transfers()`` fence, where
+EOS/length bookkeeping, admissions and metrics happen; admission,
+quantization, warmup, wipes, prefill, migration and reload are fences
+too.  The steps dispatch through ``SHARDGUARD.wrap``
+(``serving.decode_step``, and ``serving.decode_step_plain`` for a
+speculative engine's plain step) in baseline mode.
 The device state (token buffer, positions, caches) is updated in place —
 where the JAX package donated its state buffers.
 
@@ -80,6 +87,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..analysis.runtime import allow_transfers, hot_loop_guard
+from ..analysis.shardguard import SHARDGUARD
 from ..device import resolve_device
 from ..models.transformer import (cast_for_decode, decode_step,
                                   decode_step_paged, decode_window,
@@ -353,6 +362,17 @@ class InferenceEngine:
         self._prefill_lock = threading.Lock()
         # migrated requests parked for the serve thread's drain fence
         self._migrated_in: list[_MigratedIn] = []    # guarded-by: self._lock
+        # shardguard baseline mode: the first decode dispatch captures the
+        # params/state placements; a later dispatch arriving differently
+        # placed (a reload onto another device) is counted.  One flag
+        # check when off.  A speculative engine also carries the plain
+        # step (the brownout fallback), under its own site
+        self._step_fn = SHARDGUARD.wrap(
+            "serving.decode_step",
+            self._spec_step if cfg.speculative else self._step)
+        self._plain_step_fn = (SHARDGUARD.wrap(
+            "serving.decode_step_plain", self._step)
+            if cfg.speculative else None)
         self._rows = torch.arange(cfg.slots, device=self.device)
         self._offsets = torch.arange(self._window, device=self.device,
                                      dtype=torch.int32)
@@ -384,7 +404,8 @@ class InferenceEngine:
         (:func:`~..models.transformer.cast_for_decode`).  The draft's
         tree is cast, never quantized."""
         mcfg = self.model.cfg
-        with METRICS.time("serving.quantize"), torch.no_grad():
+        with allow_transfers(), METRICS.time("serving.quantize"), \
+                torch.no_grad():
             if self.cfg.int8_decode:
                 params = quantize_params_for_decode(params, mcfg)
             return cast_for_decode(params, mcfg)
@@ -751,7 +772,8 @@ class InferenceEngine:
         bytes of one decode dispatch and of one prompt token of a prefill
         (``COSTS``, on fake copies of the state: nothing runs, nothing
         changes)."""
-        with METRICS.time("serving.warmup"), torch.no_grad():
+        with allow_transfers(), METRICS.time("serving.warmup"), \
+                torch.no_grad():
             if self.device.type == "cuda":
                 build.build_all()
             with self._lock:
@@ -762,9 +784,9 @@ class InferenceEngine:
                 return
             if _obs_enabled():
                 self._capture_costs(params)
+            self._step_fn(params, [], self._state).cpu()
             if self.cfg.speculative:
-                self._spec_step(params, [], self._state).cpu()
-            self._step(params, [], self._state).cpu()
+                self._plain_step_fn(params, [], self._state).cpu()
         self._warmed = True
 
     def _capture_costs(self, params) -> None:
@@ -813,7 +835,8 @@ class InferenceEngine:
             return
         mask = torch.zeros((self._num_pages + 1,), dtype=torch.bool,
                            device=self.device)
-        mask[torch.tensor(freed, device=self.device)] = True
+        with allow_transfers():   # the page list's upload: a fence
+            mask[torch.tensor(freed, device=self.device)] = True
         reset_cache_pages(self._state["pages"], mask)
 
     def _serve_loop(self) -> None:
@@ -873,7 +896,10 @@ class InferenceEngine:
             batch = self._queue.take(
                 n_free, block_s=self.cfg.idle_wait_s if idle else 0.0)
             if batch:
-                with trace.span("serving.admit"):
+                # admission is a deliberate host<->device seam (prompt
+                # upload, block-table rows) — annotated, off the
+                # per-token path
+                with allow_transfers(), trace.span("serving.admit"):
                     self._admit(batch)
         if not self._slots:
             return
@@ -881,8 +907,9 @@ class InferenceEngine:
                              len(self._slots) / self.cfg.slots,
                              buckets=FILL_BUCKETS)
         t0 = time.perf_counter()
-        pending = self._decode_segment()
-        with trace.span("serving.resolve"):
+        with hot_loop_guard():
+            pending = self._decode_segment()
+        with allow_transfers(), trace.span("serving.resolve"):
             self._resolve(pending, t0)
 
     def _admit(self, batch: list[PendingResult]) -> None:
@@ -929,14 +956,16 @@ class InferenceEngine:
                             params = self._params
                             gen_id, lstep = (self._generation,
                                              self._loaded_step)
-                            shared, cached_len = self._pool.lookup_prefix(
+                            # released by the handler's _release_row
+                            shared, cached_len = self._pool.lookup_prefix(  # graftlint: disable=PG01
                                 req.prompt, usable)
                         acquired.extend(shared)
                     # allocate for what THIS request can touch (positions
                     # [0, limit]); the row's tail parks on the trash page
                     need = -(-(len(req.prompt) + req.max_new_tokens)
                              // self._page_size)
-                    acquired.extend(self._pool.alloc(need - len(acquired)))
+                    # released by the handler's _release_row
+                    acquired.extend(self._pool.alloc(need - len(acquired)))  # graftlint: disable=PG01
                     row = acquired + [self._num_pages] * (
                         self._pages_per_slot - len(acquired))
                     self._state["bt"][slot] = torch.tensor(
@@ -1065,11 +1094,11 @@ class InferenceEngine:
                 garbled = FAULTS.check("serving.draft") is not None
                 if garbled:
                     METRICS.increment("serving.draft.faults")
-                out.append(self._spec_step(
+                out.append(self._step_fn(
                     params, self._plan_step(self._window, j), st, garbled))
             else:
-                out.append(self._step(params, self._plan_step(1, j),
-                                      st)[:, None])
+                step = self._plain_step_fn or self._step_fn
+                out.append(step(params, self._plan_step(1, j), st)[:, None])
         METRICS.increment("serving.decode.dispatches", len(out))
         return out
 
@@ -1218,7 +1247,7 @@ class InferenceEngine:
                               temperature=float(temperature), seed=int(seed),
                               eos_id=(eos_id if eos_id is not None
                                       else self.cfg.default_eos_id))
-        with self._prefill_lock, torch.no_grad(), \
+        with self._prefill_lock, allow_transfers(), torch.no_grad(), \
                 METRICS.time("serving.prefill_only"):
             with self._lock:
                 # no serve loop reaches an all-slots-free fence here:
@@ -1242,11 +1271,13 @@ class InferenceEngine:
                     with self._lock:
                         params = self._params
                         gen = self._generation
-                        shared, cached_len = self._pool.lookup_prefix(
+                        # released by the handler's _release_row
+                        shared, cached_len = self._pool.lookup_prefix(  # graftlint: disable=PG01
                             prompt, usable)
                     acquired.extend(shared)
                 need = -(-(len(prompt) + max_new_tokens) // self._page_size)
-                acquired.extend(self._pool.alloc(need - len(acquired)))
+                # released by the handler's _release_row
+                acquired.extend(self._pool.alloc(need - len(acquired)))  # graftlint: disable=PG01
                 self._state["bt"][slot] = torch.tensor(
                     acquired + [self._num_pages] * (
                         self._pages_per_slot - len(acquired)),
@@ -1283,7 +1314,7 @@ class InferenceEngine:
         Safe only where :meth:`prefill` is (no serve thread)."""
         if not record.pages:
             return
-        with self._prefill_lock, torch.no_grad():
+        with self._prefill_lock, allow_transfers(), torch.no_grad():
             pages, record.pages = record.pages, []
             self._wipe_pages(self._pool.decref(pages))
 
@@ -1295,7 +1326,7 @@ class InferenceEngine:
         fp8 pages, GQA layouts) is what a migration moves."""
         if not self.cfg.paged:
             raise ValueError("read_pages needs a paged engine")
-        with self._prefill_lock, torch.no_grad():
+        with self._prefill_lock, allow_transfers(), torch.no_grad():
             idx = torch.tensor(list(ids), dtype=torch.long,
                                device=self.device)
             return [{name: _byte_rows(arr, idx).cpu()
@@ -1357,7 +1388,7 @@ class InferenceEngine:
                 rec = self._migrated_in.pop(0)
                 slot = self._free.pop()
                 gen_id, lstep = self._generation, self._loaded_step
-            with trace.span("serving.admit_migrated"):
+            with allow_transfers(), trace.span("serving.admit_migrated"):
                 ok = (rec.generation is None or rec.generation == gen_id) \
                     and not rec.pending.done()
                 if not ok:
@@ -1464,7 +1495,8 @@ class InferenceEngine:
             if self._staged is not None and self._staged[2] == target:
                 return target  # same target already parked for the fence
             template = self._raw_params
-        with METRICS.time("serving.reload"), torch.no_grad():
+        with allow_transfers(), METRICS.time("serving.reload"), \
+                torch.no_grad():
             restored = self._ckpt.restore(template, step=target)
             new_params = self._maybe_quantize(restored["params"])
         with self._lock:

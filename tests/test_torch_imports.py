@@ -1,7 +1,7 @@
 """Import guard and device rule of the PyTorch port.
 
-The port (``deeplearning4j_tpu_torch/``, ``chip_smoke.py`` and
-``int8_probe.py``) must import neither ``jax`` nor anything of
+The port (``deeplearning4j_tpu_torch/``, ``chip_smoke.py``,
+``int8_probe.py`` and ``guard_probe.py``) must import neither ``jax`` nor anything of
 ``deeplearning4j_tpu``, the package must call no library kernel in place
 of its own (``chip_smoke.py`` times those as yardsticks only), and its
 entry points must raise — not quietly run on the CPU — when CUDA is
@@ -20,7 +20,8 @@ PORT = ROOT / "deeplearning4j_tpu_torch"
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "int8_probe.py"]
+                                         ROOT / "int8_probe.py",
+                                         ROOT / "guard_probe.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -77,7 +78,11 @@ def test_port_imports_no_jax_and_no_jax_package():
             *(f"parallel/{m}.py" for m in (
                 "scaleout", "procstate", "procrunner", "worker_main",
                 "performers", "storage", "provision", "driver")),
-            "text/scaleout_embeddings.py"} <= mods
+            "text/scaleout_embeddings.py",
+            *(f"analysis/{m}.py" for m in (
+                "__init__", "__main__", "runtime", "lockguard", "shardguard",
+                "core", "baseline", "report", "engine", "jitinfo",
+                "concurrency", "sharding", "rules"))} <= mods
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -146,6 +146,10 @@ MODULES = [
                 "storage", "provision", "driver")],
     ("deeplearning4j_tpu_torch.text.scaleout_embeddings",
      "deeplearning4j_tpu.text.scaleout_embeddings"),
+    *[(f"deeplearning4j_tpu_torch.analysis.{m}",
+       f"deeplearning4j_tpu.analysis.{m}")
+      for m in ("runtime", "lockguard", "shardguard", "baseline", "report",
+                "engine")],
     *[(f"deeplearning4j_tpu_torch.{m}", f"deeplearning4j_tpu.{m}")
       for m in ("clustering", "clustering.kdtree", "clustering.kmeans",
                 "clustering.quadtree", "clustering.vptree", "plot",
@@ -273,6 +277,12 @@ ALLOWED = {
              "call both alike (kept)",
     },
     "ops.rng:RngStream.__init__": {"device": _DEVICE + "; keyword-only"},
+    "analysis.shardguard:ShardGuard.wrap": {
+        "device": "a torch tensor carries a device and a shape, not a "
+                  "sharding, and a NamedSharding over rank devices does "
+                  "not name the rank's CUDA device: explicit mode checks "
+                  "the leaves against it; keyword-only (kept)",
+    },
     "ops.rng:key_for": {"device": _DEVICE + "; keyword-only"},
     "models.zoo:draft_lm": {"device": _DEVICE},
     "nn.multilayer:MultiLayerNetwork.__init__": {
@@ -438,7 +448,14 @@ def test_the_comparison_covers_the_ported_surface():
                  "parallel.procstate:FileStateTracker.evict_stale",
                  "parallel.storage:ConfigRegistry.register",
                  "parallel.provision:PodSliceProvisioner.apply",
-                 "text.scaleout_embeddings:Word2VecJobIterator.__init__"):
+                 "text.scaleout_embeddings:Word2VecJobIterator.__init__",
+                 "analysis.runtime:hot_loop_guard",
+                 "analysis.runtime:guard_mode",
+                 "analysis.shardguard:ShardGuard.wrap",
+                 "analysis.lockguard:LockGuard.watch",
+                 "analysis.engine:Analyzer.__init__",
+                 "analysis.baseline:Baseline.from_findings",
+                 "analysis.report:emit_metrics"):
         assert must in keys
     assert len(PAIRS) >= 50
     assert set(ALLOWED) <= keys, set(ALLOWED) - keys
