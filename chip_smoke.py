@@ -45,13 +45,13 @@ paths through the entry points a user calls:
    in bf16 and in float32;
 4. ``ModelServer`` over engine A answering 2 requests via ``ServingClient``;
 5. engine B: as A with ``kv_quant="int8", paged_attention_impl=
-   "pallas_int8"`` and 8 requests;
-5a. engine F: as B with ``kv_quant="fp8"`` (e4m3 pages), on A's first 4
+   "pallas_int8"`` and 4 requests (8 before phase 15k);
+5a. engine F: as B with ``kv_quant="fp8"`` (e4m3 pages), on A's first 2
    prompts (not all 16: the script's time limit), with B's teacher-forced
    comparison;
 5b. the disaggregated tier (``run_disagg``): a ``DisaggScheduler`` over
    one ``role="prefill"`` and one ``role="decode"`` engine (A's serving
-   config with the prefix cache) serving A's first 4 prompts on float
+   config with the prefix cache) serving A's first 2 prompts on float
    pages,
    then on fp8 pages: the tokens equal engine A's, then engine F's; a
    129-token prompt served twice (its second migration claims its 8
@@ -60,17 +60,17 @@ paths through the entry points a user calls:
    ``ServingClient.migrate_probe`` / ``migrate``) with full bytes and as
    probed; pages moved and deduped, bytes moved and migration ms;
 6. engine S: as A with ``speculative=True, spec_k=3`` and the random
-   one-layer ``zoo.draft_lm`` draft, on A's first 4 prompts (tokens/s, TTFT, the
+   one-layer ``zoo.draft_lm`` draft, on A's first 2 prompts (tokens/s, TTFT, the
    step, ``serving.spec_accept_len``, its served tokens against A's), and
    teacher-forced verify windows (``decode_window_paged``, ``int8_matmul``
    at M=32) against sequential steps through the plain versions, in bf16
    and float32;
-7. the prefix cache: 8 requests sharing a 128-token system prompt (with
+7. the prefix cache: 4 requests sharing a 128-token system prompt (with
    suffixes of 16-64 tokens, 16 new tokens each) on A's and on B's
    config with ``prefix_cache=True`` against the same with ``False`` on
-   the first 4 of them: the hit rate, and float pages' tokens equal;
+   the first 2 of them: the hit rate, and float pages' tokens equal;
 8. ``beam_search`` at width 4, 8 tokens, over the int8 serving tree;
-8b. the router phase (``run_router``): 12 requests of 4 tenants (a
+8b. the router phase (``run_router``): 8 requests of 4 tenants (a
    128-token system prompt each) through two engines (A's config with the
    prefix cache) behind ``PrefixRouter`` and ``RouterServer`` over HTTP,
    held to one engine's tokens and hit rate, with affinity, one trace id
@@ -157,7 +157,7 @@ paths through the entry points a user calls:
    then to 110 epochs on the card, beam search continuing "abc" with
    "defg", and 200 sampled tokens (tokens/s);
 15d. the text pipeline (``run_text``): the native host library must
-   load; a seeded ~800k-token, ~10k-word Zipfian topic corpus; Word2Vec
+   load; a seeded ~500k-token, ~10k-word Zipfian topic corpus; Word2Vec
    at the reference's defaults but subsampling 1e-3 (without it both
    packages diverge there) with hierarchical softmax and with 5
    negatives, GloVe on a fifth of it and ParagraphVectors on 4000
@@ -273,6 +273,31 @@ paths through the entry points a user calls:
    times the dispatch-mode alternative the same way); a parameter placed
    on the host fed to ``train.sync_step``: exactly one
    ``resharded-input`` violation and the gauge at 1;
+15k. the fleet smoke tools (``run_fleet_tools``, after the router
+   phase): ``python -m deeplearning4j_tpu_torch.tools.chaos_smoke --seed
+   0 --world 4 --shardguard`` (the whole composite: ZeRO stages 0-3 on 4
+   ranks sharing the card over gloo, serving, the disaggregated tier,
+   elasticity, the online loop, the control plane) and ``serving_smoke
+   --fleet --replicas 2`` and ``--autoscale`` as subprocesses, started
+   after 15j (which now runs before 5c) and run beside 5c, 5d and the
+   router phase; in this process under SHARDGUARD at the flagship's full
+   width on engine A's serving config, each leg's own assertions
+   holding: ``serving_smoke.run`` (32 requests over HTTP with the
+   scorer, ``--trace-out`` and ``--lockguard``),
+   ``run_prefix(kv_quant="int8", page_size=16)`` (8 requests of the
+   Zipf prefix workload, system prompts of 4 pages, on float pages, then
+   on int8 pages through #7 after ``_sharpen``: hit rate, bytes per slot
+   against the dense baseline, a 1.9x drop, top-1 agreement >= 0.999 and
+   the greedy tokens' top-2 margins), ``run_slo`` (16 requests;
+   full-window burn rates); the subprocesses' JSON lines (exit 0, 0
+   shardguard violations); then alone on the card, ``run_disagg(...,
+   page_size=16)`` in float32 (12 requests, background prompts of 5
+   pages: migrated tokens equal
+   offline ``sample`` exactly, p99 inter-token latency at 2x prefill
+   load within 1.15x), and ``serving_smoke --replicas 2`` (the router
+   over two in-process replicas of the tiny model, with the reference's
+   0.8x throughput floor).  Their launches of #5/#6/#7 join the kernels
+   line;
 16. a ``{"kernels": [...]}`` JSON line (each path's launches counted from
    0 just before it runs, read just after; #7 has a row per page type,
    ``paged_attention_int8`` and ``paged_attention_fp8``), then the card's
@@ -619,8 +644,9 @@ def check_int8_one_launch(torch, tmm, dev, tries: int = 3):
 PROMPT_TOKENS = (16, 256)
 NEW_TOKENS = 32
 #: engines F and S serve engine A's first FS_PROMPTS prompts (8 before
-#: phase 15j; the disaggregated tier's DISAGG_PROMPTS are among them)
-FS_PROMPTS = 4
+#: phase 15j, 4 before phase 15k; the disaggregated tier's DISAGG_PROMPTS
+#: are among them)
+FS_PROMPTS = 2
 ENGINE_LENGTHS = (PROMPT_TOKENS[0], PROMPT_TOKENS[1] + NEW_TOKENS)
 #: the long-context paged cases: lengths over the whole 128-page table
 LONG_LENGTHS = (1, 2048)
@@ -1568,10 +1594,11 @@ def window_vs_steps(torch, ttr, tmm, tpa, mcfg, params, dev="cuda", B=8,
 #: the prefix-cache phase: 16 requests share a 128-token system prompt,
 #: each with a suffix of 16-64 tokens, 16 new tokens each
 PREFIX_SYSTEM, PREFIX_SUFFIX, PREFIX_NEW = 128, (16, 64), 16
-#: the uncached baseline engines serve the first 4 of the phase's
+#: the uncached baseline engines serve the first 2 of the phase's
 #: requests (a request's tokens do not depend on its batch): their
-#: token-by-token prefill was ~57 s of the script at 8
-PREFIX_BASELINE = 4
+#: token-by-token prefill was ~57 s of the script at 8 (4 before phase
+#: 15k, which serves the prefix workload again at the flagship's width)
+PREFIX_BASELINE = 2
 
 
 def run_prefix(eng, tmodel, params, rng, wrappers, dev="cuda", n_req=16,
@@ -1695,10 +1722,11 @@ def prefix_teacher_forced(eng, tmodel, params, prompts, served, extra,
 #: first decode query (16 * 8 + 1 tokens), so its second migration can
 #: claim every content page by hash and move no page bytes
 DISAGG_REPEAT_PAGES = 8
-#: the disaggregated tier serves engine A's first 4 prompts on each page
-#: type (8 before phase 15h, ~32 s more; a request's tokens do not
-#: depend on its batch)
-DISAGG_PROMPTS = 4
+#: the disaggregated tier serves engine A's first 2 prompts on each page
+#: type (8 before phase 15h, ~32 s more; 4 before phase 15k, whose
+#: run_disagg serves 24 requests through the tier again; a request's
+#: tokens do not depend on its batch)
+DISAGG_PROMPTS = 2
 
 
 def run_disagg(eng, serving, tmodel, params, prompts, want, label, extra,
@@ -1868,11 +1896,12 @@ def run_disagg(eng, serving, tmodel, params, prompts, want, label, extra,
 
 # ------------------------------------------------------------------ router
 
-#: the router phase: 4 tenants x 3 requests (4 before phase 15j), each a
+#: the router phase: 4 tenants x 2 requests (4 before phase 15j, 3 before
+#: phase 15k, whose serving_smoke --replicas 2 routes 96 more), each a
 #: tenant's 128-token system prompt, a 16-64-token suffix and 16 new
 #: tokens; engine A's serving config with the prefix cache; weights from
 #: ROUTER_SEED
-ROUTER_TENANTS, ROUTER_PER_TENANT = 4, 3
+ROUTER_TENANTS, ROUTER_PER_TENANT = 4, 2
 ROUTER_SYSTEM, ROUTER_SUFFIX, ROUTER_NEW = 128, (16, 64), 16
 ROUTER_SEED = 5
 ROUTER_SERVING = dict(slots=8, paged=True, page_size=16, int8_decode=True,
@@ -1923,7 +1952,7 @@ def run_router(torch, eng, wrappers, card, dev="cuda", cfg_kw=None,
     """The prefix-affinity router, observability and the control plane on
     the flagship (``cfg_kw`` narrows it for a CPU rehearsal):
 
-    1. one engine (``ROUTER_SERVING``) serves the phase's 12 requests, 4
+    1. one engine (``ROUTER_SERVING``) serves the phase's 8 requests, 4
        tenants on 4 threads: the single-replica tokens and hit rate;
     2. two ``EngineReplica`` s behind ``PrefixRouter(RouterConfig(
        page_size=16, affinity_pages=4))`` and a ``RouterServer``, the same
@@ -1944,8 +1973,9 @@ def run_router(torch, eng, wrappers, card, dev="cuda", cfg_kw=None,
        ``tenant.<t>.throttled``; ``Autoscaler.step`` over
        ``router_actuators`` scales up by one warmed ``EngineReplica`` on a
        forced burn and back down after two quiet windows;
-    4. a ``ProcessReplica`` of the same engine joins through
-       ``router.scale_up``: its tokens equal the in-process ones,
+    4. a ``ProcessReplica`` of the same engine (booted in the background
+       while 1-3 run) joins through ``router.scale_up``: its tokens equal
+       the in-process ones,
        ``FleetScraper`` federates its ``/metrics.prom``; after ``kill()``
        a key it owned spills or answers 503 within the client timeout,
        and its quarantine leaves a flight-recorder bundle naming it."""
@@ -1999,6 +2029,26 @@ def run_router(torch, eng, wrappers, card, dev="cuda", cfg_kw=None,
             time.perf_counter() - t0)
         return e
 
+    # step 4's process replica boots (~22 s: its interpreter, CUDA, the
+    # engine) in the background while steps 1-3 run
+    import threading
+
+    boot = {}
+
+    def boot_replica():
+        t0 = time.perf_counter()
+        try:
+            boot["rep"] = ProcessReplica(
+                "p0", "chip_smoke:router_engine", work,
+                factory_kwargs={"seed": ROUTER_SEED, "device": dev,
+                                **cfg_kw},
+                boot_timeout_s=boot_timeout_s, client_timeout_s=300.0)
+        except Exception as e:  # noqa: BLE001 - reported at step 4
+            boot["err"] = e
+        boot["s"] = time.perf_counter() - t0
+
+    booting = threading.Thread(target=boot_replica, daemon=True)
+    booting.start()
     try:
         # ---- 1. one replica: the tokens and the hit rate to match
         single = make_engine()
@@ -2216,13 +2266,11 @@ def run_router(torch, eng, wrappers, card, dev="cuda", cfg_kw=None,
             fail(f"autoscaler: decisions {decisions}, pool sizes {sizes}")
 
         # ---- 4. a process replica joins the ring, then dies
-        t0 = time.perf_counter()
-        rep = ProcessReplica("p0", "chip_smoke:router_engine", work,
-                             factory_kwargs={"seed": ROUTER_SEED,
-                                             "device": dev, **cfg_kw},
-                             boot_timeout_s=boot_timeout_s,
-                             client_timeout_s=300.0)
-        boot_s = time.perf_counter() - t0
+        booting.join(boot_timeout_s)
+        if "rep" not in boot:
+            fail(f"process replica: no boot in {boot_timeout_s} s: "
+                 f"{boot.get('err')}")
+        rep, boot_s = boot["rep"], boot["s"]
         t0 = time.perf_counter()
         router.scale_up(rep, warm_timeout_s=boot_timeout_s)
         admit_s = time.perf_counter() - t0
@@ -2301,6 +2349,9 @@ def run_router(torch, eng, wrappers, card, dev="cuda", cfg_kw=None,
               f"launches={launches}", flush=True)
         return report
     finally:
+        booting.join(boot_timeout_s)
+        if "rep" in boot and boot["rep"].proc.poll() is None:
+            boot["rep"].close()        # a run that failed before step 4
         pool.shutdown(wait=False)
         tobs.FLIGHTREC.dump_dir = old_dump
         shutil.rmtree(work, ignore_errors=True)
@@ -3520,7 +3571,7 @@ LSTM_CMP_EPOCHS = 20
 # pairs a batch, their updates summed; tests/test_torch_text.py pins it);
 # 1e-3 is the original word2vec's setting
 WORD2VEC_SAMPLE = 1e-3
-TEXT_TOKENS = 800_000          # 1M before phase 15j
+TEXT_TOKENS = 500_000          # 1M before phase 15j, 800k before 15k
 TEXT_VOCAB = 10_000
 TEXT_TOPICS = 20
 
@@ -3833,7 +3884,7 @@ def _timed_fit(torch, model, build_first=True):
 def run_text(torch, wrappers, card, dev="cuda"):
     """The text pipeline on the card.  The native host library must load
     (a missing one fails here rather than passing on the Python
-    parsers).  A seeded topic corpus of ~800k tokens over a ~10k-word
+    parsers).  A seeded topic corpus of ~500k tokens over a ~10k-word
     Zipfian vocabulary (``topic_corpus``); Word2Vec at the reference's
     defaults (layer 100, window 5, batch 4096) but for subsampling
     (``WORD2VEC_SAMPLE``) with hierarchical softmax, then with 5
@@ -5334,24 +5385,41 @@ class MPRun:
         self.tmp = tempfile.mkdtemp(prefix="dl4j_mp_")
         self.job_kwargs = dict(ckpt_dir=str(Path(self.tmp) / "pp_zero1"),
                                cfg_kw=cfg_kw, dev=dev, ep_tokens=ep_tokens)
-        self.proc, self.t_dryrun = None, None
+        self.proc, self.t_dryrun, self.logs = None, None, []
 
     def on_progress(self, rank, msg) -> None:
         if self.dryrun and msg == "lm_done" and self.proc is None:
             self.t_dryrun = time.perf_counter()
+            # its output goes to files: a pipe read only at the end would
+            # stall eight ranks' warnings once its buffer filled
+            self.logs = [open(Path(self.tmp) / f"dryrun.{k}", "w+")
+                         for k in ("out", "err")]
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "deeplearning4j_tpu_torch", "dryrun",
                  "--devices", "8", "--platform", self.dev],
-                cwd=str(self.root), stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)
+                cwd=str(self.root), stdout=self.logs[0],
+                stderr=self.logs[1], text=True)
+
+    def communicate(self, timeout) -> tuple[str, str]:
+        """The dryrun's stdout and stderr once it ends (killed after
+        ``timeout`` s)."""
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        return tuple(f.seek(0) or f.read() for f in self.logs)
 
     def close(self) -> None:
         """Stop the dryrun if it still runs; remove the directory."""
         import shutil
 
-        if self.proc is not None and self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.communicate()
+        if self.proc is not None:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            for f in self.logs:
+                f.close()
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
@@ -5446,11 +5514,7 @@ def mp_report(torch, wrappers, card, ranks, run, ranks_s,
         proc = run.proc
         if proc is None:
             fail("15h: the LM legs never reported, so the dryrun never ran")
-        try:
-            out, err = proc.communicate(timeout=DP_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
+        out, err = run.communicate(DP_TIMEOUT_S)
         ok = [ln for ln in out.splitlines()
               if ln.startswith("dryrun_multichip OK: ")]
         rep["dryrun"] = {"rc": proc.returncode, "line": ok[:1],
@@ -6442,6 +6506,279 @@ def run_guards(torch, eng, tmodel, params, wrappers, card, dev="cuda",
     return rep
 
 
+#: phase 15k (run_fleet_tools): the fleet smoke tools.  (a) their serving
+#: legs at the flagship's width on engine A's serving config (the
+#: quantized prefix leg reads int8 pages through #7); (b) three legs of
+#: ``serving_smoke`` (FLEET_CLI) and (c) the whole ``chaos_smoke``
+#: composite as subprocesses on the card at the tools' own size, (c) on
+#: FLEET_WORLD ranks (the tool's default is the reference's 8) with a
+#: pinned seed.  ``--replicas 2`` runs alone, last, because its 0.8x
+#: throughput floor reads the wall clock.  FLEET_SERVING is engine A's
+#: serving config but for its page size, which a leg keeps as its own
+#: workload's unit: ``run_prefix`` and ``run_disagg`` take engine A's 16
+#: (FLEET_PAGE_SIZE) through their ``page_size`` keyword, and ``run`` /
+#: ``run_slo`` serve at the config's default of 16.  (``run_disagg`` at
+#: the reference's pages of 8 read 0.77-1.04 in a probe and 1.24, over
+#: its 1.15x floor, once in a whole run on a slow host; at 16, 0.95-1.08)
+FLEET_SERVING = dict(slots=8, paged=True, int8_decode=True,
+                     paged_attention_impl="pallas")
+FLEET_PAGE_SIZE = 16
+FLEET_CLI = (("--replicas", "2"), ("--fleet", "--replicas", "2"),
+             ("--autoscale",))
+FLEET_CHAOS_SEED = 0
+FLEET_WORLD = 4
+FLEET_TIMEOUT_S = 420
+#: (a)'s depth at the flagship's width (the tools' defaults are 32, 48
+#: and 24): the Zipf prefix workload and the SLO leg on 8 and 16
+#: requests (16 and 24 before 14b's poisoned round came back and the
+#: prefix leg's system prompts grew to 4 pages of 16), the
+#: disaggregated leg on 12 (its first whole-script run took 49.3 s at
+#: 24, the script 1,023.1 s)
+FLEET_REQUESTS = {"prefix_int8": 8, "slo": 16, "disagg": 12}
+
+
+def _fleet_report(wrappers, mcfg, label, kv_pages) -> list:
+    """15k's launches as kernels-line reports: a decode dispatch runs one
+    paged attention a layer (on ``kv_pages``' wrapper) and 2L+1 int8
+    matmuls at M=slots, a prefill token (and an offline reference's
+    decode step) 2L+1 at M=1."""
+    counts = _counts(wrappers)
+    L = mcfg.n_layers
+    reports = []
+    int8_steps = counts["int8_matmul"] // (2 * L + 1)
+    for pages in kv_pages:
+        wrapper = PAGED_ROWS["paged_attention" if pages is None
+                             else f"paged_attention_{pages}"][0]
+        steps = counts[wrapper] // L
+        reports.append({"label": label, "kv_quant": pages,
+                        "paged_steps": steps,
+                        "int8_rows": {FLEET_SERVING["slots"]: steps},
+                        "launches": dict.fromkeys(counts, 0)
+                        | {wrapper: counts[wrapper]}})
+        int8_steps -= steps
+    reports[0]["int8_rows"][1] = max(int8_steps, 0)
+    reports[0]["launches"]["int8_matmul"] = counts["int8_matmul"]
+    return reports
+
+
+def _fleet_cli(root, tool, args) -> dict:
+    """``python -m deeplearning4j_tpu_torch.tools.<tool> *args`` started
+    with its output in temporary files (a pipe that no one reads would
+    stall a tool that writes much, as the chaos ranks' warnings do); a
+    thread stamps its end, for its own wall time."""
+    import threading
+
+    log = Path(tempfile.mkdtemp(prefix="dl4j_fleet_cli_"))
+    ent = {"start": time.perf_counter(), "log": log,
+           "out": open(log / "stdout", "w+"), "err": open(log / "stderr", "w+")}
+    ent["proc"] = proc = subprocess.Popen(
+        [sys.executable, "-m", f"deeplearning4j_tpu_torch.tools.{tool}",
+         *args], cwd=str(root), stdout=ent["out"], stderr=ent["err"],
+        text=True)
+    ent["waiter"] = threading.Thread(
+        target=lambda: ent.update(end=(proc.wait(), time.perf_counter())[1]),
+        daemon=True)
+    ent["waiter"].start()
+    return ent
+
+
+def _fleet_wait(ent, label, timeout=FLEET_TIMEOUT_S) -> dict:
+    """A tool subprocess's JSON line, with its wall time; a non-zero
+    exit, a timeout or no JSON line fails the run."""
+    import shutil
+
+    proc = ent["proc"]
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter()
+                                              - ent["start"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"15k {label}: not done within {timeout} s")
+    ent["waiter"].join()
+    out, err = (ent[k].seek(0) or ent[k].read() for k in ("out", "err"))
+    for k in ("out", "err"):
+        ent[k].close()
+    shutil.rmtree(ent["log"], ignore_errors=True)
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"15k {label}: exit {proc.returncode}\n{out[-2000:]}\n"
+             f"{err[-4000:]}")
+    try:
+        res = json.loads(lines[-1])
+    except ValueError:
+        fail(f"15k {label}: no JSON line: {lines[-1][:500]}")
+    res["wall_s"] = ent["end"] - ent["start"]
+    return res
+
+
+def start_fleet_processes(root=ROOT, dev="cuda") -> dict:
+    """15k c./b.: the ``chaos_smoke`` composite and the legs of FLEET_CLI
+    whose assertions read no wall clock (all but ``--replicas``) as
+    subprocesses, started together; ``run_fleet_tools`` waits for them.
+    ``main`` starts them after 15j, so that their start-up and the
+    ranks' work overlap the phases before 15k's timed legs."""
+    import atexit
+
+    platform = [] if str(dev).startswith("cuda") else ["--platform", str(dev)]
+    procs = {"chaos_smoke": _fleet_cli(
+        root, "chaos_smoke", ["--seed", str(FLEET_CHAOS_SEED), "--world",
+                              str(FLEET_WORLD), "--shardguard", *platform])}
+    for args in FLEET_CLI:
+        if args[0] != "--replicas":
+            procs[" ".join(args)] = _fleet_cli(root, "serving_smoke",
+                                               [*args, *platform])
+    # a run that fails before 15k collects them still stops them
+    atexit.register(lambda: [e["proc"].kill() for e in procs.values()
+                             if e["proc"].poll() is None])
+    return procs
+
+
+def run_fleet_tools(torch, wrappers, card, root=ROOT, dev="cuda", cfg=None,
+                    procs=None, expect_launches=True):
+    """Phase 15k: the fleet smoke tools in the port.
+
+    a. in this process under SHARDGUARD, at ``cfg`` (the flagship's full
+       width) on engine A's serving config (FLEET_SERVING), each leg's
+       own assertions holding: ``serving_smoke.run`` (with ``--trace-out``
+       and ``--lockguard``), ``run_prefix(kv_quant="int8",
+       page_size=FLEET_PAGE_SIZE)`` (its float leg, then the int8-page
+       leg), ``run_slo``; their launches of
+       #5/#6/#7 join the kernels line;
+    b./c. ``start_fleet_processes``' subprocesses (``procs``; started here
+       when None): the whole ``chaos_smoke --seed FLEET_CHAOS_SEED --world
+       FLEET_WORLD --shardguard`` composite, its ranks sharing the card
+       over gloo, and ``serving_smoke --fleet --replicas 2`` and
+       ``--autoscale`` at the tool's own size — each must exit 0 with its
+       JSON line (and chaos with 0 shardguard violations);
+    a'. then, alone because their assertions read the wall clock:
+       ``run_disagg(..., page_size=FLEET_PAGE_SIZE)`` on the card at the
+       full width in float32 (its
+       migrated tokens held exactly to offline ``sample``: in bf16 the
+       paged kernel and the offline dense decode round differently and
+       flip the argmax of near-ties of random weights), and b'.
+       ``serving_smoke --replicas 2`` on the same device (its throughput
+       scaling floor)."""
+    from deeplearning4j_tpu_torch.analysis.shardguard import SHARDGUARD
+    from deeplearning4j_tpu_torch.models import transformer as ttr
+    from deeplearning4j_tpu_torch.tools import serving_smoke as ss
+
+    import dataclasses
+    import shutil
+
+    t_phase = time.perf_counter()
+    if procs is None:
+        procs = start_fleet_processes(root, dev)
+    mcfg = cfg or ttr.TransformerConfig()
+    platform = [] if torch.device(dev).type == "cuda" else ["--platform",
+                                                             str(dev)]
+    rep: dict = {"legs": {}, "reports": []}
+    tmp = tempfile.mkdtemp(prefix="dl4j_fleet_")
+    legs = (("run", ss.run, mcfg, dict(
+                lockguard=True, trace_out=str(Path(tmp) / "trace.json")),
+             (None,)),
+            ("prefix_int8", ss.run_prefix, mcfg,
+             dict(kv_quant="int8", page_size=FLEET_PAGE_SIZE),
+             (None, "int8")),
+            ("slo", ss.run_slo, mcfg, {}, (None,)),
+            ("disagg", ss.run_disagg,
+             dataclasses.replace(mcfg, dtype=torch.float32),
+             dict(lockguard=True, page_size=FLEET_PAGE_SIZE), (None,)))
+
+    def leg(name, fn, lcfg, kw, pages):
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        if name in FLEET_REQUESTS:
+            kw = dict(kw, requests=FLEET_REQUESTS[name])
+        out = fn(cfg=lcfg, serving=FLEET_SERVING, device=dev, **kw)
+        torch.cuda.synchronize()
+        out["leg_s"] = time.perf_counter() - t0
+        reports = _fleet_report(wrappers, mcfg, f"15k {name}", pages)
+        launches = {k: sum(r["launches"][k] for r in reports)
+                    for k in reports[0]["launches"]}
+        out["launches"] = launches
+        rep["legs"][name] = out
+        rep["reports"] += reports
+        need = ["int8_matmul"] + ["paged_attention_int8" if p else
+                                  "paged_attention" for p in pages]
+        if expect_launches and not all(launches[k] > 0 for k in need):
+            fail(f"15k {name}: the leg did not run through {need}: "
+                 f"{launches}")
+        lat = out.get("ttft_s") or {}
+        qw = out.get("queue_wait_s") or {}
+        print(f"15k {name} (width {lcfg.d_model}x{lcfg.n_layers}, vocab "
+              f"{lcfg.vocab_size}, {str(lcfg.dtype)[6:]}, engine A's serving "
+              f"config{', int8 pages' if 'int8' in pages else ''}): "
+              f"requests={out['requests']} tokens_per_s="
+              f"{out.get('tokens_per_sec')} ttft_p50_s={lat.get('p50')} "
+              f"queue_wait_p50_s={qw.get('p50')} hit_rate="
+              f"{out.get('prefix_hit_rate')} kv_bytes_per_slot_peak="
+              f"{out.get('kv_bytes_per_slot_peak')} (dense "
+              f"{out.get('dense_kv_bytes_per_slot')}, float "
+              f"{out.get('kv_bytes_per_slot_float')}) agreement="
+              f"{out.get('greedy_token_agreement')} of "
+              f"{out.get('greedy_tokens_compared')} top2_margin="
+              f"{out.get('greedy_top2_margin')} itl_p99_s="
+              f"{out.get('itl_p99_base_s')}/{out.get('itl_p99_doubled_s')} "
+              f"(ratio {out.get('itl_p99_ratio')}) burn_rates="
+              f"{out.get('burn_rates')} leg_s={out['leg_s']:.1f} "
+              f"launches={launches} | {card}", flush=True)
+
+    SHARDGUARD.reset()
+    SHARDGUARD.enable()
+    try:
+        for spec in legs[:3]:
+            leg(*spec)
+        rep["in_process_s"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        rep["cli"] = {}
+        for label, ent in procs.items():
+            out = _fleet_wait(ent, label)
+            if label == "chaos_smoke":
+                rep["chaos"] = out
+            else:
+                rep["cli"][label] = out
+        rep["wait_s"] = time.perf_counter() - t0
+        if rep["chaos"].get("shardguard_violations") != 0:
+            fail(f"15k chaos_smoke: shardguard "
+                 f"{rep['chaos'].get('shardguard_violations')}")
+        leg(*legs[3])
+    finally:
+        SHARDGUARD.disable()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep["shardguard_violations"] = len(SHARDGUARD.violations())
+    if rep["shardguard_violations"]:
+        fail(f"15k: {SHARDGUARD.report()}")
+    for args in FLEET_CLI:
+        if args[0] == "--replicas":
+            rep["cli"]["--replicas 2"] = _fleet_wait(_fleet_cli(
+                root, "serving_smoke", [*args, *platform]), " ".join(args))
+    cli, chaos = rep["cli"], rep["chaos"]
+    print(f"15k serving_smoke CLI: --replicas 2 scaling="
+          f"{cli['--replicas 2']['throughput_scaling']:.3f} hit_rate="
+          f"{cli['--replicas 2']['aggregate_hit_rate']:.3f} "
+          f"({cli['--replicas 2']['wall_s']:.1f} s); --fleet federated="
+          f"{cli['--fleet --replicas 2']['federated_tokens']} client="
+          f"{cli['--fleet --replicas 2']['client_tokens']} stale="
+          f"{cli['--fleet --replicas 2']['stale_replicas']} scrape_ms="
+          f"{cli['--fleet --replicas 2']['fleet']['scrape_ms']:.2f} "
+          f"({cli['--fleet --replicas 2']['wall_s']:.1f} s); --autoscale "
+          f"saved_frac={cli['--autoscale']['autoscale']['saved_frac']} "
+          f"({cli['--autoscale']['wall_s']:.1f} s); chaos_smoke --seed "
+          f"{FLEET_CHAOS_SEED} --world {FLEET_WORLD} --shardguard: stages "
+          f"0-3 bitwise={[chaos['params_bitwise_equal']] + [v['params_bitwise_equal'] for v in chaos['zero_stages'].values()]} "
+          f"elastic mesh_sizes={chaos['elastic']['mesh_sizes']} online "
+          f"rounds={chaos['online']['rounds']} shardguard_violations="
+          f"{chaos['shardguard_violations']} ({chaos['wall_s']:.1f} s)",
+          flush=True)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet tools: {card} | phase_s={rep['phase_s']:.1f} (in process "
+          f"{rep['in_process_s']:.1f}, waiting on the subprocesses "
+          f"{rep['wait_s']:.1f}, disagg {rep['legs']['disagg']['leg_s']:.1f},"
+          f" --replicas 2 {cli['--replicas 2']['wall_s']:.1f})", flush=True)
+    return rep
+
+
 def print_ptxas(usage) -> None:
     """Registers, spills and static shared memory of the bf16 kernels,
     from the builds' ``ptxas -v`` reports (every kernel's are in the
@@ -6612,7 +6949,7 @@ def main() -> int:
                               int8_decode=True, kv_quant="int8",
                               paged_attention_impl="pallas_int8")
     engine_b, rep_b = run_engine(eng, tmodel, params, cfg_b,
-                                 make_prompts(rng, 8, mcfg.vocab_size),
+                                 make_prompts(rng, 4, mcfg.vocab_size),
                                  wrappers, "engine B")
     engine_b.stop()
     lb = rep_b["launches"]
@@ -6683,20 +7020,31 @@ def main() -> int:
           f"{rep_s['agreement_with_a']} teacher_forced window vs steps="
           f"{rep_s['teacher_forced']}", flush=True)
 
-    # ---- 5c. the prefix cache on float and int8 pages (8 requests: the
-    # script's time limit); 5d. beam search
-    prefix = run_prefix(eng, tmodel, params, rng, wrappers, n_req=8)
-    beam = run_beam(torch, ttr, tmm, tmodel, params, wrappers)
-
     # ---- 5e'. the analysis tier's runtime guards (15j): refusal and
     # scope, two engines at once, the guard's cost, a planted placement
+    # (before the fleet smoke tools' subprocesses start: its cost pairs
+    # are timed on a quiet card)
     guards = run_guards(torch, eng, tmodel, params, wrappers, card)
+
+    # ---- the fleet smoke tools' untimed subprocesses (15k b./c.) start
+    # here and run beside 5c, 5d and the router phase
+    fleet_procs = start_fleet_processes(root)
+
+    # ---- 5c. the prefix cache on float and int8 pages (4 requests: the
+    # script's time limit); 5d. beam search
+    prefix = run_prefix(eng, tmodel, params, rng, wrappers, n_req=4)
+    beam = run_beam(torch, ttr, tmm, tmodel, params, wrappers)
     del tmodel, params
     torch.cuda.empty_cache()
 
     # ---- 5g. two engines behind the prefix-affinity router, SLOs, the
     # control plane and a process replica
     router = run_router(torch, eng, wrappers, card)
+    torch.cuda.empty_cache()
+
+    # ---- 5h. the fleet smoke tools (15k): their serving legs at the
+    # flagship's width in this process, then their subprocesses' results
+    fleet = run_fleet_tools(torch, wrappers, card, root, procs=fleet_procs)
     torch.cuda.empty_cache()
 
     # ---- 6./7. the train step at full width: the BERT-base leg (flash,
@@ -6785,7 +7133,8 @@ def main() -> int:
     kernels = kernel_rows(
         cases, [rep_a, rep_b, rep_f, disagg["float"], disagg["fp8"], rep_s,
                 prefix["float"]["cache"], prefix["int8"]["cache"], beam,
-                router, ckpt["serve"], ckpt["reload"], online["serve"]],
+                router, ckpt["serve"], ckpt["reload"], online["serve"]]
+        + fleet["reports"],
         [leg_a, leg_b, sample["bfloat16"], scorer, ckpt["leg"],
          online["leg"], dl4j_leg] + dp["legs"] + mp["legs"] + ctl["legs"],
         mcfg, rates)
@@ -6806,7 +7155,8 @@ def main() -> int:
             "checkpoints": ckpt, "dl4j": dl4j, "resnet": resnet,
             "lstm": lstm, "text": text, "trees": trees, "embed": embed,
             "data_parallel": dp, "model_parallel": mp,
-            "control_plane": ctl, "guards": guards, "kernels": kernels},
+            "control_plane": ctl, "guards": guards, "fleet_tools": fleet,
+            "kernels": kernels},
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

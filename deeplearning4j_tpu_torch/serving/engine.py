@@ -970,6 +970,11 @@ class InferenceEngine:
                         self._pages_per_slot - len(acquired))
                     self._state["bt"][slot] = torch.tensor(
                         row, dtype=torch.int32)
+                    # the slot holds its pages from here: the prefill
+                    # below runs token by token from the host (the
+                    # reference's is one asynchronous dispatch), so the
+                    # footprint gauges count it before, not after
+                    self._publish_kv_gauges(admitting=acquired)
                 t_pre = time.perf_counter()
                 self._prefill(params, slot, req, cached_len)
                 t_done = time.perf_counter()
@@ -1019,8 +1024,10 @@ class InferenceEngine:
             METRICS.increment("serving.admitted")
             self._publish_kv_gauges()
 
-    def _publish_kv_gauges(self) -> None:
-        """Device-KV footprint gauges at admission/eviction fences."""
+    def _publish_kv_gauges(self, admitting: list[int] | None = None) -> None:
+        """Device-KV footprint gauges at admission/eviction fences;
+        ``admitting``: the pages of a slot whose prefill is about to run,
+        counted as one more occupied slot."""
         mcfg = self.model.cfg
         m = METRICS
         m.gauge("serving.kv_quant_bits",
@@ -1034,9 +1041,10 @@ class InferenceEngine:
             return
         in_use = self._pool.in_use()
         with self._lock:
-            occupied = len(self._slots)
+            occupied = len(self._slots) + (admitting is not None)
             slot_pages = {p for pages in self._slot_pages.values()
                           for p in pages}
+        slot_pages.update(admitting or ())
         m.gauge("serving.kv_pages_in_use", in_use)
         m.gauge("serving.kv_pages_total", self._num_pages)
         m.gauge("serving.kv_page_bytes", self._page_bytes)

@@ -79,6 +79,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "scaleout", "procstate", "procrunner", "worker_main",
                 "performers", "storage", "provision", "driver")),
             "text/scaleout_embeddings.py",
+            *(f"tools/{m}.py" for m in (
+                "__init__", "serving_smoke", "chaos_smoke", "ranks")),
             *(f"analysis/{m}.py" for m in (
                 "__init__", "__main__", "runtime", "lockguard", "shardguard",
                 "core", "baseline", "report", "engine", "jitinfo",
