@@ -37,6 +37,7 @@ it returns new parameters and optimizer state.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -46,6 +47,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..observability import tracing as trace
 from ..ops import losses
 from ..ops.cuda import kv_quant, registry
 from ..ops.cuda.layernorm import fused_residual_layernorm
@@ -1176,7 +1178,14 @@ class TransformerLM:
         backward's included, runs in one order on every rank.  Over a
         one-rank mesh in a process group these still run (through the
         backend), and ``zero1`` holds one chunk: the whole flat leaf (the
-        reference asserts dp > 1 instead)."""
+        reference asserts dp > 1 instead).
+
+        Device-timed spans (``observability.tracing``): ``lm.step`` around
+        the whole step, and inside it ``lm.forward`` (``loss_of``),
+        ``lm.backward`` (the gradient; the kernels' backward spans join it
+        from autograd's device thread) and ``lm.optimizer`` (the
+        transform and ``apply_updates``, and on a mesh the loss reduce,
+        the gradient sync and ZeRO-1's scatter and gather)."""
         mesh = self.mesh
         if zero1:
             assert mesh is not None, "zero1 needs a mesh to shard state over"
@@ -1192,7 +1201,7 @@ class TransformerLM:
             sync = self._grad_sync(specs, sp_axis, tp_axis,
                                    include_dp=not zero1)
 
-        def step(tree, opt, *data):
+        def run(tree, leaves, opt, data):
             count, tx_state = opt
             if mesh is not None:
                 if not mesh.member:
@@ -1201,22 +1210,21 @@ class TransformerLM:
                     return tree, opt, torch.full((), float("nan"))
                 data = tuple(self._to_device(local_block(d, b))
                              for d, b in zip(data, blocks))
-            leaves = [p.detach().requires_grad_(True)
-                      for p in tree_leaves(tree)]
+            leaves = [p.detach().requires_grad_(True) for p in leaves]
             live = tree_unflatten(tree, leaves)
-            if mesh is not None and not plain:
-                with mesh:
-                    loss = loss_of(live, *data, axes=axes)
+            sharded = mesh is not None and not plain
+            with mesh if sharded else contextlib.nullcontext():
+                with trace.span("lm.forward", device=leaves[0]):
+                    loss = loss_of(live, *data, axes=axes if sharded else {})
+                with trace.span("lm.backward", device=loss) as bwd, \
+                        trace.adopting(bwd):
                     grads = torch.autograd.grad(
                         loss, leaves, allow_unused=True,
                         materialize_grads=True)
-            else:
-                loss = loss_of(live, *data, axes={})
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                            materialize_grads=True)
             grads = tree_unflatten(tree, grads)
             loss = loss.detach()
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("lm.optimizer",
+                                             device=leaves[0]):
                 frozen = tree_unflatten(tree, [p.detach() for p in leaves])
                 if plain:
                     with tx_mod.decay_mask_override(self._decay_mask(frozen)):
@@ -1251,6 +1259,11 @@ class TransformerLM:
                     pch = tx_mod.apply_updates(pch, updates)
                     new_tree = tree_map(gather, pch, frozen)
             return new_tree, (count + 1, tx_state), loss
+
+        def step(tree, opt, *data):
+            leaves = tree_leaves(tree)
+            with trace.span("lm.step", device=leaves[0]):
+                return run(tree, leaves, opt, data)
 
         return step
 

@@ -5,8 +5,11 @@ Port of ``deeplearning4j_tpu/observability/kernels.py``: two publication
 shims over the process-wide ``METRICS``, so the kernel tier
 (``ops/cuda``) never imports histogram internals.
 
-- ``record_kernel_time`` — one wall-clock observation per kernel call
+- ``record_kernel_time`` — one device-time observation per kernel call
   (``kernel.<kind>.<name>`` histogram) plus an optional bytes-moved gauge.
+  Its caller is the tracer: every resolved ``kernel.<kind>.<phase>`` span
+  (``tracing``; the training kernels' autograd forwards and backwards)
+  lands here in device seconds, so ``/metrics`` shows their histograms.
 - ``publish_autopick`` — every :class:`~..ops.cuda.registry.Pick` lands as
   ``bench.autopick.<kind>.*`` gauges (candidates considered, dropped,
   whether a non-incumbent was adopted) and a decisions counter.
@@ -25,7 +28,9 @@ KERNEL_TIME_BUCKETS = (
 
 def record_kernel_time(kind: str, name: str, seconds: float,
                        bytes_moved: int | None = None) -> None:
-    """One timing observation for a ``(kind, name)`` kernel dispatch."""
+    """One timing observation for a ``(kind, name)`` kernel dispatch:
+    ``seconds`` of the device's time (CUDA events, as a device-timed span
+    resolves them; a host clock would time the enqueue)."""
     metric = f"kernel.{kind}.{name}"
     METRICS.observe_time(metric, seconds, buckets=KERNEL_TIME_BUCKETS)
     if bytes_moved is not None:

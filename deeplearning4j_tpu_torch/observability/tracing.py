@@ -18,6 +18,29 @@ from the ambient context set by :func:`bind` (after parsing a W3C
 :func:`record_span` records a span with an explicit start and duration,
 for code that multiplexes many logical requests on one thread.
 
+Device time: ``span(name, device=t)`` also times the work the span
+enqueues on tensor ``t``'s device.  On a CUDA tensor two CUDA events from
+a pool the tracer allocates once per device bracket the span on the
+current stream; the span lands in the buffer once its end event has
+completed, with a ``device_ms`` argument beside its host ``ts``/``dur``.
+Nothing waits for it: the next device-timed span's entry polls
+``query()``, and :meth:`Tracer.drain` does the same for readers.  With
+the pool exhausted the span keeps its host timing alone (counted on
+``trace.dropped_events``).  On a CPU tensor ``device_ms`` is the host
+duration (CPU ops run synchronously).  A fake tensor (a cost count) or a
+stream capturing a CUDA graph records nothing.  A device-timed span
+opened on a thread with no open span (autograd's device thread, which
+runs a CUDA backward) joins the span :meth:`Tracer.adopting` names.  A
+resolved ``kernel.<kind>.<phase>`` span is one observation of the
+``kernel.<kind>.<phase>`` time histogram (``kernels.record_kernel_time``).
+
+One clock with the device trace: while a ``torch.profiler`` session
+records, every span also enters it as a range of the span's name (a
+function-scope ``RecordFunction``: no device-side annotation, so it is
+never counted as device work), and the Chrome export carries
+``ts_origin_unix_ns``, the profiler-clock time of ``ts`` 0, so the two
+exports lay over each other.
+
 When observability is disabled, ``span()`` returns the shared no-op
 context manager (no allocation); see ``core``.  :func:`profiler_trace` is
 the device-level companion: a ``torch.profiler`` session.
@@ -29,6 +52,7 @@ import contextlib
 import contextvars
 import json
 import random
+import sys
 import threading
 import time
 from collections import deque
@@ -39,6 +63,14 @@ from . import core
 
 _EPOCH = time.perf_counter()
 _MAX_EVENTS = 65536
+#: CUDA events a tracer allocates per device, two for each device-timed
+#: span in flight (a step of the LM holds about 130 for a few ms)
+_DEVICE_EVENTS = 2048
+#: spans a device-timed span's entry resolves at most: each entry adds one
+#: span and takes up to this many, so none piles up, and a step's first
+#: entry (where the host may pace the device) does not resolve a whole
+#: step's spans at once
+_RESOLVE_AT_ENTRY = 4
 
 # innermost open span, per context (thread / task)
 _current: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
@@ -134,11 +166,45 @@ def _pid() -> int:
     return _process_index
 
 
+def _mirror(name: str):
+    """A ``torch.profiler`` range named ``name``, entered, while a profiler
+    session records; else None.  Function scope, so the profiler puts no
+    annotation of it on the device's timeline."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    import torch
+
+    rf = torch._C._profiler._RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
+def clock_anchor_ns() -> int:
+    """Unix-epoch nanoseconds at ``ts`` 0 of this process's spans: the
+    clock ``torch.profiler`` stamps its events with (their ``start_ns``;
+    its Chrome export's ``ts`` counts microseconds from the export's
+    ``baseTimeNanoseconds``).  The tightest of a few readings."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, unix - (a + b) // 2)
+    return best[1] + round(_EPOCH * 1e9)
+
+
+def host_ts_us(t: float) -> float:
+    """The span ``ts`` (µs) of a ``time.perf_counter()`` reading."""
+    return (t - _EPOCH) * 1e6
+
+
 class Span:
     """One nestable timed region.  Use via ``tracer.span(...)``."""
 
     __slots__ = ("tracer", "name", "attrs", "parent", "depth",
-                 "t0_us", "tid", "_token",
+                 "t0_us", "tid", "_token", "_range",
                  "trace_id", "span_id", "parent_id")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict[str, Any]):
@@ -155,8 +221,11 @@ class Span:
         """Attach/override attributes while the span is open."""
         self.attrs.update(attrs)
 
+    def _parent(self) -> "Span | None":
+        return _current.get()
+
     def __enter__(self) -> "Span":
-        self.parent = _current.get()
+        self.parent = self._parent()
         self.depth = self.parent.depth + 1 if self.parent is not None else 0
         if self.parent is not None and self.parent.trace_id:
             self.trace_id = self.parent.trace_id
@@ -170,16 +239,143 @@ class Span:
         self.span_id = new_span_id()
         self._token = _current.set(self)
         self.tid = threading.get_ident()
+        self._range = _mirror(self.name)
         self.t0_us = (time.perf_counter() - _EPOCH) * 1e6
         return self
 
-    def __exit__(self, exc_type, exc, tb) -> bool:
+    def _close(self, exc_type) -> float:
+        """Stop the host clock; returns the duration in µs."""
         dur_us = (time.perf_counter() - _EPOCH) * 1e6 - self.t0_us
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         _current.reset(self._token)
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
-        self.tracer._record(self, dur_us)
+        return dur_us
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.tracer._record(self, self._close(exc_type))
         return False
+
+
+class _DeviceSpan(Span):
+    """A span that also times its device's work (``Tracer.span(...,
+    device=t)``): two pooled CUDA events on the current stream of a CUDA
+    device, resolved later; the host duration on the CPU."""
+
+    __slots__ = ("device", "stream", "events")
+
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict[str, Any],
+                 device):
+        super().__init__(tracer, name, attrs)
+        self.device = device
+        self.stream = None
+        self.events = None
+
+    def _parent(self) -> "Span | None":
+        parent = _current.get()
+        if parent is None and _trace_ctx.get() is None:
+            return self.tracer._adopter
+        return parent
+
+    def __enter__(self) -> "Span":
+        tracer = self.tracer
+        tracer.drain(_RESOLVE_AT_ENTRY)
+        super().__enter__()
+        if self.device.type == "cuda":
+            self.events = tracer._device_events.take(self.device)
+            if self.events is not None:
+                import torch
+
+                self.stream = torch.cuda.current_stream(self.device)
+                self.events[0].record(self.stream)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self.events is not None:
+            self.events[1].record(self.stream)
+        dur_us = self._close(exc_type)
+        if self.device.type != "cuda":
+            self.tracer._record(self, dur_us, device_ms=dur_us / 1e3)
+        elif self.events is None:
+            self.tracer._record(self, dur_us)
+        else:
+            self.tracer._device_events.wait(self, dur_us)
+        return False
+
+
+class _DeviceEvents:
+    """The CUDA events of a tracer's device-timed spans: ``size`` for each
+    device, made at its first span, and the spans whose end event may not
+    have completed, in the order they closed."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._lock = threading.Lock()
+        self._free: dict[int, list] = {}
+        self._waiting: deque = deque()
+
+    def take(self, device):
+        """A (start, end) pair of ``device``, or None (counted) when its
+        pool is exhausted."""
+        with self._lock:
+            free = self._free.get(device.index)
+            if free is None:
+                import torch
+
+                free = self._free[device.index] = [
+                    torch.cuda.Event(enable_timing=True)
+                    for _ in range(self.size)]
+            if len(free) >= 2:
+                return free.pop(), free.pop()
+        from . import metrics
+        metrics.METRICS.increment("trace.dropped_events")
+        return None
+
+    def wait(self, span: _DeviceSpan, dur_us: float) -> None:
+        with self._lock:
+            self._waiting.append((span, dur_us))
+
+    def ready(self, limit: int | None = None) -> tuple[list, int]:
+        """``([(span, host µs, device ms)], still waiting)``: the oldest
+        spans whose end event has completed, up to the first that has not
+        (``query()``; the host never waits), at most ``limit``."""
+        done = []
+        with self._lock:
+            while self._waiting and (limit is None or len(done) < limit):
+                span, dur_us = self._waiting[0]
+                start, end = span.events
+                if not end.query():
+                    break
+                self._waiting.popleft()
+                done.append((span, dur_us, start.elapsed_time(end)))
+                self._free[span.device.index] += (start, end)
+                span.events = None
+            return done, len(self._waiting)
+
+    def forget(self) -> None:
+        """Drop the waiting spans and take their events back."""
+        with self._lock:
+            for span, _ in self._waiting:
+                self._free[span.device.index] += span.events
+                span.events = None
+            self._waiting.clear()
+
+
+def _timed_device(t):
+    """The device a span on tensor ``t`` times, or None where it records
+    nothing: a fake tensor (a cost count) or a stream capturing a CUDA
+    graph."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(t):
+        return None
+    if t.device.type == "cuda":
+        import torch
+
+        if torch.cuda.is_current_stream_capturing():
+            return None
+    return t.device
 
 
 class Tracer:
@@ -191,18 +387,61 @@ class Tracer:
         self.dropped = 0  # spans evicted from the bounded ring
         self._jsonl: Any = None  # open file handle while streaming
         self._listeners: list[Callable[[dict[str, Any]], None]] = []
+        self._device_events = _DeviceEvents(_DEVICE_EVENTS)
+        self._adopter: Span | None = None
 
-    def span(self, name: str, **attrs):
-        """Open a span context manager (no-op singleton when disabled)."""
+    def span(self, name: str, *, device=None, **attrs):
+        """Open a span context manager (no-op singleton when disabled).
+        With ``device``, a tensor, the span also times the work on its
+        device (``device_ms``; the module docstring says how); on a fake
+        tensor or under CUDA-graph capture it is the no-op singleton."""
         if not core.enabled():
             return core.NOOP_SPAN
-        return Span(self, name, attrs)
+        if device is None:
+            return Span(self, name, attrs)
+        dev = _timed_device(device)
+        if dev is None:
+            return core.NOOP_SPAN
+        return _DeviceSpan(self, name, attrs, dev)
+
+    @contextlib.contextmanager
+    def adopting(self, span):
+        """While the block runs, a device-timed span opened on a thread
+        with no open span and no bound context joins ``span``: work the
+        block hands to other threads and waits for, as autograd runs a
+        CUDA backward on its device thread.  No-op for the no-op span."""
+        if not isinstance(span, Span):
+            yield
+            return
+        prev, self._adopter = self._adopter, span
+        try:
+            yield
+        finally:
+            self._adopter = prev
+
+    def drain(self, limit: int | None = None) -> int:
+        """Record the device-timed spans whose work has completed (at most
+        ``limit``), oldest first, without waiting for the device; returns
+        how many still wait."""
+        done, waiting = self._device_events.ready(limit)
+        for span, dur_us, device_ms in done:
+            self._record(span, dur_us, device_ms)
+        return waiting
 
     def add_listener(self, fn: Callable[[dict[str, Any]], None]) -> None:
         """Call ``fn(event)`` for every completed span (flight recorder)."""
         self._listeners.append(fn)
 
-    def _record(self, span: Span, dur_us: float) -> None:
+    def _record(self, span: Span, dur_us: float,
+                device_ms: float | None = None) -> None:
+        args = dict(span.attrs,
+                    parent=span.parent.name if span.parent else None,
+                    depth=span.depth,
+                    trace_id=span.trace_id,
+                    span_id=span.span_id,
+                    parent_span_id=span.parent_id or None)
+        if device_ms is not None:
+            args["device_ms"] = device_ms
         self._append({
             "name": span.name,
             "ph": "X",
@@ -210,13 +449,12 @@ class Tracer:
             "dur": dur_us,
             "pid": _pid(),
             "tid": span.tid,
-            "args": dict(span.attrs,
-                         parent=span.parent.name if span.parent else None,
-                         depth=span.depth,
-                         trace_id=span.trace_id,
-                         span_id=span.span_id,
-                         parent_span_id=span.parent_id or None),
+            "args": args,
         })
+        if device_ms is not None and span.name.startswith("kernel."):
+            from .kernels import record_kernel_time
+            kind, _, phase = span.name[len("kernel."):].partition(".")
+            record_kernel_time(kind, phase, device_ms / 1e3)
 
     def record_span(self, name: str, t0_s: float, dur_s: float, *,
                     trace_id: str | None = None,
@@ -271,7 +509,8 @@ class Tracer:
         with self._lock:
             return {"traceEvents": list(self.events),
                     "displayTimeUnit": "ms",
-                    "metadata": {"dropped": self.dropped}}
+                    "metadata": {"dropped": self.dropped,
+                                 "ts_origin_unix_ns": clock_anchor_ns()}}
 
     def save_chrome_trace(self, path: str | Path) -> Path:
         path = Path(path)
@@ -305,14 +544,21 @@ class Tracer:
         with self._lock:
             self.events.clear()
             self.dropped = 0
+        self._device_events.forget()
 
 
 TRACER = Tracer()
 
 
-def span(name: str, **attrs):
-    """Module-level convenience: ``with trace.span("fit", epochs=2):``."""
-    return TRACER.span(name, **attrs)
+def span(name: str, *, device=None, **attrs):
+    """Module-level convenience: ``with trace.span("fit", epochs=2):``;
+    ``device=t`` times ``t``'s device too (``Tracer.span``)."""
+    return TRACER.span(name, device=device, **attrs)
+
+
+def adopting(span):
+    """Module-level convenience for ``TRACER.adopting``."""
+    return TRACER.adopting(span)
 
 
 def record_span(name: str, t0_s: float, dur_s: float, **kw) -> str | None:

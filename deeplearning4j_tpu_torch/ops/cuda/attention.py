@@ -35,6 +35,7 @@ import ctypes
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from ...observability import tracing as trace
 from ...observability.cost import kernel_work
 from . import build, registry
 
@@ -177,7 +178,11 @@ def attention_fwd(q, k, v, *, causal: bool, frontier: bool):
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, frontier, block_k):
-        out, lse = attention_fwd(q, k, v, causal=causal, frontier=frontier)
+        with trace.span("kernel.attention.forward", device=q,
+                        shape=tuple(q.shape), dtype=str(q.dtype)[6:],
+                        causal=causal):
+            out, lse = attention_fwd(q, k, v, causal=causal,
+                                     frontier=frontier)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.block_k = causal, block_k
         return out
@@ -185,8 +190,9 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _blockwise_bwd(q, k, v, out, lse, do, ctx.causal,
-                                    ctx.block_k)
+        with trace.span("kernel.attention.backward", device=do):
+            dq, dk, dv = _blockwise_bwd(q, k, v, out, lse, do, ctx.causal,
+                                        ctx.block_k)
         return dq, dk, dv, None, None, None
 
 

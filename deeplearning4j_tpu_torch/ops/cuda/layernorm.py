@@ -24,6 +24,7 @@ import ctypes
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from ...observability import tracing as trace
 from ...observability.cost import kernel_work
 from . import build, registry
 
@@ -109,22 +110,23 @@ class _ResidualLayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh):
         y, r2, m2, scale = ctx.saved_tensors
-        y32 = y.float()
-        mu = y32.mean(-1, keepdim=True)
-        var = y32.var(-1, keepdim=True, correction=0)
-        rstd = torch.rsqrt(var + ctx.eps)
-        yhat = (y32 - mu) * rstd
-        dh32 = dh.float()
-        dscale = (dh32 * yhat).sum(0).to(scale.dtype)
-        dbias = dh32.sum(0).to(scale.dtype)
-        dyhat = dh32 * scale.float()
-        g_ln = rstd * (dyhat - dyhat.mean(-1, keepdim=True)
-                       - yhat * (dyhat * yhat).mean(-1, keepdim=True))
-        g = dy.float() + g_ln
-        dm = ((g * r2.float()).sum(-1, keepdim=True)
-              if ctx.needs_input_grad[2] else None)
-        return (g.to(y.dtype), (g * m2).to(r2.dtype), dm, dscale, dbias,
-                None)
+        with trace.span("kernel.layernorm.backward", device=y):
+            y32 = y.float()
+            mu = y32.mean(-1, keepdim=True)
+            var = y32.var(-1, keepdim=True, correction=0)
+            rstd = torch.rsqrt(var + ctx.eps)
+            yhat = (y32 - mu) * rstd
+            dh32 = dh.float()
+            dscale = (dh32 * yhat).sum(0).to(scale.dtype)
+            dbias = dh32.sum(0).to(scale.dtype)
+            dyhat = dh32 * scale.float()
+            g_ln = rstd * (dyhat - dyhat.mean(-1, keepdim=True)
+                           - yhat * (dyhat * yhat).mean(-1, keepdim=True))
+            g = dy.float() + g_ln
+            dm = ((g * r2.float()).sum(-1, keepdim=True)
+                  if ctx.needs_input_grad[2] else None)
+            return (g.to(y.dtype), (g * m2).to(r2.dtype), dm, dscale, dbias,
+                    None)
 
 
 def fused_residual_layernorm(x, r, scale, bias, *, mask=None,

@@ -39,6 +39,7 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
 from ...device import sm_count
+from ...observability import tracing as trace
 from ...observability.cost import kernel_work
 from . import build, registry
 
@@ -209,7 +210,10 @@ def _blocked_bwd(h2, head, t2, w2, lse, gct, block_t: int):
 class _BlockedXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h2, head, t2, w2, block_t):
-        wloss, lse = xent_fwd(h2, head, t2, w2)
+        with trace.span("kernel.xent.forward", device=h2,
+                        shape=tuple(h2.shape), vocab=head.shape[1],
+                        dtype=str(h2.dtype)[6:]):
+            wloss, lse = xent_fwd(h2, head, t2, w2)
         ctx.save_for_backward(h2, head, t2, w2, lse)
         ctx.block_t = block_t
         return wloss.sum()
@@ -217,7 +221,9 @@ class _BlockedXent(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gct):
         h2, head, t2, w2, lse = ctx.saved_tensors
-        dh, dhead, dw = _blocked_bwd(h2, head, t2, w2, lse, gct, ctx.block_t)
+        with trace.span("kernel.xent.backward", device=h2):
+            dh, dhead, dw = _blocked_bwd(h2, head, t2, w2, lse, gct,
+                                         ctx.block_t)
         return dh, dhead, None, dw if ctx.needs_input_grad[3] else None, None
 
 

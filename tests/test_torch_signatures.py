@@ -267,6 +267,12 @@ ALLOWED = {
                      "version (kept)",
     },
     "ops.cuda.kv_quant:init_quantized_paged_cache": {"device": _DEVICE},
+    **{key: {"device": "a tensor whose device the span also times (CUDA "
+                       "events on its stream): JAX's asynchronous dispatch "
+                       "has no stream a span could bracket; keyword-only "
+                       "(kept)"}
+       for key in ("observability.tracing:span",
+                   "observability.tracing:Tracer.span")},
     "ops.cuda.registry:KernelCandidate.__init__": {
         "source": "a candidate is a hand-written CUDA kernel (\"cuda\") or "
                   "a plain torch incumbent, where the reference's is a "
